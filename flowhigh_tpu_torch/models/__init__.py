@@ -1,0 +1,10 @@
+from .bigvgan import AMPBlock1, Activation1d, BigVGAN
+from .melvoco import encode as mel_encode
+from .transformer import ConvPositionEmbed, LearnedSinusoidalPosEmb, Transformer
+from .vector_field import VectorFieldNet, forward_with_cond_scale
+
+__all__ = [
+    "Transformer", "ConvPositionEmbed", "LearnedSinusoidalPosEmb",
+    "VectorFieldNet", "forward_with_cond_scale",
+    "BigVGAN", "Activation1d", "AMPBlock1", "mel_encode",
+]
