@@ -1,5 +1,9 @@
 from .jax_params import (fold_state_dict, fold_weight_norm, seeded_init_,
                          vector_field_state_from_jax, vocoder_state_from_jax)
+from .torch_ckpt import (load_flowhigh_checkpoint, vector_field_state_from_reference,
+                         vocoder_config_from_json, vocoder_state_from_reference)
 
 __all__ = ["fold_weight_norm", "fold_state_dict", "vector_field_state_from_jax",
-           "vocoder_state_from_jax", "seeded_init_"]
+           "vocoder_state_from_jax", "seeded_init_", "load_flowhigh_checkpoint",
+           "vector_field_state_from_reference", "vocoder_config_from_json",
+           "vocoder_state_from_reference"]

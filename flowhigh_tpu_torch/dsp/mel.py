@@ -9,6 +9,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import device_constant
+
 _F_SP = 200.0 / 3.0  # Slaney: Hz per mel below 1 kHz
 _MIN_LOG_HZ = 1000.0
 _MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP  # 15.0
@@ -51,8 +53,14 @@ def mel_filterbank(sr: int = 48000, n_fft: int = 2048, n_mels: int = 256,
 
 
 def apply_mel(spec_mag: torch.Tensor, basis: np.ndarray) -> torch.Tensor:
-    """[..., bins, T] magnitude -> [..., n_mels, T] mel spectrogram."""
-    return torch.matmul(torch.from_numpy(basis).to(spec_mag.device), spec_mag)
+    """[..., bins, T] magnitude -> [..., n_mels, T] mel spectrogram, one
+    [n_mels, bins] x [bins, T] product per row: a batched product may sum
+    in another order than a single one (cuBLAS picks its algorithm by the
+    batch), and a clip's mel must not depend on the batch it rides in."""
+    b = device_constant(basis, spec_mag.device)
+    rows = spec_mag.reshape((-1,) + spec_mag.shape[-2:])
+    out = torch.stack([torch.matmul(b, r) for r in rows])
+    return out.reshape(spec_mag.shape[:-2] + out.shape[-2:])
 
 
 def log_compress(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from scipy.signal import firwin
 
-from ..utils import cudnn_f32
+from ..utils import cudnn_f32, device_constant
 
 
 @functools.lru_cache(maxsize=64)
@@ -80,7 +80,7 @@ def resample_poly(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     start = s0 + pad_left
     if start > 0:
         lhs = lhs[..., start:]
-    rhs = torch.from_numpy(w).to(x.device).reshape(up, 1, kw)
+    rhs = device_constant(w, x.device).reshape(up, 1, kw)
     with cudnn_f32():
         out = F.conv1d(lhs, rhs, stride=down)          # [N, up, >= m_out]
     out = out[:, :, :m_out]

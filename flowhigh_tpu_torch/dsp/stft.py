@@ -57,12 +57,36 @@ def istft(spec: torch.Tensor, n_fft: int = 2048, hop_length: int = 480,
           length: int | None = None) -> torch.Tensor:
     """Inverse STFT, ``center=True`` convention, torch.istft semantics:
     windowed overlap-add over the window-square envelope, the front center
-    padding trimmed, the result cut or zero-padded to ``length``."""
+    padding trimmed, the result cut or zero-padded to ``length``.
+
+    Written out (irfft, ``F.fold`` overlap-add) rather than calling
+    ``torch.istft``, whose envelope check reads a value back to the host:
+    on the card that would stall the thread that dispatches a clip until
+    the device caught up. Samples where the envelope is below 1e-11 (none
+    for a Hann window at this hop) are left undivided instead of raising."""
     if win_length is None:
         win_length = n_fft
     batch_shape = spec.shape[:-2]
     spec = spec.reshape((-1,) + spec.shape[-2:])
-    sig = torch.istft(spec, n_fft, hop_length, win_length,
-                      window=_hann(win_length, spec.real),
-                      center=True, length=length)
+    n_frames = spec.shape[-1]
+    window = _hann(win_length, spec.real)
+    if win_length < n_fft:  # centred in the frame, as torch.istft pads it
+        left = (n_fft - win_length) // 2
+        window = F.pad(window, (left, n_fft - win_length - left))
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-2) * window[:, None]
+    total = n_fft + hop_length * (n_frames - 1)
+
+    def overlap_add(cols: torch.Tensor) -> torch.Tensor:
+        return F.fold(cols, output_size=(1, total), kernel_size=(1, n_fft),
+                      stride=(1, hop_length))[:, 0, 0, :]
+
+    env = overlap_add((window * window)[None, :, None].expand(
+        1, n_fft, n_frames))
+    sig = overlap_add(frames)
+    start = n_fft // 2
+    end = start + length if length is not None else total - n_fft // 2
+    sig, env = sig[:, start:min(end, total)], env[:, start:min(end, total)]
+    sig = torch.where(env > 1e-11, sig / env, sig)
+    if end > total:
+        sig = F.pad(sig, (0, end - total))
     return sig.reshape(batch_shape + sig.shape[-1:])

@@ -8,11 +8,22 @@ with weight norm folded): ``conv_pre``, ``ups.{i}.0``,
 ``resblocks.{n}.convs{1,2}.{j}``, ``resblocks.{n}.activations.{m}.act``,
 ``activation_post``, ``conv_post``, plus the alias-free filter buffers.
 
-The hot path runs through the port's three kernels: every anti-aliased
-snake (kernel A), every resblock conv and ``conv_post`` (kernel B, with the
-MRF branch average folded into the last branch's final conv as residual +
-extras x 1/num_kernels) and the five upsamplers (kernel C). ``conv_pre`` is
-a plain ``F.conv1d``.
+The hot path runs through the port's five kernels. ``fuse_act_conv``
+chooses, as in the JAX package (``flowhigh_tpu/models/bigvgan.py:
+AMPBlock1``), how each AMPBlock1 dilation unit runs:
+
+- ``True`` (the default): the whole unit in one launch (kernel E) where
+  ``ops.amp_unit_plan`` fits it, else each [act -> conv] pair in one launch
+  (kernel D) where ``ops.act_conv_plan`` fits it, else the snake (kernel A)
+  and the conv (kernel B) apart;
+- ``"pairs"``: kernel D for every pair that fits, no units;
+- ``"auto"``: kernel D for the k <= 3 pairs only;
+- ``False``: kernels A and B for everything.
+
+The MRF branch average is folded into the last branch's final kernel as
+residual + extras x 1/num_kernels. ``activation_post`` and ``conv_post``
+run on kernels A and B, the five upsamplers on kernel C; ``conv_pre`` is a
+plain ``F.conv1d``.
 """
 
 from __future__ import annotations
@@ -28,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VocoderConfig
-from ..ops import conv1d, conv_transpose1d, snake_activation1d
+from ..ops import (act_conv1d, act_conv_plan, amp_unit, amp_unit_plan, conv1d,
+                   conv_transpose1d, snake_activation1d)
 from ..utils import cudnn_f32
 
 
@@ -152,8 +164,13 @@ class AMPBlock1(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int], activation: str = "snakebeta",
-                 logscale: bool = True):
+                 logscale: bool = True, fuse_act_conv=True):
         super().__init__()
+        if not (fuse_act_conv is True or fuse_act_conv is False
+                or fuse_act_conv in ("auto", "pairs")):
+            raise ValueError("fuse_act_conv must be True, False, 'auto' or "
+                             f"'pairs', got {fuse_act_conv!r}")
+        self.fuse_act_conv = fuse_act_conv
         self.dilations = tuple(dilations)
         self.convs1 = nn.ModuleList([
             nn.Conv1d(channels, channels, kernel_size, dilation=d,
@@ -167,6 +184,20 @@ class AMPBlock1(nn.Module):
             Activation1d(channels, activation, logscale)
             for _ in range(2 * len(self.dilations))])
 
+    def _act_then_conv(self, x, act: "Activation1d", conv: nn.Conv1d,
+                       dilation: int, residuals=(), out_scale: float = 1.0):
+        """act -> conv as one kernel-D launch where the plan fits it, else
+        kernel A then kernel B."""
+        k = conv.weight.shape[-1]
+        fuse = k <= 3 if self.fuse_act_conv == "auto" else bool(
+            self.fuse_act_conv)
+        if fuse and act_conv_plan(k, dilation, x.shape[1], x.shape[-1]):
+            return act_conv1d(x, act.act.alpha, act.act.beta, act.logscale,
+                              conv.weight, conv.bias, dilation=dilation,
+                              residuals=residuals, out_scale=out_scale)
+        return conv1d(act(x), conv.weight, conv.bias, dilation=dilation,
+                      residuals=residuals, out_scale=out_scale)
+
     def forward(self, x, extra_residuals: Sequence[torch.Tensor] = (),
                 out_scale: float = 1.0):
         """``extra_residuals``/``out_scale`` apply to the last conv only:
@@ -174,20 +205,31 @@ class AMPBlock1(nn.Module):
         n_last = len(self.dilations) - 1
         for j, d in enumerate(self.dilations):
             c1, c2 = self.convs1[j], self.convs2[j]
-            xt = conv1d(self.activations[2 * j](x), c1.weight, c1.bias,
-                        dilation=d)
+            a1, a2 = self.activations[2 * j], self.activations[2 * j + 1]
             last = j == n_last
-            x = conv1d(self.activations[2 * j + 1](xt), c2.weight, c2.bias,
-                       dilation=1,
-                       residuals=(x,) + (tuple(extra_residuals) if last else ()),
-                       out_scale=out_scale if last else 1.0)
+            extras = tuple(extra_residuals) if last else ()
+            scale = out_scale if last else 1.0
+            k = c1.weight.shape[-1]
+            if self.fuse_act_conv is True and amp_unit_plan(
+                    k, d, x.shape[1], x.shape[-1]):
+                x = amp_unit(x, a1.act.alpha, a1.act.beta, a2.act.alpha,
+                             a2.act.beta, a1.logscale, c1.weight, c1.bias,
+                             c2.weight, c2.bias, dilation=d,
+                             extra_residuals=extras, out_scale=scale)
+                continue
+            xt = self._act_then_conv(x, a1, c1, d)
+            x = self._act_then_conv(xt, a2, c2, 1, residuals=(x,) + extras,
+                                    out_scale=scale)
         return x
 
 
 class BigVGAN(nn.Module):
     """conv_pre -> [upsample -> MRF average]* -> act -> conv_post -> tanh."""
 
-    def __init__(self, cfg: VocoderConfig = VocoderConfig()):
+    def __init__(self, cfg: VocoderConfig = VocoderConfig(),
+                 fuse_act_conv=True):
+        """``fuse_act_conv``: True | False | "auto" | "pairs" (see the
+        module docstring)."""
         super().__init__()
         if cfg.resblock != "1":
             raise NotImplementedError("only AMPBlock1 (resblock '1') is ported")
@@ -205,7 +247,8 @@ class BigVGAN(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes,
                               cfg.resblock_dilation_sizes):
                 self.resblocks.append(AMPBlock1(cout, rk, rd, cfg.activation,
-                                                cfg.snake_logscale))
+                                                cfg.snake_logscale,
+                                                fuse_act_conv))
         self.activation_post = Activation1d(cout, cfg.activation,
                                             cfg.snake_logscale)
         self.conv_post = nn.Conv1d(cout, 1, 7, padding=3)

@@ -1,8 +1,10 @@
 from .conv import conv1d, conv1d_plain, conv_transpose1d, conv_transpose1d_plain
 from .fused_act import snake_activation1d, snake_activation1d_plain
+from .fused_conv import (act_conv1d, act_conv1d_plain, act_conv_plan, amp_unit,
+                         amp_unit_plain, amp_unit_plan)
 
 # every kernel wrapper of the port; each carries a ``launches`` count
-KERNELS = (snake_activation1d, conv1d, conv_transpose1d)
+KERNELS = (snake_activation1d, conv1d, conv_transpose1d, act_conv1d, amp_unit)
 
 
 def reset_launch_counts() -> None:
@@ -13,5 +15,6 @@ def reset_launch_counts() -> None:
 __all__ = [
     "snake_activation1d", "snake_activation1d_plain",
     "conv1d", "conv1d_plain", "conv_transpose1d", "conv_transpose1d_plain",
-    "KERNELS", "reset_launch_counts",
+    "act_conv1d", "act_conv1d_plain", "amp_unit", "amp_unit_plain",
+    "act_conv_plan", "amp_unit_plan", "KERNELS", "reset_launch_counts",
 ]

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``build/flowhigh_tpu_torch/<name>-<hash>.so``
-beside the package (the hash is of the source, so an edited kernel is
-rebuilt). All sources compile at once, one ``nvcc`` process each, at the
-first launch of any kernel; the libraries are loaded with ``ctypes``.
+beside the package (the hash is of the source and of the shared headers
+``csrc/*.cuh``, so an edited kernel is rebuilt). All sources compile at
+once, one ``nvcc`` process each, at the first launch of any kernel; the
+libraries are loaded with ``ctypes``.
 Importing this module needs neither ``nvcc`` nor a card.
 """
 
@@ -21,12 +22,14 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "flowhigh_tpu_torch"
-SOURCES = ("snake_aa", "conv1d_same", "conv_transpose1d")
+SOURCES = ("snake_aa", "conv1d_same", "conv_transpose1d", "act_conv1d",
+           "amp_unit")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argument types of each C entry point, in declaration order
+# argument types of each C entry point, in declaration order; every entry
+# point returns a C int (a CUDA error code or a flag) unless RESTYPES says
 SIGNATURES = {
     "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "conv1d_same": {"conv1d_same_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -35,7 +38,15 @@ SIGNATURES = {
     "conv_transpose1d": {
         "conv_transpose1d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "conv_transpose1d_supported": [_I, _I]},
+    "act_conv1d": {
+        "act_conv1d_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
+        "act_conv1d_smem_bytes": [_I, _I, _I]},
+    "amp_unit": {
+        "amp_unit_f32": [_P] * 13 + [_I] * 6 + [_F, _P],
+        "amp_unit_smem_bytes": [_I, _I, _I]},
 }
+RESTYPES = {"act_conv1d_smem_bytes": ctypes.c_longlong,
+            "amp_unit_smem_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,8 +63,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -98,7 +112,7 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
                 for fn, argtypes in SIGNATURES[lib_name].items():
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
                 _libs[lib_name] = lib
         return _libs[name]
 

@@ -1,0 +1,277 @@
+"""The vocoder's fused kernels: kernel D (``csrc/act_conv1d.cu``, one
+act->conv pair) and kernel E (``csrc/amp_unit.cu``, one whole AMPBlock1
+dilation unit), their plain PyTorch versions and the card's fusion plans.
+
+- ``act_conv1d`` replaces ``flowhigh_tpu/ops/packed.py:
+  pallas_packed_act_conv1d``: ``out_scale * (conv(act(x)) + bias +
+  sum(residuals))``, the anti-aliased snake (kernel A's function) computed
+  in shared memory over the conv's input window and never written to device
+  memory. Two edge rules meet here: the snake replicate-pads x at the
+  sequence edges, the conv zero-pads the snake's output.
+- ``amp_unit`` replaces ``flowhigh_tpu/ops/packed.py:pallas_packed_amp_unit``:
+  ``out_scale * (conv2(act2(conv1(act1(x)))) + x + sum(extras))`` with
+  conv1 (K, d) and conv2 (K, 1). act2 replicate-pads conv1's output at the
+  sequence edges (conv1's values outside [0, T) are never used).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises (no fallback: a shape no kernel instance takes is an error).
+
+The plans decide, from shapes alone, where the vocoder routes a unit or a
+pair (``models/bigvgan.py:AMPBlock1``). They are capacity rules for one
+thread block's shared memory on the H100 (227 KB), mirrored from the
+kernels' layouts (``*_smem_bytes`` below, checked against the built
+library on the card by tests/test_torch_kernels.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from . import _build
+from .conv import _check, conv1d_plain
+from .fused_act import _filter, snake_activation1d_plain
+
+SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
+PAIR_TILE = 256          # kernel D's time tile: 32 lanes x 8 samples
+UNIT_PASS = 256          # kernel E's conv1 time extent per block
+TAPS = (3, 7, 11)        # kernel instances (BigVGAN's resblock kernels)
+# input channels per staged chunk (GEMM depth CI x K per chunk)
+PAIR_CHUNK = {3: 8, 7: 4, 11: 2}
+UNIT_CHUNK = {3: 4, 7: 2, 11: 2}
+
+
+def _narrow(c: int) -> bool:
+    """The C = 48, 96 stages: 48 divides C and 64 does not."""
+    return c % 48 == 0 and c % 64 != 0
+
+
+def _pair_bm(c: int) -> int:
+    """Output channels per block of kernel D: 128 (16 warps) where 128
+    divides C, else 48 (C = 48, 96) or 64 (8 warps, as kernel B)."""
+    return 128 if c % 128 == 0 else 48 if _narrow(c) else 64
+
+
+def _unit_bm(c: int) -> int:
+    """Output channels per pass of kernel E: 96 (16 warps) where 96 divides
+    C (the C = 192, 96 stages), else 48 (C = 48) or 64 (8 warps)."""
+    return 96 if c % 96 == 0 else 48 if _narrow(c) else 64
+
+
+def core_smem_floats(k: int, pad: int, bn: int, bm: int, ci: int) -> int:
+    """Floats of shared memory that one act->conv pass over ``bn`` output
+    samples takes (the layout of ``act_conv_tile`` in the sources): two
+    stages of raw input (ci x (bn + 2 pad + 12)), of weights (ci*k x
+    (bm + 4)) and of snake parameters (2 x ci); the 2x-rate snake signal
+    (ci x 2 (bn + 2 pad + 6)); the activation (ci x (bn + 2 pad)); and the
+    12 filter taps."""
+    aw = bn + 2 * pad
+    return (2 * ci * (aw + 12) + 2 * ci * k * (bm + 4) + 2 * 2 * ci
+            + ci * 2 * (aw + 6) + ci * aw + 12)
+
+
+def act_conv_smem_bytes(k: int, dilation: int, c: int) -> int:
+    return 4 * core_smem_floats(k, dilation * (k - 1) // 2, PAIR_TILE,
+                                _pair_bm(c), PAIR_CHUNK[k])
+
+
+def amp_unit_smem_bytes(k: int, dilation: int, c: int) -> int:
+    """conv1's output for all C channels over the pass (C x 256), plus the
+    working set of the wider of the two act->conv passes (conv1's)."""
+    return 4 * (c * UNIT_PASS + core_smem_floats(
+        k, dilation * (k - 1) // 2, UNIT_PASS, _unit_bm(c), UNIT_CHUNK[k]))
+
+
+def unit_halo(k: int) -> int:
+    """Samples of conv1 output a unit tile needs beyond its outputs on each
+    side: conv2's reach (k - 1) / 2 plus act2's reach of 6 (its 12-tap
+    resamplers at the 2x rate)."""
+    return (k - 1) // 2 + 6
+
+
+def act_conv_plan(k: int, dilation: int, c: int, t: int) -> int:
+    """Time tile of kernel D for this pair, 0 = not fusable.
+
+    A block owns BM = 128 (where 128 divides C: the C = 768 and 384 stages
+    the vocoder routes here), 48 (C = 48, 96) or 64 output channels x 256
+    samples and walks Cin in chunks of CI = 8 / 4 / 2 channels
+    (k = 3 / 7 / 11). Per chunk it stages x over the conv window plus the
+    snake's reach, 256 + 2 pad + 12 samples (pad = d (k - 1) / 2), twice
+    (double-buffered), the 2x-rate snake signal and the activation over
+    256 + 2 pad samples, and two stages of the chunk's weights,
+    CI k x (BM + 4) floats. At k = 11, d = 5, BM = 128: 2*2*318 +
+    2*22*132 + 8 + 2*624 + 2*306 + 12 = 8960 floats = 35.8 KB; the largest
+    BigVGAN pair (k = 3, d = 5, CI = 8) takes 69.2 KB, so every pair fits
+    in 227 KB. Only the dilation bounds it: the window outgrows 227 KB near
+    d = 500 at k = 3. The tile does not depend on T; the activation of a
+    chunk is recomputed by each of the C / BM output-channel blocks (6x at
+    C = 768, 1x at C = 48)."""
+    del t  # every T tiles into 256-sample blocks
+    if k not in TAPS:
+        return 0
+    return PAIR_TILE if act_conv_smem_bytes(k, dilation, c) <= SMEM_PER_BLOCK \
+        else 0
+
+
+def amp_unit_plan(k: int, dilation: int, c: int, t: int) -> int:
+    """Time tile (outputs per block) of kernel E for this unit, 0 = not
+    fusable.
+
+    conv2 mixes every channel, so a block that owns a tile of outputs needs
+    conv1's output for ALL C channels over the tile plus a halo of
+    (k - 1) / 2 + 6 samples each side, resident in shared memory while act2
+    and conv2 run from it. The block computes conv1 over a pass of 256
+    samples (8 per thread, kernel B's register tile), so the tile is the
+    pass less both halos: 256 - 2 * 11 = 234 outputs at k = 11 (both convs
+    do 256 / 234 = 1.09x the pair's work). Capacity: C x 256 x 4 bytes of
+    conv1 output plus conv1's act->conv working set (as in kernel D, with
+    chunks of CI = 4 / 2 / 2 channels) must fit 227 KB.
+
+    - C = 48, 96, 192 fit (C = 192, k = 11, d = 5, 96-channel passes:
+      196,608 + 30,208 = 226,816 bytes; the largest, k = 3, d = 5:
+      228,176);
+    - C = 384 needs 393 KB of conv1 output alone, C = 768 786 KB: those
+      units are not fused and their two pairs go to kernel D. (A narrower
+      pass would fit C = 384 at 128 samples, but with 4 samples per thread
+      and 1.21x halo work it ran 2.9-5x slower than the A + B chain of the
+      same unit: PERF.md.)"""
+    del t  # every T tiles into blocks of 256 - 2 halo outputs
+    if k not in TAPS or amp_unit_smem_bytes(k, dilation, c) > SMEM_PER_BLOCK:
+        return 0
+    return UNIT_PASS - 2 * unit_halo(k)
+
+
+# --- plain versions ------------------------------------------------------------
+
+def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
+                     beta: Optional[torch.Tensor], logscale: bool,
+                     w: torch.Tensor, b: Optional[torch.Tensor], *,
+                     dilation: int, residuals: Sequence[torch.Tensor] = (),
+                     out_scale: float = 1.0) -> torch.Tensor:
+    """x [B, Cin, T], w [Cout, Cin, K] -> [B, Cout, T]:
+    conv1d_plain(snake_activation1d_plain(x)) with the epilogue."""
+    return conv1d_plain(snake_activation1d_plain(x, alpha, beta, logscale),
+                        w, b, dilation=dilation, residuals=residuals,
+                        out_scale=out_scale)
+
+
+def amp_unit_plain(x: torch.Tensor, a1: torch.Tensor,
+                   b1: Optional[torch.Tensor], a2: torch.Tensor,
+                   b2: Optional[torch.Tensor], logscale: bool,
+                   w1: torch.Tensor, bias1: Optional[torch.Tensor],
+                   w2: torch.Tensor, bias2: Optional[torch.Tensor], *,
+                   dilation: int, extra_residuals: Sequence[torch.Tensor] = (),
+                   out_scale: float = 1.0) -> torch.Tensor:
+    """x [B, C, T] -> out_scale * (conv2(act2(conv1(act1(x)))) + x +
+    sum(extras)); conv1 is (K, dilation), conv2 (K, 1)."""
+    t = act_conv1d_plain(x, a1, b1, logscale, w1, bias1, dilation=dilation)
+    return act_conv1d_plain(t, a2, b2, logscale, w2, bias2, dilation=1,
+                            residuals=(x,) + tuple(extra_residuals),
+                            out_scale=out_scale)
+
+
+# --- kernel wrappers -------------------------------------------------------------
+
+def _ptr(v: Optional[torch.Tensor]):
+    return v.data_ptr() if v is not None else None
+
+
+def _check_act(what: str, x: torch.Tensor, c: int, alpha, beta) -> None:
+    if alpha.shape != (c,) or (beta is not None and beta.shape != (c,)):
+        raise ValueError(f"{what}: alpha/beta must have shape [C] = [{c}]")
+    _check(what, x, alpha, beta)
+
+
+def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
+               beta: Optional[torch.Tensor], logscale: bool, w: torch.Tensor,
+               b: Optional[torch.Tensor], *, dilation: int,
+               residuals: Sequence[torch.Tensor] = (),
+               out_scale: float = 1.0) -> torch.Tensor:
+    """Fused snake -> dilated "same" conv with bias, up to three residuals
+    and a scale (kernel D)."""
+    residuals = tuple(residuals)
+    if x.device.type == "cpu":
+        return act_conv1d_plain(x, alpha, beta, logscale, w, b,
+                                dilation=dilation, residuals=residuals,
+                                out_scale=out_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"act_conv1d: unsupported device {x.device}")
+    bsz, cin, t = x.shape
+    cout, cin_w, k = w.shape
+    if cin_w != cin or len(residuals) > 3 or bsz > 65535:
+        raise ValueError(f"act_conv1d: bad shapes x {tuple(x.shape)} "
+                         f"w {tuple(w.shape)} or > 3 residuals")
+    if b is not None and b.shape != (cout,):
+        raise ValueError("act_conv1d: bias must have shape [Cout]")
+    if any(r.shape != (bsz, cout, t) for r in residuals):
+        raise ValueError("act_conv1d: residuals must have the output's shape")
+    _check_act("act_conv1d", x, cin, alpha, beta)
+    _check("act_conv1d", x, w, b, *residuals)
+    if not act_conv_plan(k, dilation, cout, t):
+        raise ValueError(f"act_conv1d: no kernel instance for K={k}, "
+                         f"dilation={dilation}")
+    lib = _build.library("act_conv1d")
+    y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
+    rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
+    err = lib.act_conv1d_f32(
+        x.data_ptr(), alpha.data_ptr(), _ptr(beta), _filter(x.device).data_ptr(),
+        w.data_ptr(), _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(), bsz, cin,
+        cout, t, k, dilation, int(logscale), float(out_scale),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "act_conv1d")
+    act_conv1d.launches += 1
+    return y
+
+
+act_conv1d.launches = 0
+
+
+def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
+             a2: torch.Tensor, b2: Optional[torch.Tensor], logscale: bool,
+             w1: torch.Tensor, bias1: Optional[torch.Tensor],
+             w2: torch.Tensor, bias2: Optional[torch.Tensor], *,
+             dilation: int, extra_residuals: Sequence[torch.Tensor] = (),
+             out_scale: float = 1.0) -> torch.Tensor:
+    """One AMPBlock1 dilation unit, act1 -> conv1 -> act2 -> conv2 -> +x
+    (+ up to two extras) x out_scale, in one launch (kernel E)."""
+    extras = tuple(extra_residuals)
+    if x.device.type == "cpu":
+        return amp_unit_plain(x, a1, b1, a2, b2, logscale, w1, bias1, w2,
+                              bias2, dilation=dilation, extra_residuals=extras,
+                              out_scale=out_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"amp_unit: unsupported device {x.device}")
+    bsz, c, t = x.shape
+    k = w1.shape[-1]
+    if (w1.shape != (c, c, k) or w2.shape != (c, c, k) or len(extras) > 2
+            or bsz > 65535):
+        raise ValueError(f"amp_unit: bad shapes x {tuple(x.shape)} "
+                         f"w1 {tuple(w1.shape)} w2 {tuple(w2.shape)} "
+                         f"or > 2 extra residuals")
+    for bias in (bias1, bias2):
+        if bias is not None and bias.shape != (c,):
+            raise ValueError("amp_unit: biases must have shape [C]")
+    if any(r.shape != x.shape for r in extras):
+        raise ValueError("amp_unit: extra residuals must have x's shape")
+    _check_act("amp_unit", x, c, a1, b1)
+    _check_act("amp_unit", x, c, a2, b2)
+    _check("amp_unit", x, w1, w2, bias1, bias2, *extras)
+    if not amp_unit_plan(k, dilation, c, t):
+        raise ValueError(f"amp_unit: no kernel instance for K={k}, "
+                         f"dilation={dilation}, C={c} (see amp_unit_plan)")
+    lib = _build.library("amp_unit")
+    y = torch.empty_like(x)
+    ep = [r.data_ptr() for r in extras] + [None] * (2 - len(extras))
+    err = lib.amp_unit_f32(
+        x.data_ptr(), a1.data_ptr(), _ptr(b1), a2.data_ptr(), _ptr(b2),
+        _filter(x.device).data_ptr(), w1.data_ptr(), _ptr(bias1),
+        w2.data_ptr(), _ptr(bias2), ep[0], ep[1], y.data_ptr(), bsz, c, t, k,
+        dilation, int(logscale), float(out_scale),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "amp_unit")
+    amp_unit.launches += 1
+    return y
+
+
+amp_unit.launches = 0

@@ -1,21 +1,24 @@
 """Device-time breakdown of one ``FlowHighSR.generate`` on the card.
 
-    python -m flowhigh_tpu_torch.profiling
+    python -m flowhigh_tpu_torch.profiling [--unfused]
 
 Runs the main path at full width (``FlowHighConfig()``, seeded weights,
-``independent_cfm_adaptive``, euler, 1 step) on a 10 s, 16 kHz clip, three
+``independent_cfm_adaptive``, euler, 1 step; the default fused vocoder, or
+``fuse_act_conv=False`` with ``--unfused``) on a 10 s, 16 kHz clip, three
 times under ``torch.profiler`` after one warm-up run, and prints one JSON
 object: the
 card, wall ms per clip, device-busy ms per clip (the sum of kernel times on
 the one stream), the idle share (1 - busy / wall) and device ms per kernel
 group, largest first. The full per-kernel table goes to
-``chiprun_out/profile_generate.json``. Needs a CUDA card.
+``chiprun_out/profile_generate.json`` (``profile_generate_unfused.json``).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -29,6 +32,8 @@ SECONDS, REPS = 10.0, 3
 # kernel-name substrings -> group, first match wins
 GROUPS = (
     ("snake_aa", "kernel A: snake_aa"),
+    ("act_conv1d_kernel", "kernel D: act_conv1d"),
+    ("amp_unit_kernel", "kernel E: amp_unit"),
     ("conv1d_gemm", "kernel B: conv1d_same"),
     ("conv1d_narrow", "kernel B: conv1d_same"),
     ("conv_transpose1d_kernel", "kernel C: conv_transpose1d"),
@@ -66,14 +71,16 @@ def clip_signal(seconds: float, sr: int) -> np.ndarray:
             + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
+    unfused = "--unfused" in (sys.argv[1:] if argv is None else argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     sr = FlowHighSR(FlowHighConfig(), cfm_method="independent_cfm_adaptive",
-                    ode_method="euler", device="cuda")
+                    ode_method="euler", fuse_act_conv=not unfused,
+                    device="cuda")
     sr.init_params(0)
     audio = clip_signal(SECONDS, 16000)
     sr.generate(audio, 16000)  # warm-up: kernel build, cuFFT plans, cuDNN
@@ -104,7 +111,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     result = {
-        "card": card, "seconds": SECONDS, "reps": REPS,
+        "card": card, "fuse_act_conv": not unfused, "seconds": SECONDS,
+        "reps": REPS,
         "wall_ms_per_clip": wall_ms, "device_busy_ms_per_clip": busy_ms,
         "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         "groups_ms_per_clip": dict(sorted(groups.items(),
@@ -113,7 +121,8 @@ def main() -> int:
     out_dir = Path.cwd() / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     kernels.sort(key=lambda k: -k["ms_per_clip"])
-    (out_dir / "profile_generate.json").write_text(
+    name = "profile_generate_unfused.json" if unfused else "profile_generate.json"
+    (out_dir / name).write_text(
         json.dumps({**result, "kernels": kernels}, indent=1))
     print(json.dumps(result))
     return 0

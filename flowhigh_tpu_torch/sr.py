@@ -1,16 +1,23 @@
 """FlowHighSR — any-rate -> 48 kHz super-resolution, counterpart of the
-``generate`` surface of ``flowhigh_tpu/sr.py``.
+``generate`` / ``generate_batch`` / ``dispatch_generate`` / ``from_local``
+surface of ``flowhigh_tpu/sr.py``.
 
 One clip runs: polyphase upsample, masked peak-norm, mel encode, cutoff
 search, prior, fixed-grid ODE solve of the vector field, BigVGAN vocode
 (the port's CUDA kernels on the card), spectral low-band splice. Audio is
 bucketed to 1 s multiples at 48 kHz as in the JAX package, so both see the
 same padded shapes; the result is sliced back to the true length.
+
+``_generate_impl`` reads nothing back from the device: the true lengths go
+in as a tensor, the output length is computed on the host from the same
+integers (``valid_samples_48k``), so a caller can keep several clips in
+flight (``serving.ServingPipeline``).
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -19,7 +26,7 @@ import torch
 from .cfm import mel_cutoff_bins, odeint_fixed, sample_prior
 from .compat.jax_params import (seeded_init_, vector_field_state_from_jax,
                                 vocoder_state_from_jax)
-from .config import CFMConfig, FlowHighConfig
+from .config import CFMConfig, FlowHighConfig, ModelConfig
 from .dsp import resample_poly
 from .models import BigVGAN, VectorFieldNet, forward_with_cond_scale, mel_encode
 from .postprocessing import post_process
@@ -28,17 +35,68 @@ from .utils import resolve_device
 BUCKET_SAMPLES = 48000  # 1 s @ 48 kHz — the length bucket
 
 
+def _rates(target_sr: int, in_sr: int) -> tuple[int, int]:
+    g = math.gcd(target_sr, in_sr)
+    return target_sr // g, in_sr // g
+
+
+def valid_samples_48k(n: int, in_sr: int, target_sr: int = 48000) -> int:
+    """floor(n * target_sr / in_sr): the output samples of ``n`` input
+    samples (the host-side twin of ``_prep_and_solve``'s ``n_valid48``)."""
+    up, down = _rates(target_sr, in_sr)
+    q, r = divmod(n, down)
+    return q * up + r * up // down
+
+
+def padded_length(n: int, in_sr: int, target_sr: int = 48000) -> int:
+    """Input samples after bucketing ``n`` so that the output lands on 1 s
+    multiples; raises for a rate too low to fill one bucket sample."""
+    in_bucket = BUCKET_SAMPLES * in_sr // target_sr
+    if in_bucket <= 0:
+        raise ValueError(f"input rate {in_sr} too low for target {target_sr}")
+    return max(in_bucket, math.ceil(n / in_bucket) * in_bucket)
+
+
+def _wire_int16(out: torch.Tensor) -> torch.Tensor:
+    """Waveform -> int16 on the device, round(clip(x * 32767)) (the
+    reference's wav scale), so the device-to-host copy moves half the bytes.
+    The splice ends in a x0.99 peak-norm, so for outputs of ``generate`` the
+    clip never engages and the error is pure quantisation (<= 0.5 / 32767
+    per sample)."""
+    return torch.clamp(torch.round(out * 32767.0), -32768.0,
+                       32767.0).to(torch.int16)
+
+
+def prepare_clip(audio) -> np.ndarray:
+    """[T] or [1, T] waveform -> 1-D float32, or int16 kept as int16 (PCM
+    scale, /32768 on the device); float input with |max| > 1 is taken as
+    int16 scale and divided by 32768 here (the reference's convention)."""
+    audio = np.asarray(audio)
+    if audio.ndim == 2:
+        audio = audio[0]
+    if audio.ndim != 1:
+        raise ValueError(f"audio must be [T] or [1, T], got {audio.shape}")
+    if audio.dtype == np.int16:
+        return audio
+    if audio.size and np.abs(audio).max() > 1:
+        audio = audio / 32768.0
+    return audio.astype(np.float32)
+
+
 class FlowHighSR:
     def __init__(self, config: FlowHighConfig = FlowHighConfig(), params=None,
                  vocoder_params=None, *, cfm_method: Optional[str] = None,
                  sigma: Optional[float] = None,
                  ode_method: Optional[str] = None,
                  prior_semantics: str = "reference",
-                 upsampling_method: str = "scipy", device=None):
+                 upsampling_method: str = "scipy", fuse_act_conv=True,
+                 device=None):
         """``params``/``vocoder_params``: the JAX package's param trees
         (nested dicts of arrays), carried across by ``compat.jax_params``;
         without them the networks keep their constructor init until
-        ``init_params``. ``device=None`` means CUDA, and raises without it."""
+        ``init_params``. ``fuse_act_conv`` (True | False | "auto" |
+        "pairs") chooses the vocoder's kernels (``models/bigvgan.py``).
+        ``device=None`` means CUDA, and raises without it."""
         self.config = config
         self.device = resolve_device(device)
         self.cfm_method = cfm_method or config.cfm.cfm_method
@@ -62,7 +120,7 @@ class FlowHighSR:
                              f"got {prior_semantics!r}")
 
         self.net = VectorFieldNet(config.model).eval()
-        self.vocoder = BigVGAN(config.vocoder).eval()
+        self.vocoder = BigVGAN(config.vocoder, fuse_act_conv).eval()
         if params is not None:
             self.net.load_state_dict(
                 vector_field_state_from_jax(params, config.model))
@@ -78,29 +136,39 @@ class FlowHighSR:
         seeded_init_(self.net, seed)
         seeded_init_(self.vocoder, seed + 1)
 
+    def set_cfm_method(self, cfm_method: str) -> None:
+        if cfm_method not in CFMConfig.CFM_METHODS:
+            raise ValueError(f"unknown cfm_method {cfm_method!r}")
+        self.cfm_method = cfm_method
+
     def _default_stds(self):
         """(std_1, std_2) of the prior: the reference's executed behaviour,
         ``(1.0, sigma)`` for every method (see the JAX package's
         ``FlowHighSR._default_stds``)."""
         return 1.0, self.sigma
 
+    def generator(self, seed: int) -> torch.Generator:
+        """A generator on the model's device seeded with ``seed``."""
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
     # -- the clip pipeline ------------------------------------------------------
 
-    def _prep_and_solve(self, audio: torch.Tensor, n_valid: int,
+    def _prep_and_solve(self, audio: torch.Tensor, n_valid: torch.Tensor,
                         generator: torch.Generator, in_sr: int, target_sr: int,
                         time_steps: int):
         """Upsample + peak-norm + mel encode + cutoff + prior + ODE solve.
-        Returns (sampled mel [B, F, M], cond wav [B, T48], n_valid48)."""
+        ``audio`` [B, T_pad], ``n_valid`` [B] true sample counts (device).
+        Returns (sampled mel [B, F, M], cond wav [B, T48], n_valid48 [B])."""
         hop = self.config.mel.hop_length
         cond = resample_poly(audio, target_sr, in_sr)  # [B, T48_pad]
         # exact floor(n * up / down) without overflow
-        g = math.gcd(target_sr, in_sr)
-        up, down = target_sr // g, in_sr // g
-        q, r = divmod(n_valid, down)
-        n_valid48 = q * up + r * up // down
+        up, down = _rates(target_sr, in_sr)
+        n_valid = n_valid.to(torch.int64)
+        n_valid48 = (n_valid // down) * up + (n_valid % down) * up // down
 
         t48 = cond.shape[-1]
-        valid = torch.arange(t48, device=cond.device)[None, :] < n_valid48
+        valid = torch.arange(t48, device=cond.device)[None, :] \
+            < n_valid48[:, None]
         cond = torch.where(valid, cond, torch.zeros((), device=cond.device))
         peak = torch.amax(torch.abs(cond), dim=-1, keepdim=True)
         cond = cond / torch.clamp(peak, min=1e-8)  # silence-safe
@@ -108,13 +176,20 @@ class FlowHighSR:
         cond_mel = mel_encode(cond, self.config.mel)     # [B, F, 256]
         n_frames = cond_mel.shape[1]
         frame_mask = (torch.arange(n_frames, device=cond.device)[None, :]
-                      < (n_valid48 + hop - 1) // hop)
-        frame_mask = frame_mask.expand(cond.shape[0], -1)
+                      < (n_valid48[:, None] + hop - 1) // hop)
         cutoff = mel_cutoff_bins(cond_mel)
 
+        # the vector field runs row by row: its matmuls at the height of one
+        # clip sum in the same order whatever the batch, so a clip's output
+        # does not depend on the clips batched with it (at full width
+        # batching moved the 48 kHz output by up to 1.6e-4 on an H100;
+        # chip_smoke.py's serving phase holds it to 1e-4)
         def ode_fn(t, x):
-            return forward_with_cond_scale(self.net, x, times=t, cond=cond_mel,
-                                           cond_scale=1.0, mask=frame_mask)
+            return torch.cat([
+                forward_with_cond_scale(self.net, x[i:i + 1], times=t,
+                                        cond=cond_mel[i:i + 1], cond_scale=1.0,
+                                        mask=frame_mask[i:i + 1])
+                for i in range(x.shape[0])])
 
         std_1, std_2 = self._default_stds()
         y0 = sample_prior(generator, self.cfm_method, cond_mel, std_1, std_2,
@@ -123,17 +198,20 @@ class FlowHighSR:
         return sampled, cond, n_valid48
 
     def _align_and_splice(self, hr: torch.Tensor, cond: torch.Tensor,
-                          n_valid48: int) -> torch.Tensor:
+                          n_valid48: torch.Tensor) -> torch.Tensor:
         """Length-align the vocoded audio with the upsampled source, zero the
-        padding, and run the spectral low-band splice."""
+        padding of each row, and run the spectral low-band splice."""
         t_out = min(hr.shape[-1], cond.shape[-1])
-        keep = torch.arange(t_out, device=hr.device)[None, :] < n_valid48
+        keep = torch.arange(t_out, device=hr.device)[None, :] \
+            < n_valid48[:, None]
         hr = torch.where(keep, hr[..., :t_out], torch.zeros((), device=hr.device))
         return post_process(hr, cond[..., :t_out], t_out)
 
-    def _generate_impl(self, audio: torch.Tensor, n_valid: int,
+    def _generate_impl(self, audio: torch.Tensor, n_valid: torch.Tensor,
                        generator: torch.Generator, in_sr: int, target_sr: int,
                        time_steps: int):
+        """[B, T_pad] float32 audio and [B] lengths on the device ->
+        (out [B, T48], n_valid48 [B]) on the device, with no host sync."""
         sampled, cond, n_valid48 = self._prep_and_solve(
             audio, n_valid, generator, in_sr, target_sr, time_steps)
         hr = self.vocoder(sampled)                     # [B, F * hop]
@@ -149,23 +227,99 @@ class FlowHighSR:
         are divided by 32768 there, bit-identical to passing float (int16 is
         exact in float32 and /32768 is a power of two). Float input with
         |max| > 1 is taken as int16 scale too."""
-        audio = np.asarray(audio)
-        if audio.ndim == 2:
-            audio = audio[0]
-        int16_in = audio.dtype == np.int16
-        if not int16_in and np.abs(audio).max() > 1:
-            audio = audio / 32768.0
-
+        audio = prepare_clip(audio)
         n = len(audio)
-        in_bucket = BUCKET_SAMPLES * sr // target_sampling_rate
-        n_pad = max(in_bucket, math.ceil(n / in_bucket) * in_bucket)
-        padded = np.zeros(n_pad, dtype=np.int16 if int16_in else np.float32)
+        padded = np.zeros(padded_length(n, sr, target_sampling_rate),
+                          audio.dtype)
         padded[:n] = audio
-
-        x = torch.from_numpy(padded)[None, :].to(self.device)
-        if int16_in:
-            x = x.to(torch.float32) / 32768.0
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        out, n48 = self._generate_impl(x, n, generator, int(sr),
-                                       int(target_sampling_rate), int(timestep))
+        out, _ = self.dispatch_generate(padded[None], np.array([n]), sr,
+                                        target_sampling_rate, timestep, seed)
+        n48 = valid_samples_48k(n, sr, target_sampling_rate)
         return out[:, :n48].cpu().numpy()
+
+    def dispatch_generate(self, batch, lens, sr: int,
+                          target_sampling_rate: int = 48000,
+                          timestep: int = 1, seed: int = 0,
+                          generator: Optional[torch.Generator] = None,
+                          wire: Optional[str] = None):
+        """Run one pre-padded [B, T] batch (numpy or tensor; int16 rides the
+        int16 input wire) with true lengths ``lens`` [B] and return the
+        DEVICE tensors (out [B, T48], n_valid48 [B]) without waiting for
+        the device: the work is queued on the current stream. ``generator``
+        (on the model's device) overrides ``seed``. ``wire='int16'``
+        converts the output to int16 on the device (``_wire_int16``); the
+        caller divides by 32767 to recover float. Unlike the JAX package's
+        version there is no third (adaptive-solver statistics) result: the
+        adaptive solver is not ported."""
+        if wire not in (None, "float32", "int16"):
+            raise ValueError(f"wire must be None|'float32'|'int16', got {wire!r}")
+        batch = torch.as_tensor(batch).to(self.device, non_blocking=True)
+        lens = torch.as_tensor(lens).to(self.device, non_blocking=True)
+        if batch.dtype == torch.int16:
+            batch = batch.to(torch.float32) / 32768.0
+        if generator is None:
+            generator = self.generator(seed)
+        with torch.inference_mode():
+            out, n48 = self._generate_impl(batch, lens, generator, int(sr),
+                                           int(target_sampling_rate),
+                                           int(timestep))
+            if wire == "int16":
+                out = _wire_int16(out)
+        return out, n48
+
+    def generate_batch(self, audios: list, srs,
+                       target_sampling_rate: int = 48000, timestep: int = 1,
+                       seed: int = 0) -> list:
+        """Batched serving: clips grouped by input rate, each group padded to
+        a shared bucket and run as one batch whose prior draws from one
+        generator seeded with ``seed``. A rate group whose clips are all
+        int16 rides the int16 input wire; a mixed group is scaled to float32
+        on the host (identical results)."""
+        if isinstance(srs, int):
+            srs = [srs] * len(audios)
+        prepped = [prepare_clip(a) for a in audios]
+        by_rate: dict = {}
+        for i, r in enumerate(srs):
+            by_rate.setdefault(int(r), []).append(i)
+        outs: list = [None] * len(audios)
+        for rate, idxs in by_rate.items():
+            n_pad = padded_length(max(len(prepped[i]) for i in idxs), rate,
+                                  target_sampling_rate)
+            all_i16 = all(prepped[i].dtype == np.int16 for i in idxs)
+            batch = np.zeros((len(idxs), n_pad),
+                             np.int16 if all_i16 else np.float32)
+            for row, i in enumerate(idxs):
+                a = prepped[i]
+                if not all_i16 and a.dtype == np.int16:
+                    a = a.astype(np.float32) / 32768.0
+                batch[row, :len(a)] = a
+            lens = np.array([len(prepped[i]) for i in idxs])
+            out, _ = self.dispatch_generate(batch, lens, rate,
+                                            target_sampling_rate, timestep,
+                                            seed)
+            out = out.cpu().numpy()
+            for row, i in enumerate(idxs):
+                n48 = valid_samples_48k(len(prepped[i]), rate,
+                                        target_sampling_rate)
+                outs[i] = out[row:row + 1, :n48]
+        return outs
+
+    # -- checkpoint loading ------------------------------------------------------
+
+    @classmethod
+    def from_local(cls, ckpt_dir, device=None,
+                   model_file: str = "FLowHigh_basic_400k.pt",
+                   cfm_method: Optional[str] = None,
+                   model_config: Optional[ModelConfig] = None,
+                   **kwargs) -> "FlowHighSR":
+        """Load the published PyTorch checkpoint layout from a directory:
+        ``bigvgan_48khz_256band.json`` (the vocoder's config),
+        ``bigvgan_48khz_256band.pt`` (``{'generator': state dict}``, weight
+        norm folded here) and ``model_file`` (``{'model': state dict}`` with
+        the ``flowhigh.`` prefix). ``model_config`` defaults to the published
+        vector field (``ModelConfig()``); ``cfm_method`` to ``basic_cfm`` as
+        in the JAX package. Other keyword arguments go to the constructor."""
+        from .compat.torch_ckpt import load_flowhigh_checkpoint
+        return load_flowhigh_checkpoint(cls, Path(ckpt_dir), model_file,
+                                        cfm_method, model_config, device,
+                                        **kwargs)

@@ -1,10 +1,12 @@
-"""Small helpers shared across the port: device resolution and exact-f32
-cuDNN convolutions."""
+"""Small helpers shared across the port: device resolution, exact-f32
+cuDNN convolutions and device copies of host-designed constants."""
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -31,3 +33,22 @@ def cudnn_f32():
     b = torch.backends.cudnn
     return b.flags(enabled=b.enabled, benchmark=b.benchmark,
                    deterministic=b.deterministic, allow_tf32=False)
+
+
+_constants: dict = {}
+_constants_lock = threading.Lock()
+
+
+def device_constant(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` (a filter or basis designed once on the host and kept alive
+    by its designer's cache) as a tensor on ``device``, copied once. Repeated
+    host-to-device copies of pageable memory inside the pipeline would cost
+    a copy per clip and may stall the host thread that dispatches it."""
+    device = torch.device(device)
+    key = (id(arr), device)
+    with _constants_lock:
+        hit = _constants.get(key)
+        if hit is None or hit[0] is not arr:
+            hit = (arr, torch.from_numpy(arr).to(device))
+            _constants[key] = hit
+        return hit[1]

@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
+
+    python3 scripts/port_kernel_ab.py [TREE]
+
+Imports ``flowhigh_tpu_torch`` from TREE (default: this checkout), so two
+versions of a kernel compare in one call on one card: copy the other
+version's tree into a directory that .gitignore lists (``build/...``) and
+run the script for each tree in turn, A B B A. Prints one JSON line: the
+mean ms of one launch (15 launches after 3 warm-up launches, CUDA events)
+of kernel D (``act_conv1d``) and kernel E (``amp_unit``) at main-path shapes
+of a 10 s clip (C, T, k, d), and, for the yardstick, of kernels A and B at
+the D shapes. Inputs are seeded random tensors. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+PAIRS = [(768, 5000, 3, 1), (768, 5000, 11, 1), (384, 20000, 7, 3),
+         (48, 480000, 3, 1)]
+UNITS = [(192, 80000, 3, 1), (192, 80000, 11, 1), (48, 480000, 7, 3)]
+
+
+def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    tree = Path(sys.argv[1] if len(sys.argv) > 1
+                else Path(__file__).resolve().parents[1]).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import flowhigh_tpu_torch
+    from flowhigh_tpu_torch import ops
+    if not Path(flowhigh_tpu_torch.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"imported {flowhigh_tpu_torch.__file__}, not {tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("port_kernel_ab.py needs a CUDA card")
+
+    gen = np.random.default_rng(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)
+                                * np.float32(scale)).cuda()
+
+    res = {}
+    for c, t, k, d in PAIRS:
+        x = randn(1, c, t)
+        a, b = randn(c, scale=0.3), randn(c, scale=0.3)
+        w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(c, scale=0.1)
+        res[f"D {c} {k} {d}"] = time_ms(
+            lambda: ops.act_conv1d(x, a, b, True, w, bias, dilation=d))
+        res[f"B {c} {k} {d}"] = time_ms(
+            lambda: ops.conv1d(x, w, bias, dilation=d))
+        res[f"A {c}"] = time_ms(lambda: ops.snake_activation1d(x, a, b, True))
+    for c, t, k, d in UNITS:
+        x = randn(1, c, t, scale=0.5)
+        a, b = randn(c, scale=0.3), randn(c, scale=0.3)
+        w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(c, scale=0.1)
+        res[f"E {c} {k} {d}"] = time_ms(lambda: ops.amp_unit(
+            x, a, b, a, b, True, w, bias, w, bias, dilation=d))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"tree": str(tree), "card": card,
+                      "ms": {k: round(v, 3) for k, v in res.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

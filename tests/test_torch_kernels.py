@@ -6,6 +6,9 @@ runs where JAX is not installed, without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +17,10 @@ from flowhigh_tpu_torch import ops
 from flowhigh_tpu_torch.compat import seeded_init_
 from flowhigh_tpu_torch.config import VocoderConfig
 from flowhigh_tpu_torch.models import BigVGAN
+from flowhigh_tpu_torch.ops import _build, fused_conv
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parents[1]
 
 UPSAMPLERS = [(5, 11), (4, 8), (3, 7), (2, 4)]  # BigVGAN's (u, K) pairs
 
@@ -102,15 +107,109 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
         ops.snake_activation1d(x.double(), torch.zeros(8, device=cuda), None)
 
 
-def test_vocoder_on_card_matches_cpu(cuda, gen):
-    cfg = VocoderConfig(upsample_initial_channel=64)
-    voc = seeded_init_(BigVGAN(cfg).eval(), 0)
-    mel = _randn(gen, "cpu", 1, 20, cfg.num_mels)
+# kernels D and E at every (K, d) instance, with T not a multiple of the
+# tile, T shorter than the halo, B = 2 and 0-3 residuals (0-2 extras)
+FUSED = [(k, d) for k in (3, 7, 11) for d in (1, 3, 5)]
+
+
+@pytest.mark.parametrize("k,d", FUSED)
+def test_act_conv1d_kernel_matches_plain(cuda, gen, k, d):
+    i = FUSED.index((k, d))
+    b, c, t = 1 + i % 2, (48, 64, 96, 40)[i % 4], (777, 5, 300)[i % 3]
+    n_res = i % 4
+    x = _randn(gen, cuda, b, c, t)
+    a, be = _randn(gen, cuda, c, scale=0.3), _randn(gen, cuda, c, scale=0.3)
+    w = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    bias = _randn(gen, cuda, c, scale=0.1)
+    res = tuple(_randn(gen, cuda, b, c, t) for _ in range(n_res))
+    args = (x, a, be if i % 3 else None, True, w, bias if i % 2 else None)
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3)
+    n0 = ops.act_conv1d.launches
+    got = ops.act_conv1d(*args, **kw)
+    _close(got, ops.act_conv1d_plain(*args, **kw))
+    assert ops.act_conv1d.launches == n0 + 1
+    # kernel A then kernel B, summed in the same order
+    chain = ops.conv1d(ops.snake_activation1d(*args[:4]), w, args[5], **kw)
+    torch.testing.assert_close(got, chain, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("k,d", FUSED)
+def test_amp_unit_kernel_matches_plain(cuda, gen, k, d):
+    i = FUSED.index((k, d))
+    b, c = 1 + i % 2, (48, 96, 192, 160)[i % 4]
+    t, n_extra = (777, 5, 37, 1000)[i % 4], i % 3
+    x = _randn(gen, cuda, b, c, t, scale=0.5)
+    acts = [_randn(gen, cuda, c, scale=0.3) for _ in range(4)]
+    w1 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    w2 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    b1, b2 = _randn(gen, cuda, c, scale=0.1), _randn(gen, cuda, c, scale=0.1)
+    ex = tuple(_randn(gen, cuda, b, c, t) for _ in range(n_extra))
+    args = (x, acts[0], acts[1] if i % 2 else None, acts[2], acts[3], True,
+            w1, b1, w2, b2 if i % 3 else None)
+    kw = dict(dilation=d, extra_residuals=ex, out_scale=0.5)
+    n0 = ops.amp_unit.launches
+    _close(ops.amp_unit(*args, **kw), ops.amp_unit_plain(*args, **kw))
+    assert ops.amp_unit.launches == n0 + 1
+
+
+def test_fused_smem_arithmetic_matches_the_kernels(cuda):
+    lib_d, lib_e = _build.library("act_conv1d"), _build.library("amp_unit")
+    for c in (768, 384, 192, 96, 48):
+        for k in (3, 7, 11):
+            for d in (1, 3, 5):
+                assert lib_d.act_conv1d_smem_bytes(k, d, c) == \
+                    fused_conv.act_conv_smem_bytes(k, d, c)
+                assert lib_e.amp_unit_smem_bytes(k, d, c) == \
+                    fused_conv.amp_unit_smem_bytes(k, d, c)
+
+
+def test_fused_wrappers_raise_without_an_instance(cuda, gen):
+    x = _randn(gen, cuda, 1, 16, 64)
+    a = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError):  # no K = 5 instance
+        ops.act_conv1d(x, a, None, True, _randn(gen, cuda, 16, 16, 5), None,
+                       dilation=1)
+    wide = _randn(gen, cuda, 1, 384, 64)
+    w = _randn(gen, cuda, 384, 384, 3)
+    aw = torch.zeros(384, device=cuda)
+    with pytest.raises(ValueError, match="amp_unit_plan"):  # does not fit
+        ops.amp_unit(wide, aw, None, aw, None, True, w, None, w, None,
+                     dilation=1)
+
+
+def _main_path_calls(cfg, frames, fuse):
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    calls = chip_smoke.main_path_calls(cfg, frames, fuse)
+    return [sum(calls[k].values()) for k in chip_smoke.KERNEL_NAMES]
+
+
+def _vocoder_on_card_vs_cpu(cuda, gen, cfg, fuse):
+    voc = seeded_init_(BigVGAN(cfg, fuse_act_conv=fuse).eval(), 0)
+    mel = _randn(gen, "cpu", 1, 8, cfg.num_mels)
     with torch.inference_mode():
         want = voc(mel)
         ops.reset_launch_counts()
         got = voc.to(cuda)(mel.to(cuda)).cpu()
-    assert [fn.launches for fn in ops.KERNELS] == [91, 91, 5]
-    # 91 + 91 + 5 kernels in place of cuDNN / the plain chain, through a
+    counts = [fn.launches for fn in ops.KERNELS]
+    # the kernels in place of cuDNN / the plain chain, through a
     # random-weight generator
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    return counts
+
+
+def test_vocoder_on_card_matches_cpu(cuda, gen):
+    # the default path: at C = 512 and 256 no unit fits, so their pairs take
+    # kernel D; the narrower stages take kernel E; all five kernels launch
+    cfg = VocoderConfig(upsample_initial_channel=1024)
+    counts = _vocoder_on_card_vs_cpu(cuda, gen, cfg, True)
+    assert counts == _main_path_calls(cfg, 8, True) == [1, 1, 5, 36, 27]
+
+
+def test_unfused_vocoder_on_card_matches_cpu(cuda, gen):
+    cfg = VocoderConfig(upsample_initial_channel=64)
+    counts = _vocoder_on_card_vs_cpu(cuda, gen, cfg, False)
+    assert counts == [91, 91, 5, 0, 0]

@@ -97,6 +97,11 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         ops.conv_transpose1d(x, torch.empty(4, 2, 4, device="meta"), None,
                              stride=2)
+    a, w = torch.empty(4, device="meta"), torch.empty(4, 4, 3, device="meta")
+    with pytest.raises(ValueError):
+        ops.act_conv1d(x, a, None, True, w, None, dilation=1)
+    with pytest.raises(ValueError):
+        ops.amp_unit(x, a, None, a, None, True, w, None, w, None, dilation=1)
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -113,12 +118,30 @@ def test_chip_smoke_main_path_launch_counts():
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
-    calls = chip_smoke.main_path_calls(port_config.VocoderConfig(), 1000)
-    counts = {k: sum(v.values()) for k, v in calls.items()}
-    # 5 stages x 3 resblocks x 3 dilations x 2 (act, conv) + the post pair
-    assert counts == {"snake_aa": 91, "conv1d_same": 91, "conv_transpose1d": 5}
+    cfg = port_config.VocoderConfig()
+
+    def counts(fuse):
+        calls = chip_smoke.main_path_calls(cfg, 1000, fuse)
+        return calls, {k: sum(v.values()) for k, v in calls.items()}
+
+    # the default path: 9 units per stage; at C = 768 and 384 no unit fits
+    # (2 pairs each), at C <= 192 every unit does; activation_post and
+    # conv_post apart
+    calls, n = counts(True)
+    assert n == {"snake_aa": 1, "conv1d_same": 1, "conv_transpose1d": 5,
+                 "act_conv1d": 36, "amp_unit": 27}
+    assert {k[0] for k in calls["act_conv1d"]} == {768, 384}
+    assert {k[:2] for k in calls["amp_unit"]} == {
+        (192, 80000), (96, 240000), (48, 480000)}
+    # the unfused path: 5 stages x 3 resblocks x 3 dilations x 2 (act, conv)
+    # + the post pair
+    calls, n = counts(False)
+    assert n == {"snake_aa": 91, "conv1d_same": 91, "conv_transpose1d": 5,
+                 "act_conv1d": 0, "amp_unit": 0}
     assert {k[:2] for k in calls["snake_aa"]} == {
         (768, 5000), (384, 20000), (192, 80000), (96, 240000), (48, 480000)}
+    assert counts("pairs")[1]["act_conv1d"] == 90
+    assert counts("auto")[1]["act_conv1d"] == 30  # the k = 3 pairs
 
 
 def test_csrc_is_packaged():
