@@ -7,15 +7,23 @@ Phases (any failure raises and the script exits non-zero):
 
 0. print the card (nvidia-smi name, power limit) and build the CUDA kernels
    from flowhigh_tpu_torch/csrc with nvcc (all sources in parallel);
-1. hold every kernel against its plain PyTorch version on the card at every
-   shape a 10 s, 16 kHz clip gives it on both vocoder paths, the default
-   (``fuse_act_conv=True``: kernels A-E) and the unfused one
-   (``fuse_act_conv=False``: A, B, C), atol 1e-4, rtol 1e-4; time the
+1. hold every vocoder kernel against its plain PyTorch version on the card
+   at every shape a 10 s, 16 kHz clip gives it on both vocoder paths, the
+   default (``fuse_act_conv=True``: kernels A-E) and the unfused one
+   (``fuse_act_conv=False``: A, B, C), and at every shape of the long-form
+   path's vocoder windows (1,064 frames), atol 1e-4, rtol 1e-4; time the
    kernel, the plain version and the one PyTorch library call that computes
    the same function where there is one (CUDA events, median of 15 after 3
    warm-up launches). No single PyTorch call computes kernel D or E; their
    yardstick is the port's own unfused chain of kernels A and B for the same
-   work (``unfused_chain_ms``);
+   work (``unfused_chain_ms``). Kernel F (flash attention) is held against
+   its plain version over every row, masked rows included, at H = 16,
+   D = 64, B in {1, 2} and N in {128, 1,000 (950 valid), 4,096 (4,000
+   valid)}: atol 1e-4 within one block, max 5e-3 and mean 1e-4 over
+   several; at the long-form shape, N = 30,000, 256 random query rows per
+   head against an exact float64 softmax. Its yardstick is
+   ``F.scaled_dot_product_attention`` with a boolean segment mask on the
+   memory-efficient backend;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
    random weights) on a 10 s, 16 kHz clip, first on the default path, then
    on the unfused path: launch counts of every kernel on each run (zeroed
@@ -30,9 +38,22 @@ S. serving: ServingPipeline over 12 x 10 s clips with at most 8 in flight,
    on the CPU (plain versions): max abs waveform difference <= 1e-3; also
    report the card-vs-CPU difference of the log-mel (float32 and float64
    STFT) and of the vocoder alone on one mel;
+L. long-form: the same weights with ``ModelConfig(attn_flash=True)`` run
+   ``generate_longform`` single-pass on a 300 s, 16 kHz clip (vocoder
+   windows of 1,000 + 2 x 32 frames): launch counts (F 2, the vocoder's per
+   window x 30), output shape and finiteness, wall time (median of 3 after
+   the counted run) as RTF, peak device memory, device ms of F against the
+   vocoder (torch.profiler, one run). Checks on 10 s: ``generate_longform``
+   against ``generate`` (<= 2e-4), ``vocode_chunked`` against the whole
+   vocoder on a 2,000-frame mel (<= 1e-5), the flash model's ``generate``
+   against phase 2's dense one (<= 1e-3). StreamingSR on a 60 s clip (10 s
+   chunks, 1 s overlap): RTF on the float32 and int16 wires, int16 within
+   1e-4 of float32, seam LSD against the single-pass output below
+   max(2.0, 2.5 x overall LSD);
 4. print the ``kernels`` JSON line (per kernel: the default path's launches
-   and the per-clip sums over them; the unfused path's in ``unfused_path``),
-   the card line and, last, the ``ok`` line.
+   and the per-clip sums over them, the unfused path's in ``unfused_path``,
+   the long-form path's in ``longform_path``; kernel F's launches and sums
+   are per long-form clip), the card line and, last, the ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
 """
@@ -51,6 +72,8 @@ ROOT = Path(__file__).resolve().parent
 SECONDS, IN_SR = 10.0, 16000
 ATOL = RTOL = 1e-4
 REPS, WARMUP = 15, 3
+# long-form: clip, vocoder windows (the JAX package's defaults)
+LONG_SECONDS, CHUNK, OVERLAP = 300.0, 1000, 32
 
 # published peaks (NVIDIA data sheets): f32 FMA-unit FLOP/s, memory B/s
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
@@ -69,7 +92,9 @@ def card_peaks(name: str) -> tuple[float, float]:
 # --- main-path shapes of a clip -------------------------------------------------
 
 KERNEL_NAMES = ("snake_aa", "conv1d_same", "conv_transpose1d", "act_conv1d",
-                "amp_unit")
+                "amp_unit")  # the vocoder's, in ops.KERNELS order
+FLASH = "flash_attn"
+ALL_KERNELS = KERNEL_NAMES + (FLASH,)
 
 
 def main_path_calls(cfg, frames: int, fuse_act_conv=True):
@@ -111,6 +136,19 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True):
     add("snake_aa", (ch, t))
     add("conv1d_same", (ch, 1, t, 7, 1, 0, 1.0))
     return calls
+
+
+def longform_calls(cfg, frames: int, chunk: int = CHUNK,
+                   overlap: int = OVERLAP):
+    """``main_path_calls`` of ``FlowHighSR.vocode_chunked``: one whole
+    forward when ``frames`` fits one window, else ceil(frames / chunk)
+    windows of chunk + 2 * overlap frames."""
+    window = chunk + 2 * overlap
+    if frames <= window:
+        return main_path_calls(cfg, frames)
+    n = -(-frames // chunk)
+    return {k: {key: c * n for key, c in v.items()}
+            for k, v in main_path_calls(cfg, window).items()}
 
 
 SNAKE_OPS = 56.0  # per sample: 2 x 6 up taps, snake on 2 samples, 12 down
@@ -299,6 +337,109 @@ def path_totals(calls: dict, rows: dict) -> dict:
     return out
 
 
+# --- kernel F ------------------------------------------------------------------
+
+FLASH_H, FLASH_D, FLASH_SCALE = 16, 64, 10.0  # the model's heads, width, qk scale
+# (B, N, valid frames of each row): the mask's tail is False
+FLASH_SHAPES = ((1, 128, (128,)), (2, 128, (128, 120)), (1, 1000, (950,)),
+                (2, 1000, (950, 998)), (1, 4096, (4000,)),
+                (2, 4096, (4000, 4094)))
+
+
+def flash_work(valids, n: int) -> tuple[float, float]:
+    """(bytes: q, k, v read, out written, the mask; operations: the two
+    products over the pairs of one segment, which is what these masks
+    need) of one call of kernel F."""
+    pairs = sum(v * v + (n - v) * (n - v) for v in valids)
+    byt = 16.0 * len(valids) * FLASH_H * n * FLASH_D + len(valids) * n
+    return byt, 4.0 * FLASH_H * FLASH_D * pairs
+
+
+def check_flash(peaks, long_frames: int) -> dict:
+    """Phase 1, kernel F: against its plain version over every row at
+    ``FLASH_SHAPES``, and at the long-form shape (B = 1, N = long_frames,
+    all valid) 256 random query rows per head against an exact float64
+    softmax; times of the kernel, the plain version and SDPA at each."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.ops.flash_attn import flash_block
+
+    flops, bw = peaks
+    rng = np.random.default_rng(2)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).cuda()
+
+    def row(valids, n, err_max, err_mean, reps, warmup, fns):
+        byt, opn = flash_work(valids, n)
+        run, plain, lib = fns
+        return {"max_abs_err": err_max, "mean_abs_err": err_mean,
+                "bytes": byt, "ops": opn, "bytes_ms": byt / bw * 1e3,
+                "ops_ms": opn / flops * 1e3,
+                "ms": time_ms(run, reps, warmup),
+                "plain_ms": time_ms(plain, reps, warmup),
+                "library_ms": time_ms(lib, reps, warmup)}
+
+    rows = {}
+    for b, n, valids in FLASH_SHAPES + ((1, long_frames, (long_frames,)),):
+        q, k, v = (randn(b, FLASH_H, n, FLASH_D) for _ in range(3))
+        mask = (torch.arange(n, device="cuda")[None, :]
+                < torch.tensor(valids, device="cuda")[:, None])
+        # SDPA's mask: the pairs of one segment (it has no pad keys, so a
+        # masked row's softmax differs from F's; it is a yardstick only)
+        same = (mask[:, None, :, None] == mask[:, None, None, :])
+
+        def lib():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=same, scale=FLASH_SCALE)
+
+        fns = (lambda: ops.flash_attention(q, k, v, mask, FLASH_SCALE),
+               lambda: ops.flash_attention_plain(q, k, v, mask, FLASH_SCALE),
+               lib)
+        got = fns[0]()
+        if n == long_frames:
+            sel = torch.from_numpy(np.stack([rng.choice(n, 256, replace=False)
+                                             for _ in range(FLASH_H)])).cuda()
+            qs = torch.gather(q[0].double(), 1,
+                              sel[..., None].expand(-1, -1, FLASH_D))
+            s = torch.matmul(qs, k[0].double().transpose(-1, -2)) * FLASH_SCALE
+            want = torch.matmul(s.softmax(dim=-1), v[0].double())
+            got = torch.gather(got[0].double(), 1,
+                               sel[..., None].expand(-1, -1, FLASH_D))
+            del s
+            reps, warmup = 5, 1
+        else:
+            want = fns[1]().double()
+            reps, warmup = REPS, WARMUP
+        d = (got.double() - want).abs()
+        err_max, err_mean = float(d.max()), float(d.mean())
+        single = flash_block(n) >= n
+        ok = (bool(torch.isfinite(got).all())
+              and (err_max <= 1e-4 if single
+                   else err_max < 5e-3 and err_mean < 1e-4))
+        key = (b, n) + tuple(valids)
+        print(f"  flash_attn {key}: max_abs {err_max:.3e} mean_abs "
+              f"{err_mean:.3e} ({'one block, atol 1e-4' if single else 'several blocks, max 5e-3, mean 1e-4'}"
+              f"{', 256 rows per head vs float64' if n == long_frames else ', every row'}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attn at {key} disagrees with its "
+                                 "reference")
+        del got, want, d
+        rows[key] = row(valids, n, err_max, err_mean, reps, warmup, fns)
+        r = rows[key]
+        print(f"    {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, SDPA "
+              f"{r['library_ms']:.3f}, bound {max(r['bytes_ms'], r['ops_ms']):.3f})",
+              flush=True)
+        del q, k, v, mask, same, fns
+    return rows
+
+
 # --- end to end ----------------------------------------------------------------
 
 def make_sr(config, device: str, seed: int = 0, fuse_act_conv=True):
@@ -312,7 +453,7 @@ def make_sr(config, device: str, seed: int = 0, fuse_act_conv=True):
 
 def launch_counts() -> dict:
     from flowhigh_tpu_torch import ops
-    return {k: fn.launches for k, fn in zip(KERNEL_NAMES, ops.KERNELS)}
+    return {k: fn.launches for k, fn in zip(ALL_KERNELS, ops.KERNELS)}
 
 
 def run_main_path(sr, audio: np.ndarray, in_sr: int) -> tuple[np.ndarray, dict]:
@@ -337,10 +478,11 @@ def clip_ms_of(sr, audio: np.ndarray, reps: int = 5) -> list:
     return times
 
 
-def check_launches(what: str, counts: dict, calls: dict) -> None:
+def check_launches(what: str, counts: dict, calls: dict,
+                   flash: int = 0) -> None:
     expected = {k: sum(calls[k].values()) for k in KERNEL_NAMES}
-    print(f"phase 2: {what}: launches {counts} (expected {expected})",
-          flush=True)
+    expected[FLASH] = flash
+    print(f"{what}: launches {counts} (expected {expected})", flush=True)
     if counts != expected:
         raise AssertionError(f"{what}: launches {counts}, expected {expected}")
 
@@ -423,6 +565,136 @@ def stage_diffs(sr_gpu, sr_cpu, audio: np.ndarray) -> dict:
     return out
 
 
+def longform_phase(config, dense_out: np.ndarray, audio10: np.ndarray) -> dict:
+    """Phase L (see the module docstring); ``dense_out`` is phase 2's
+    default-path output of ``audio10``."""
+    import dataclasses
+
+    import torch
+
+    from flowhigh_tpu_torch import (StreamingSR, boundary_lsd,
+                                    log_spectral_distance, ops)
+    from flowhigh_tpu_torch.dsp import resample_poly
+    from flowhigh_tpu_torch.models import mel_encode
+    from flowhigh_tpu_torch.profiling import clip_signal, device_profile
+
+    cfg = config.replace(model=dataclasses.replace(config.model,
+                                                   attn_flash=True))
+    sr = make_sr(cfg, "cuda")  # phase 2's seed: the same weights
+    audio = clip_signal(LONG_SECONDS, IN_SR)
+    n48 = int(LONG_SECONDS * 48000)
+    calls = longform_calls(cfg.vocoder, n48 // cfg.mel.hop_length)
+
+    def run():
+        return sr.generate_longform(audio, IN_SR, timestep=1,
+                                    vocoder_chunk_frames=CHUNK,
+                                    vocoder_overlap_frames=OVERLAP)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase L: {LONG_SECONDS:g} s clip single-pass: out {out.shape} "
+          f"finite={bool(np.isfinite(out).all())}, first run {first_s:.2f} s, "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    if out.shape != (1, n48) or not np.isfinite(out).all():
+        raise AssertionError(f"long-form: bad output {out.shape}")
+    # one euler step: one vector-field pass, one F launch per layer
+    check_launches("phase L: long-form path", counts, calls,
+                   flash=cfg.model.depth)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel did not run on the long-form path: "
+                             f"{counts}")
+    del out
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    clip_ms = float(np.median(times))
+    wall_prof, groups, kernels = device_profile(run, 1)
+    f_ms = groups.get("kernel F: flash_attn", 0.0)
+    voc_ms = sum(ms for g, ms in groups.items()
+                 if g.startswith("kernel ") and not g.startswith("kernel F"))
+    busy = sum(groups.values())
+    print(f"phase L: {clip_ms:.1f} ms per {LONG_SECONDS:g} s clip (median of "
+          f"3: {[round(t, 1) for t in times]}), RTF "
+          f"{LONG_SECONDS * 1e3 / clip_ms:.1f}; traced: F {f_ms:.1f} ms, "
+          f"vocoder kernels A-E {voc_ms:.1f} ms, device busy {busy:.1f} of "
+          f"{wall_prof:.1f} ms wall", flush=True)
+
+    # checks on 10 s
+    whole = sr.generate(audio10, IN_SR, timestep=1)
+    lf = sr.generate_longform(audio10, IN_SR, timestep=1,
+                              vocoder_chunk_frames=250,
+                              vocoder_overlap_frames=OVERLAP)
+    d_lf = float(np.abs(lf - whole).max()) if lf.shape == whole.shape \
+        else float("inf")
+    x20 = resample_poly(torch.from_numpy(clip_signal(20.0, IN_SR))[None]
+                        .cuda(), 48000, IN_SR)
+    with torch.inference_mode():
+        mel = mel_encode(x20)
+        d_voc = float((sr.vocode_chunked(mel) - sr.vocoder(mel)).abs().max())
+    d_fd = float(np.abs(whole - dense_out).max())
+    print(f"phase L: 10 s: generate_longform (windows of 250 frames) vs "
+          f"generate {d_lf:.3e} (<= 2e-4); vocode_chunked vs whole vocoder "
+          f"on {mel.shape[1]} frames {d_voc:.3e} (<= 1e-5); flash vs dense "
+          f"generate {d_fd:.3e} (<= 1e-3)", flush=True)
+    if not (d_lf <= 2e-4 and d_voc <= 1e-5 and d_fd <= 1e-3):
+        raise AssertionError(f"long-form 10 s checks failed: {d_lf}, "
+                             f"{d_voc}, {d_fd}")
+
+    # StreamingSR on 60 s against the single pass
+    audio60 = clip_signal(60.0, IN_SR)
+    single = sr.generate_longform(audio60, IN_SR, timestep=1)
+    streams = {}
+    for wire in ("float32", "int16"):
+        st = StreamingSR(sr, chunk_seconds=10.0, overlap_seconds=1.0,
+                         wire=wire)
+        if wire == "float32":
+            st.generate(audio60, IN_SR)  # warm-up: the 10 s chunk shapes
+        t0 = time.perf_counter()
+        got = st.generate(audio60, IN_SR)
+        streams[wire] = (got, time.perf_counter() - t0)
+        if got.shape != single.shape or not np.isfinite(got).all():
+            raise AssertionError(f"StreamingSR ({wire}): bad output "
+                                 f"{got.shape}")
+    (f32, wall32), (i16, wall16) = streams["float32"], streams["int16"]
+    d_wire = float(np.abs(i16 - f32).max())
+    hop_in = int(10.0 * IN_SR) - int(1.0 * IN_SR)
+    n_chunks = 1 + -(-(len(audio60) - int(10.0 * IN_SR)) // hop_in)
+    boundaries = [c * hop_in * 3 for c in range(1, n_chunks)]
+    seam = boundary_lsd(single, f32, boundaries, window=24000)
+    overall = float(log_spectral_distance(single, f32)[0])
+    print(f"phase L: StreamingSR 60 s ({n_chunks} chunks): RTF "
+          f"{60.0 / wall32:.1f} (float32 wire), {60.0 / wall16:.1f} (int16); "
+          f"int16 vs float32 {d_wire:.3e} (<= 1e-4); seam LSD {seam:.4f} dB "
+          f"vs overall {overall:.4f} dB (bound {max(2.0, 2.5 * overall):.4f})",
+          flush=True)
+    if not (d_wire <= 1e-4 and seam < max(2.0, 2.5 * overall)
+            and np.isfinite(seam) and np.isfinite(overall)):
+        raise AssertionError(f"StreamingSR checks failed: {d_wire}, {seam}, "
+                             f"{overall}")
+    return {"launches": counts, "clip_ms": clip_ms,
+            "clip_ms_all": times, "rtf": LONG_SECONDS * 1e3 / clip_ms,
+            "first_run_s": first_s, "peak_bytes": peak,
+            "traced": {"wall_ms": wall_prof, "device_busy_ms": busy,
+                       "flash_ms": f_ms, "vocoder_kernels_ms": voc_ms,
+                       "groups_ms": groups, "kernels": kernels[:40]},
+            "longform_vs_generate_10s": d_lf,
+            "vocode_chunked_vs_whole_2000_frames": d_voc,
+            "flash_vs_dense_generate_10s": d_fd,
+            "streaming": {"chunks": n_chunks, "rtf_float32": 60.0 / wall32,
+                          "rtf_int16": 60.0 / wall16,
+                          "int16_vs_float32": d_wire, "seam_lsd_db": seam,
+                          "overall_lsd_db": overall}}
+
+
 SOURCES = {
     "snake_aa": ("flowhigh_tpu_torch/csrc/snake_aa.cu",
                  "flowhigh_tpu/ops/fused_act.py:193, flowhigh_tpu/ops/packed.py:749"),
@@ -435,6 +707,9 @@ SOURCES = {
                    "flowhigh_tpu/ops/packed.py:1043 (pallas_packed_act_conv1d)"),
     "amp_unit": ("flowhigh_tpu_torch/csrc/amp_unit.cu",
                  "flowhigh_tpu/ops/packed.py:1362 (pallas_packed_amp_unit)"),
+    FLASH: ("flowhigh_tpu_torch/csrc/flash_attn.cu",
+            "flowhigh_tpu/models/transformer.py:150 (_flash_attention, "
+            ":120, the Pallas TPU flash_attention kernel)"),
 }
 RECORD = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
           "unfused_chain_ms", "max_abs_err", "launches")
@@ -484,21 +759,28 @@ def main() -> int:
     frames = int(SECONDS * 48000) // config.mel.hop_length
     calls = main_path_calls(config.vocoder, frames)
     calls_unfused = main_path_calls(config.vocoder, frames, False)
+    long_frames = int(LONG_SECONDS * 48000) // config.mel.hop_length
+    calls_long = longform_calls(config.vocoder, long_frames)
 
-    # phase 1: kernels against plain versions at every shape of both paths
+    # phase 1: kernels against plain versions at every shape of the paths
     t0 = time.perf_counter()
-    shapes = {k: set(calls[k]) | set(calls_unfused[k]) for k in KERNEL_NAMES}
+    shapes = {k: set(calls[k]) | set(calls_unfused[k]) | set(calls_long[k])
+              for k in KERNEL_NAMES}
     rows = check_kernels(shapes, "cuda", peaks)
     main_tot = path_totals(calls, rows)
     unfused_tot = path_totals(calls_unfused, rows)
-    print(f"phase 1: {sum(len(v) for v in shapes.values())} shapes checked "
-          f"and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 1: {sum(len(v) for v in shapes.values())} vocoder shapes "
+          f"checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
     for k, r in main_tot.items():
         print(f"  {k}: {r['launches']} launches, {r['ms']:.2f} ms per clip "
               f"(plain {r['plain_ms']:.2f}, bound {r['bound_ms']:.2f} "
               f"{r['bound_by']}, library {r['library_ms']}, unfused chain "
               f"{r['unfused_chain_ms']}), max abs err {r['max_abs_err']:.2e}",
               flush=True)
+    t0 = time.perf_counter()
+    flash_rows = check_flash(peaks, long_frames)
+    print(f"phase 1: flash_attn checked and timed at {len(flash_rows)} shapes "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 2: full width, 10 s clip, default path then unfused path
     sr = make_sr(config, "cuda")
@@ -509,8 +791,8 @@ def main() -> int:
           f"finite={bool(np.isfinite(out).all())}", flush=True)
     if out.shape != (1, int(SECONDS * 48000)) or not np.isfinite(out).all():
         raise AssertionError(f"bad output {out.shape}")
-    check_launches("default path", counts, calls)
-    if min(counts.values()) == 0:
+    check_launches("phase 2: default path", counts, calls)
+    if min(counts[k] for k in KERNEL_NAMES) == 0:
         raise AssertionError(f"a kernel did not run on the main path: {counts}")
     times = clip_ms_of(sr, audio)
     clip_ms = float(np.median(times))
@@ -520,7 +802,7 @@ def main() -> int:
 
     sr_unf = make_sr(config, "cuda", fuse_act_conv=False)
     out_unf, counts_unf = run_main_path(sr_unf, audio, IN_SR)
-    check_launches("unfused path", counts_unf, calls_unfused)
+    check_launches("phase 2: unfused path", counts_unf, calls_unfused)
     times_unf = clip_ms_of(sr_unf, audio)
     clip_ms_unf = float(np.median(times_unf))
     paths_diff = float(np.abs(out - out_unf).max())
@@ -550,15 +832,30 @@ def main() -> int:
     if out_gpu.shape != out_cpu.shape or not diff <= 1e-3:
         raise AssertionError(f"card and CPU disagree: {diff}")
 
+    # phase L: long-form, single pass and streamed
+    longform = longform_phase(config, out, audio)
+    long_tot = path_totals(calls_long, rows)
+    r = flash_rows[(1, long_frames, long_frames)]
+    n_f = longform["launches"][FLASH]
+    long_tot[FLASH] = {
+        "launches": n_f,
+        "max_abs_err": max(x["max_abs_err"] for x in flash_rows.values()),
+        "bound_ms": n_f * max(r["bytes_ms"], r["ops_ms"]),
+        "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+        "ms": n_f * r["ms"], "plain_ms": n_f * r["plain_ms"],
+        "library_ms": n_f * r["library_ms"], "unfused_chain_ms": None}
+
     # phase 4: the records
     kernels = []
-    for k in KERNEL_NAMES:
+    for k in ALL_KERNELS:
         src, replaces = SOURCES[k]
-        r = main_tot[k]
+        r = main_tot.get(k, long_tot[k])
         entry = {"name": k, "route": "cuda", "source": src,
                  "replaces": replaces, **{f: r[f] for f in RECORD}}
         if k in unfused_tot:
             entry["unfused_path"] = {f: unfused_tot[k][f] for f in RECORD}
+        if k in main_tot:
+            entry["longform_path"] = {f: long_tot[k][f] for f in RECORD}
         kernels.append(entry)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -570,7 +867,9 @@ def main() -> int:
         "serving": serving, "phase3_max_abs_diff": diff,
         "phase3_stages": stages, "launches": counts,
         "launches_unfused": counts_unf, "main_path": main_tot,
-        "unfused_path": unfused_tot,
+        "unfused_path": unfused_tot, "longform": longform,
+        "longform_path": long_tot,
+        "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

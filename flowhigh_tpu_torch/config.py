@@ -55,7 +55,9 @@ class ModelConfig:
     conv_pos_embed_kernel_size: int = 31
     attn_qk_norm: bool = True
     attn_qk_norm_scale: float = 10.0
-    attn_flash: bool = False  # JAX package: blockwise attention (long-form); unused here
+    # blockwise attention (kernel F, ops.flash_attention): O(N) memory for
+    # long-form single-pass inference (FlowHighSR.generate_longform)
+    attn_flash: bool = False
     rope_theta: float = 50000.0
     # optional reference transformer features (transformer.py:119-154);
     # off by default and unused by the published checkpoints

@@ -6,8 +6,9 @@ Module and parameter names follow the reference PyTorch layout (the state
 dict of ``FLowHigh.transformer``): layer ``i`` is a ``ModuleList`` whose
 slots 2..5 hold attn-norm, attention, ff-norm and the GEGLU feed-forward
 (slots 0 and 1 are the unused skip-combiner and GateLoop places). Norms,
-softmax and RoPE run in float32; the attention is the plain einsum with a
-key-padding mask.
+softmax and RoPE run in float32. The attention is a dense matmul-softmax-
+matmul with a key-padding mask, or, with ``attn_flash`` (long-form), the
+blockwise kernel F (``ops.flash_attention``) at O(N) memory.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import flash_attention
 from ..utils import cudnn_f32
 
 
@@ -95,12 +97,18 @@ class MultiheadRMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    """Fused-QKV multi-head attention with qk-norm (scale 10) and RoPE."""
+    """Fused-QKV multi-head attention with qk-norm (scale 10) and RoPE.
+    ``use_flash`` routes the scores through ``ops.flash_attention`` (kernel
+    F; O(N) memory, the JAX package's segment-id padding semantics for
+    masked rows) instead of the dense path; it has no parameters of its
+    own."""
 
     def __init__(self, dim: int, heads: int = 16, dim_head: int = 64,
-                 qk_norm: bool = True, qk_norm_scale: float = 10.0):
+                 qk_norm: bool = True, qk_norm_scale: float = 10.0,
+                 use_flash: bool = False):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.use_flash = use_flash
         inner = heads * dim_head
         self.qk_norm = qk_norm
         self.scale = qk_norm_scale if qk_norm else dim_head ** -0.5
@@ -118,6 +126,10 @@ class Attention(nn.Module):
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         q, k = apply_rotary(rotary, q), apply_rotary(rotary, k)
+        if self.use_flash:
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), mask, self.scale)
+            return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
         sim = torch.matmul(q, k.transpose(-1, -2)) * self.scale
         if mask is not None:  # key padding [B, N], True = keep
             sim = sim.masked_fill(~mask[:, None, None, :],
@@ -145,14 +157,16 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, heads: int = 16, dim_head: int = 64,
                  ff_mult: int = 4, qk_norm: bool = True,
-                 qk_norm_scale: float = 10.0, rope_theta: float = 50000.0):
+                 qk_norm_scale: float = 10.0, rope_theta: float = 50000.0,
+                 attn_flash: bool = False):
         super().__init__()
         self.dim_head, self.rope_theta = dim_head, rope_theta
         self.layers = nn.ModuleList([
             nn.ModuleList([
                 nn.Identity(), nn.Identity(),
                 AdaptiveRMSNorm(dim, dim),
-                Attention(dim, heads, dim_head, qk_norm, qk_norm_scale),
+                Attention(dim, heads, dim_head, qk_norm, qk_norm_scale,
+                          use_flash=attn_flash),
                 AdaptiveRMSNorm(dim, dim),
                 feed_forward(dim, ff_mult),
             ]) for _ in range(depth)])

@@ -39,7 +39,8 @@ class VectorFieldNet(nn.Module):
                                             cfg.conv_pos_embed_kernel_size)
         self.transformer = Transformer(
             cfg.dim, cfg.depth, cfg.heads, cfg.dim_head, cfg.ff_mult,
-            cfg.attn_qk_norm, cfg.attn_qk_norm_scale, cfg.rope_theta)
+            cfg.attn_qk_norm, cfg.attn_qk_norm_scale, cfg.rope_theta,
+            attn_flash=cfg.attn_flash)
         self.to_pred = nn.Linear(cfg.dim, cfg.dim_in, bias=False)
 
     def forward(self, x: torch.Tensor, *, times: torch.Tensor,

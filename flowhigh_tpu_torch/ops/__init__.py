@@ -1,10 +1,12 @@
 from .conv import conv1d, conv1d_plain, conv_transpose1d, conv_transpose1d_plain
+from .flash_attn import flash_attention, flash_attention_plain
 from .fused_act import snake_activation1d, snake_activation1d_plain
 from .fused_conv import (act_conv1d, act_conv1d_plain, act_conv_plan, amp_unit,
                          amp_unit_plain, amp_unit_plan)
 
 # every kernel wrapper of the port; each carries a ``launches`` count
-KERNELS = (snake_activation1d, conv1d, conv_transpose1d, act_conv1d, amp_unit)
+KERNELS = (snake_activation1d, conv1d, conv_transpose1d, act_conv1d, amp_unit,
+           flash_attention)
 
 
 def reset_launch_counts() -> None:
@@ -16,5 +18,6 @@ __all__ = [
     "snake_activation1d", "snake_activation1d_plain",
     "conv1d", "conv1d_plain", "conv_transpose1d", "conv_transpose1d_plain",
     "act_conv1d", "act_conv1d_plain", "amp_unit", "amp_unit_plain",
+    "flash_attention", "flash_attention_plain",
     "act_conv_plan", "amp_unit_plan", "KERNELS", "reset_launch_counts",
 ]

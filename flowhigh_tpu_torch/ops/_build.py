@@ -23,7 +23,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "flowhigh_tpu_torch"
 SOURCES = ("snake_aa", "conv1d_same", "conv_transpose1d", "act_conv1d",
-           "amp_unit")
+           "amp_unit", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,8 @@ SIGNATURES = {
     "amp_unit": {
         "amp_unit_f32": [_P] * 13 + [_I] * 6 + [_F, _P],
         "amp_unit_smem_bytes": [_I, _I, _I]},
+    "flash_attn": {"flash_attn_f32": [_P] * 5 + [_I] * 5 + [_F, _P],
+                   "flash_attn_supported": [_I]},
 }
 RESTYPES = {"act_conv1d_smem_bytes": ctypes.c_longlong,
             "amp_unit_smem_bytes": ctypes.c_longlong}

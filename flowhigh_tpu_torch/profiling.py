@@ -31,6 +31,7 @@ SECONDS, REPS = 10.0, 3
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
+    ("flash_attn", "kernel F: flash_attn"),
     ("snake_aa", "kernel A: snake_aa"),
     ("act_conv1d_kernel", "kernel D: act_conv1d"),
     ("amp_unit_kernel", "kernel E: amp_unit"),
@@ -63,6 +64,34 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
+def device_profile(fn, reps: int) -> tuple[float, dict, list]:
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` (the caller warms
+    it up first): (wall ms per run, {kernel group: device ms per run},
+    per-kernel rows largest first)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+
+    groups: dict = {}
+    kernels = []
+    for evt in prof.key_averages():
+        us = _self_device_us(evt)
+        if us <= 0:
+            continue
+        ms = us / 1e3 / reps
+        kernels.append({"name": evt.key, "ms_per_clip": ms,
+                        "calls_per_clip": evt.count / reps})
+        g = _group(evt.key)
+        groups[g] = groups.get(g, 0.0) + ms
+    kernels.sort(key=lambda k: -k["ms_per_clip"])
+    return wall_ms, dict(sorted(groups.items(), key=lambda kv: -kv[1])), kernels
+
+
 def clip_signal(seconds: float, sr: int) -> np.ndarray:
     """bench.py's test signal: two tones + a little noise, seed 0."""
     rng = np.random.default_rng(0)
@@ -86,26 +115,8 @@ def main(argv=None) -> int:
     sr.generate(audio, 16000)  # warm-up: kernel build, cuFFT plans, cuDNN
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(REPS):
-            sr.generate(audio, 16000)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / REPS
-
-    groups: dict = {}
-    kernels = []
-    for evt in prof.key_averages():
-        us = _self_device_us(evt)
-        if us <= 0:
-            continue
-        ms = us / 1e3 / REPS
-        kernels.append({"name": evt.key, "ms_per_clip": ms,
-                        "calls_per_clip": evt.count / REPS})
-        g = _group(evt.key)
-        groups[g] = groups.get(g, 0.0) + ms
+    wall_ms, groups, kernels = device_profile(
+        lambda: sr.generate(audio, 16000), REPS)
     busy_ms = sum(groups.values())
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -115,12 +126,10 @@ def main(argv=None) -> int:
         "reps": REPS,
         "wall_ms_per_clip": wall_ms, "device_busy_ms_per_clip": busy_ms,
         "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
-        "groups_ms_per_clip": dict(sorted(groups.items(),
-                                          key=lambda kv: -kv[1])),
+        "groups_ms_per_clip": groups,
     }
     out_dir = Path.cwd() / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    kernels.sort(key=lambda k: -k["ms_per_clip"])
     name = "profile_generate_unfused.json" if unfused else "profile_generate.json"
     (out_dir / name).write_text(
         json.dumps({**result, "kernels": kernels}, indent=1))

@@ -1,6 +1,7 @@
 """FlowHighSR — any-rate -> 48 kHz super-resolution, counterpart of the
-``generate`` / ``generate_batch`` / ``dispatch_generate`` / ``from_local``
-surface of ``flowhigh_tpu/sr.py``.
+``generate`` / ``generate_batch`` / ``dispatch_generate`` /
+``generate_longform`` / ``vocode_chunked`` / ``from_local`` surface of
+``flowhigh_tpu/sr.py``.
 
 One clip runs: polyphase upsample, masked peak-norm, mel encode, cutoff
 search, prior, fixed-grid ODE solve of the vector field, BigVGAN vocode
@@ -303,6 +304,72 @@ class FlowHighSR:
                                         target_sampling_rate)
                 outs[i] = out[row:row + 1, :n48]
         return outs
+
+    # -- long-form single-pass mode ---------------------------------------------
+
+    def vocode_chunked(self, mel, chunk_frames: int = 1000,
+                       overlap_frames: int = 32) -> torch.Tensor:
+        """Chunked BigVGAN decode, equal to the whole one: [B, F, M] mel ->
+        [B, F * hop] waveform, a tensor on the model's device.
+
+        Every window holds ``chunk + 2 * overlap`` real mel frames (shifted
+        inward at the clip's edges, never zero-padded), so each output
+        sample sees the same frames as in the whole decode: BigVGAN is a
+        pure conv stack whose receptive field is far inside 32 frames. Only
+        the last window's transposed-conv tail is kept past its chunk, as
+        the whole decode computes it. All windows are queued on the current
+        stream; nothing is read back."""
+        hop = self.config.mel.hop_length
+        mel = torch.as_tensor(mel, device=self.device)
+        f = mel.shape[1]
+        f_prog = chunk_frames + 2 * overlap_frames
+        with torch.inference_mode():
+            if f <= f_prog:
+                return self.vocoder(mel)
+            parts = []
+            for c0 in range(0, f, chunk_frames):
+                c1 = min(c0 + chunk_frames, f)
+                lo = max(0, min(c0 - overlap_frames, f - f_prog))
+                out = self.vocoder(mel[:, lo:lo + f_prog])
+                off = (c0 - lo) * hop
+                n = out.shape[-1] - off if c1 == f else (c1 - c0) * hop
+                parts.append(out[:, off:off + n])
+            return torch.cat(parts, dim=1)
+
+    def generate_longform(self, audio: np.ndarray, sr: int,
+                          target_sampling_rate: int = 48000, timestep: int = 1,
+                          seed: int = 0, vocoder_chunk_frames: int = 1000,
+                          vocoder_overlap_frames: int = 32) -> np.ndarray:
+        """Single-pass long-form inference: [T] or [1, T] waveform at ``sr``
+        -> [1, T'] at 48 kHz. The vector field sees the whole clip at once
+        (no seams from chunked flow matching); only the vocoder runs in
+        windows (``vocode_chunked``, equal to the whole decode), and the
+        spectral splice runs over the whole waveform.
+
+        Build the model with ``ModelConfig(attn_flash=True)``: the attention
+        then runs kernel F at O(N) memory, where the dense scores of a
+        5-minute clip (30,000 frames) would take 57.6 GB. Input handling is
+        the JAX package's for this mode: float or int16 samples are divided
+        by 32768 when |max| > 1. The result is read back once."""
+        audio = np.asarray(audio)
+        if audio.ndim == 2:
+            audio = audio[0]
+        audio = prepare_clip(audio.astype(np.float32))
+        n = len(audio)
+        padded = np.zeros(padded_length(n, sr, target_sampling_rate),
+                          np.float32)
+        padded[:n] = audio
+        batch = torch.from_numpy(padded)[None].to(self.device)
+        lens = torch.tensor([n], device=self.device)
+        with torch.inference_mode():
+            sampled, cond, n_valid48 = self._prep_and_solve(
+                batch, lens, self.generator(seed), int(sr),
+                int(target_sampling_rate), int(timestep))
+            hr = self.vocode_chunked(sampled, vocoder_chunk_frames,
+                                     vocoder_overlap_frames)
+            out = self._align_and_splice(hr, cond, n_valid48)
+        n48 = valid_samples_48k(n, sr, target_sampling_rate)
+        return out[:, :n48].cpu().numpy()
 
     # -- checkpoint loading ------------------------------------------------------
 

@@ -203,13 +203,70 @@ def _vocoder_on_card_vs_cpu(cuda, gen, cfg, fuse):
 
 def test_vocoder_on_card_matches_cpu(cuda, gen):
     # the default path: at C = 512 and 256 no unit fits, so their pairs take
-    # kernel D; the narrower stages take kernel E; all five kernels launch
+    # kernel D; the narrower stages take kernel E; all five vocoder kernels
+    # launch, and the attention kernel F does not
     cfg = VocoderConfig(upsample_initial_channel=1024)
     counts = _vocoder_on_card_vs_cpu(cuda, gen, cfg, True)
-    assert counts == _main_path_calls(cfg, 8, True) == [1, 1, 5, 36, 27]
+    assert counts[:5] == _main_path_calls(cfg, 8, True) == [1, 1, 5, 36, 27]
+    assert counts[5:] == [0]
 
 
 def test_unfused_vocoder_on_card_matches_cpu(cuda, gen):
     cfg = VocoderConfig(upsample_initial_channel=64)
     counts = _vocoder_on_card_vs_cpu(cuda, gen, cfg, False)
-    assert counts == [91, 91, 5, 0, 0]
+    assert counts == [91, 91, 5, 0, 0, 0]
+
+
+# kernel F (flash attention) with masks, N not a multiple of the tile or the
+# block, B = 2 and every D instance; all rows, masked ones included
+FLASH = [(1, 2, 128, (128,), 16), (2, 2, 257, (248, 257), 16),
+         (2, 3, 640, (500, 631), 32), (1, 16, 1000, (950,), 64),
+         (2, 16, 1030, (1030, 900), 64), (1, 1, 5, (3,), 32)]
+
+
+@pytest.mark.parametrize("b,h,n,valids,dh", FLASH)
+def test_flash_attention_kernel_matches_plain(cuda, gen, b, h, n, valids, dh):
+    q, k, v = (_randn(gen, cuda, b, h, n, dh) for _ in range(3))
+    mask = (torch.arange(n, device=cuda)[None, :]
+            < torch.tensor(valids, device=cuda)[:, None])
+    n0 = ops.flash_attention.launches
+    for m in (mask, None):
+        got = ops.flash_attention(q, k, v, m, 10.0)
+        torch.cuda.synchronize()
+        # the kernel's running softmax against a dense one, both in f32
+        torch.testing.assert_close(
+            got, ops.flash_attention_plain(q, k, v, m, 10.0),
+            atol=1e-4, rtol=1e-4)
+    assert ops.flash_attention.launches == n0 + 2
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda, gen):
+    q = _randn(gen, cuda, 1, 2, 64, 48)
+    with pytest.raises(ValueError, match="D=48"):  # no instance for D = 48
+        ops.flash_attention(q, q, q, None, 1.0)
+    q = _randn(gen, cuda, 1, 2, 64, 16)
+    with pytest.raises(ValueError):  # not contiguous
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            q, q, None, 1.0)
+    with pytest.raises(ValueError):  # mask of another shape
+        ops.flash_attention(q, q, q, torch.ones(1, 63, dtype=torch.bool,
+                                                device=cuda), 1.0)
+
+
+def test_flash_vector_field_on_card_matches_cpu(cuda, gen):
+    from flowhigh_tpu_torch.config import ModelConfig
+    from flowhigh_tpu_torch.models import VectorFieldNet
+    cfg = ModelConfig(dim_in=32, dim=64, depth=2, heads=2, dim_head=16,
+                      attn_flash=True)
+    net = seeded_init_(VectorFieldNet(cfg).eval(), 0)
+    x, cond = (_randn(gen, "cpu", 2, 600, 32) for _ in range(2))
+    mask = torch.ones(2, 600, dtype=torch.bool)
+    mask[1, 550:] = False
+    with torch.inference_mode():
+        want = net(x, times=torch.tensor(0.3), cond=cond, mask=mask)
+        ops.reset_launch_counts()
+        got = net.to(cuda)(x.to(cuda), times=torch.tensor(0.3, device=cuda),
+                           cond=cond.to(cuda), mask=mask.to(cuda)).cpu()
+    assert ops.flash_attention.launches == 2  # one per layer
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)

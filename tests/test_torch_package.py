@@ -41,6 +41,9 @@ def test_import_leaves_jax_unloaded():
         "import flowhigh_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'flowhigh_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from flowhigh_tpu_torch import StreamingSR, boundary_lsd, "
+        "log_spectral_distance\n"
+        "import flowhigh_tpu_torch.metrics, flowhigh_tpu_torch.streaming\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'flowhigh_tpu')]\n"
         "assert not bad, bad\n")
@@ -102,6 +105,9 @@ def test_wrappers_refuse_other_devices():
         ops.act_conv1d(x, a, None, True, w, None, dilation=1)
     with pytest.raises(ValueError):
         ops.amp_unit(x, a, None, a, None, True, w, None, w, None, dilation=1)
+    q = torch.empty(1, 2, 16, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_attention(q, q, q, None, 10.0)
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -142,6 +148,25 @@ def test_chip_smoke_main_path_launch_counts():
         (768, 5000), (384, 20000), (192, 80000), (96, 240000), (48, 480000)}
     assert counts("pairs")[1]["act_conv1d"] == 90
     assert counts("auto")[1]["act_conv1d"] == 30  # the k = 3 pairs
+
+
+def test_chip_smoke_longform_launch_counts():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    cfg = port_config.VocoderConfig()
+    # a 5-minute clip: 30,000 frames in 30 windows of 1,064
+    calls = chip_smoke.longform_calls(cfg, 30000)
+    assert {k: sum(v.values()) for k, v in calls.items()} == {
+        "snake_aa": 30, "conv1d_same": 30, "conv_transpose1d": 150,
+        "act_conv1d": 1080, "amp_unit": 810}
+    assert {k[2] for k in calls["conv_transpose1d"]} == {1064, 5320, 21280,
+                                                         85120, 255360}
+    # a clip that fits one window is one whole forward
+    assert chip_smoke.longform_calls(cfg, 1000) == \
+        chip_smoke.main_path_calls(cfg, 1000)
 
 
 def test_csrc_is_packaged():
