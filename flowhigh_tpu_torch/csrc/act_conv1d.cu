@@ -34,6 +34,13 @@
 // any C: 7% at K = 3, 2% at K = 11 with BM = 128 (counting each sinf as one
 // operation). Measured, the snake cost more than that count says: with
 // BM = 64 it took 40% of the kernel's time at C = 768, K = 3 (PERF.md).
+//
+// dot_dtype (dot_dtype.cuh, act_conv_core.cuh): the BF16 and I8 instances
+// round or quantise the activation in shared memory and take rounded or
+// quantised weights from the host. I8 first runs act_amax, the snake over
+// the whole window [t0 - pad, t0 + 256 + pad) of all Cin channels, for the
+// window's scale: the snake runs twice per block (the simple way; a
+// pre-pass shared by the Cout / BM blocks of a tile is the faster one).
 
 #include "act_conv_core.cuh"
 
@@ -42,11 +49,13 @@ namespace {
 constexpr int NI = 8;   // samples per thread: a 256-sample tile
 constexpr int BN = TX * NI;
 
-template <int K, int CI, int TM, int TYB>
+// w holds int32 values (by their bits) for I8, with sw the [Cout] scales
+template <Dot D, int K, int CI, int TM, int TYB>
 __global__ void __launch_bounds__(TX * TYB, 512 / (TX * TYB))
 act_conv1d_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
                   const float* __restrict__ beta, const float* filt,
-                  const float* __restrict__ w, const float* __restrict__ bias,
+                  const float* __restrict__ w, const float* __restrict__ sw,
+                  const float* __restrict__ bias,
                   const float* __restrict__ r0, const float* __restrict__ r1,
                   const float* __restrict__ r2, float* __restrict__ y,
                   int Cin, int Cout, int T, int dil, int logscale,
@@ -67,8 +76,13 @@ act_conv1d_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
     if (r2 != nullptr) v += r2[o];
     y[o] = v * out_scale;
   };
-  act_conv_tile<K, CI, TM, NI, TYB>(src, epi, smem, filt, alpha, beta,
-                                    logscale, w, Cin, Cout, co0, T, t0, dil);
+  Quant q{0.0f, 0.0f};
+  if constexpr (D == Dot::I8)
+    q = quant_of(act_amax<K, CI, TM, NI, TYB>(src, smem, filt, alpha, beta,
+                                              logscale, Cin, T, t0, BN, dil));
+  act_conv_tile<D, K, CI, TM, NI, TYB>(src, epi, smem, filt, alpha, beta,
+                                       logscale, w, Cin, Cout, co0, T, t0, dil,
+                                       q, sw);
 }
 
 template <int K, int CI, int TM, int TYB>
@@ -76,13 +90,13 @@ long long smem_bytes(int dil) {
   return 4 * core_floats(K, CI, TM * TYB, BN, dil * (K - 1) / 2);
 }
 
-template <int K, int CI, int TM, int TYB>
+template <Dot D, int K, int CI, int TM, int TYB>
 int launch(const float* x, const float* alpha, const float* beta,
-           const float* filt, const float* w, const float* bias,
-           const float* r0, const float* r1, const float* r2, float* y, int B,
-           int Cin, int Cout, int T, int dil, int logscale, float out_scale,
-           cudaStream_t stream) {
-  auto kern = act_conv1d_kernel<K, CI, TM, TYB>;
+           const float* filt, const float* w, const float* sw,
+           const float* bias, const float* r0, const float* r1,
+           const float* r2, float* y, int B, int Cin, int Cout, int T,
+           int dil, int logscale, float out_scale, cudaStream_t stream) {
+  auto kern = act_conv1d_kernel<D, K, CI, TM, TYB>;
   const long long smem = smem_bytes<K, CI, TM, TYB>(dil);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -90,8 +104,8 @@ int launch(const float* x, const float* alpha, const float* beta,
   if (e != cudaSuccess) return (int)e;
   constexpr int BM = TM * TYB;
   dim3 grid((T + BN - 1) / BN, (Cout + BM - 1) / BM, B);
-  kern<<<grid, TX * TYB, smem, stream>>>(x, alpha, beta, filt, w, bias, r0,
-                                         r1, r2, y, Cin, Cout, T, dil,
+  kern<<<grid, TX * TYB, smem, stream>>>(x, alpha, beta, filt, w, sw, bias,
+                                         r0, r1, r2, y, Cin, Cout, T, dil,
                                          logscale, out_scale);
   return (int)cudaGetLastError();
 }
@@ -128,19 +142,36 @@ struct SmemQuery {
   }
 };
 
+template <Dot D>
 struct Launcher {
-  const float *x, *alpha, *beta, *filt, *w, *bias, *r0, *r1, *r2;
+  const float *x, *alpha, *beta, *filt, *w, *sw, *bias, *r0, *r1, *r2;
   float* y;
   int B, Cin, Cout, T, dil, logscale;
   float out_scale;
   cudaStream_t s;
   template <int K, int CI, int TM, int TYB>
   long long run() const {
-    return launch<K, CI, TM, TYB>(x, alpha, beta, filt, w, bias, r0, r1, r2,
-                                  y, B, Cin, Cout, T, dil, logscale,
-                                  out_scale, s);
+    return launch<D, K, CI, TM, TYB>(x, alpha, beta, filt, w, sw, bias, r0,
+                                     r1, r2, y, B, Cin, Cout, T, dil,
+                                     logscale, out_scale, s);
   }
 };
+
+template <Dot D>
+int act_conv1d(const float* x, const float* alpha, const float* beta,
+               const float* filt, const float* w, const float* sw,
+               const float* bias, const float* r0, const float* r1,
+               const float* r2, float* y, int B, int Cin, int Cout, int T,
+               int K, int dil, int logscale, float out_scale, void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
+      Cout > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Launcher<D> f{x, alpha, beta, filt, w, sw, bias, r0, r1, r2, y, B,
+                      Cin, Cout, T, dil, logscale, out_scale,
+                      (cudaStream_t)stream};
+  const long long err = dispatch(K, Cout, f);
+  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+}
 
 }  // namespace
 
@@ -150,8 +181,8 @@ extern "C" long long act_conv1d_smem_bytes(int K, int dil, int Cout) {
   return dispatch(K, Cout, SmemQuery{dil});
 }
 
-// Returns cudaGetLastError() after the launch (or the error that kept it
-// from launching). beta, bias and r0..r2 may be null.
+// Each returns cudaGetLastError() after the launch (or the error that kept
+// it from launching). beta, bias and r0..r2 may be null.
 extern "C" int act_conv1d_f32(const float* x, const float* alpha,
                               const float* beta, const float* filt,
                               const float* w, const float* bias,
@@ -159,11 +190,34 @@ extern "C" int act_conv1d_f32(const float* x, const float* alpha,
                               const float* r2, float* y, int B, int Cin,
                               int Cout, int T, int K, int dil, int logscale,
                               float out_scale, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
-      Cout > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Launcher f{x, alpha, beta, filt, w, bias, r0, r1, r2, y, B, Cin,
-                   Cout, T, dil, logscale, out_scale, (cudaStream_t)stream};
-  const long long err = dispatch(K, Cout, f);
-  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+  return act_conv1d<Dot::F32>(x, alpha, beta, filt, w, nullptr, bias, r0, r1,
+                              r2, y, B, Cin, Cout, T, K, dil, logscale,
+                              out_scale, stream);
+}
+
+// w: the weights rounded to bf16 (as f32)
+extern "C" int act_conv1d_bf16(const float* x, const float* alpha,
+                               const float* beta, const float* filt,
+                               const float* w, const float* bias,
+                               const float* r0, const float* r1,
+                               const float* r2, float* y, int B, int Cin,
+                               int Cout, int T, int K, int dil, int logscale,
+                               float out_scale, void* stream) {
+  return act_conv1d<Dot::BF16>(x, alpha, beta, filt, w, nullptr, bias, r0, r1,
+                               r2, y, B, Cin, Cout, T, K, dil, logscale,
+                               out_scale, stream);
+}
+
+// wq: int32 weights in [-127, 127], sw: [Cout] scales (ops/quant.py)
+extern "C" int act_conv1d_int8(const float* x, const float* alpha,
+                               const float* beta, const float* filt,
+                               const int* wq, const float* sw,
+                               const float* bias, const float* r0,
+                               const float* r1, const float* r2, float* y,
+                               int B, int Cin, int Cout, int T, int K, int dil,
+                               int logscale, float out_scale, void* stream) {
+  return act_conv1d<Dot::I8>(x, alpha, beta, filt,
+                             reinterpret_cast<const float*>(wq), sw, bias, r0,
+                             r1, r2, y, B, Cin, Cout, T, K, dil, logscale,
+                             out_scale, stream);
 }

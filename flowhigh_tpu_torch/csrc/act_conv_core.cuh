@@ -33,10 +33,18 @@
 //   weights 2 x CI*K x (BM + 4) | raw input 2 x CI x (aw + 12) |
 //   snake parameters 2 x 2 x CI | snake signal CI x 2 (aw + 6) |
 //   activation CI x aw | filter taps 12.
+//
+// dot_dtype (dot_dtype.cuh): step 3 writes the activation as the dot of D
+// stages it, after the zero mask (packed.py:829, :1188, :1199): rounded to
+// bf16, or quantised with the window's scale (int32 bits); the weights come
+// rounded or quantised from the host, and an I8 pass sums in int32 and
+// hands epi float(acc) * (s_x * s_w[co]). The window's amax comes from
+// act_amax below, a pass over the same chunks that runs steps 1-3 without
+// the GEMM.
 
 #pragma once
 
-#include <cuda_runtime.h>
+#include "dot_dtype.cuh"
 
 namespace {
 
@@ -109,61 +117,51 @@ struct SmemSrc {
   }
 };
 
-template <int K, int CI, int TM, int NI, int TYB, class Src, class Epi>
-__device__ __forceinline__ void act_conv_tile(
-    const Src& src, const Epi& epi, float* smem, const float* filt,
-    const float* __restrict__ alpha, const float* __restrict__ beta,
-    int logscale, const float* __restrict__ w, int Cin, int Cout, int co0,
-    int T, int tstart, int dil) {
-  constexpr int NT = TX * TYB;  // threads
-  constexpr int BN = TX * NI;   // output samples per pass
-  constexpr int BM = TM * TYB;  // output channels per pass
-  constexpr int R = CI * K;     // GEMM depth per chunk
-  constexpr int WS = BM + 4;    // weight row stride (floats)
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int pad = dil * (K - 1) / 2;
-  const int aw = BN + 2 * pad;  // activation window
-  const int xw = aw + 12;       // raw input window
-  const int sn = aw + 6;        // base-rate positions of the snake signal
-  float* ws0 = smem;
-  float* xr0 = ws0 + 2 * R * WS;
-  float* ab0 = xr0 + 2 * CI * xw;
-  float* ss = ab0 + 4 * CI;
-  float* act = ss + 2 * CI * sn;
-  float* h = act + CI * aw;
-  const long long CK = (long long)Cin * K;
-  const int n_chunks = (Cin + CI - 1) / CI;
-  const int g0 = tstart - pad - 6;  // position of raw input 0
-  // e / len for the flat loops over CI x len elements below, without an
-  // integer division: (e + 0.5) / len lies at least 0.5 / len away from an
-  // integer, far beyond float rounding at these sizes (e < 2^16)
-  const float inv_xw = 1.0f / xw, inv_sn = 1.0f / sn, inv_aw = 1.0f / aw;
-  auto split = [](int e, float inv_len) {
-    return __float2int_rd((e + 0.5f) * inv_len);
-  };
+// e / len for the flat loops over CI x len elements below, without an
+// integer division: (e + 0.5) / len lies at least 0.5 / len away from an
+// integer, far beyond float rounding at these sizes (e < 2^16)
+__device__ __forceinline__ int split(int e, float inv_len) {
+  return __float2int_rd((e + 0.5f) * inv_len);
+}
 
-  if (tid < 12) h[tid] = filt[tid];  // read after the first barrier below
+// One pass's shared-memory layout and its steps 1-3 (see the top of this
+// file), for BN output samples starting at tstart, BM output channels.
+template <int K, int CI, int BM, int BN, int NT>
+struct Pass {
+  static constexpr int R = CI * K;   // GEMM depth per chunk
+  static constexpr int WS = BM + 4;  // weight row stride (floats)
+  int pad, aw, xw, sn, tstart, T;
+  float inv_xw, inv_sn, inv_aw;
+  float *ws0, *xr0, *ab0, *ss, *act, *h;
 
-  auto load = [&](int chunk, int stage) {
-    const int c0 = chunk * CI;
-    float* xr = xr0 + stage * CI * xw;
+  __device__ __forceinline__ Pass(float* smem, int dil, int tstart_, int T_)
+      : pad(dil * (K - 1) / 2), aw(BN + 2 * pad), xw(aw + 12), sn(aw + 6),
+        tstart(tstart_), T(T_), inv_xw(1.0f / xw), inv_sn(1.0f / sn),
+        inv_aw(1.0f / aw) {
+    ws0 = smem;                  // activation window aw, raw input window
+    xr0 = ws0 + 2 * R * WS;      // xw (the snake's reach of 6 each side),
+    ab0 = xr0 + 2 * CI * xw;     // base-rate positions of the snake signal
+    ss = ab0 + 4 * CI;           // sn
+    act = ss + 2 * CI * sn;
+    h = act + CI * aw;
+  }
+
+  // Step 1 without the weights: src over the chunk's raw window into stage
+  // st (cp.async where src is in device memory; the caller commits), and
+  // the snake parameters as kernel A takes them: a = exp(alpha),
+  // 1 / (b + 1e-9).
+  template <class Src>
+  __device__ __forceinline__ void stage_input(
+      const Src& src, int st, int c0, int Cin, const float* __restrict__ alpha,
+      const float* __restrict__ beta, int logscale) const {
+    const int tid = threadIdx.x;
+    const int g0 = tstart - pad - 6;  // position of raw input 0
+    float* xr = xr0 + st * CI * xw;
     for (int e = tid; e < CI * xw; e += NT) {
       const int ci = split(e, inv_xw);
       src.stage(xr + e, c0 + ci, g0 + e - ci * xw, c0 + ci < Cin);
     }
-    float* ws = ws0 + stage * R * WS;
-    const long long rmax = CK - (long long)c0 * K;
-    for (int e = tid; e < BM * R; e += NT) {
-      const int co = e / R;
-      const int r = e - co * R;
-      const int gco = co0 + co;
-      const bool ok = gco < Cout && r < rmax;
-      cp_async4(ws + r * WS + co,
-                ok ? w + gco * CK + (long long)c0 * K + r : w, ok);
-    }
-    if (tid < CI) {  // as kernel A: a = exp(alpha), 1 / (b + 1e-9)
+    if (tid < CI) {
       const int c = c0 + tid;
       float a = 1.0f, b = 1.0f;
       if (c < Cin) {
@@ -174,31 +172,17 @@ __device__ __forceinline__ void act_conv_tile(
           b = expf(b);
         }
       }
-      ab0[stage * 2 * CI + tid] = a;
-      ab0[stage * 2 * CI + CI + tid] = 1.0f / (b + 1e-9f);
+      ab0[st * 2 * CI + tid] = a;
+      ab0[st * 2 * CI + CI + tid] = 1.0f / (b + 1e-9f);
     }
-    cp_async_commit();
-  };
+  }
 
-  float acc[TM][NI];
-#pragma unroll
-  for (int j = 0; j < TM; ++j)
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc[j][i] = 0.0f;
-
-  const int s_base = 2 * (tstart - pad - 3);  // 2x-rate index of ss[0]
-  const int s_max = 2 * T - 1;
-  load(0, 0);
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int st = chunk & 1;
-    if (chunk + 1 < n_chunks) {
-      load(chunk + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
+  // Steps 2 and 3 on stage st (staged and visible to all threads): the
+  // activation, as the dot of D stages it (qs: the I8 scale 127 / amax).
+  // Ends with a barrier.
+  template <Dot D>
+  __device__ __forceinline__ void activate(int st, float qs) const {
+    const int tid = threadIdx.x;
     // 2x-rate snake signal at m = tstart - pad - 3 + i: s[2m] reads raw
     // i .. i+5, s[2m+1] reads raw i+1 .. i+6 (kernel A's arithmetic)
     const float* xr = xr0 + st * CI * xw;
@@ -225,6 +209,8 @@ __device__ __forceinline__ void act_conv_tile(
     // activation at n = tstart - pad + j; the down stage clamps its 2x-rate
     // index into [0, 2T - 1] (replicate), which only the first 3 and last 4
     // samples of the sequence need; the conv sees zeros outside [0, T)
+    const int s_base = 2 * (tstart - pad - 3);  // 2x-rate index of ss[0]
+    const int s_max = 2 * T - 1;
     for (int e = tid; e < CI * aw; e += NT) {
       const int ci = split(e, inv_aw);
       const int n = tstart - pad + e - ci * aw;
@@ -241,23 +227,114 @@ __device__ __forceinline__ void act_conv_tile(
           v = fmaf(h[q], sc[s], v);
         }
       }
-      act[e] = v;
+      act[e] = stage_value<D>(v, qs);
     }
     __syncthreads();
+  }
+};
 
-    const float* wsb = ws0 + st * R * WS + ty * TM;
+// The int8 window's amax: the largest |activation| over positions
+// [tstart - pad, tstart + nvalid + pad) ∩ [0, T) of all Cin channels (the
+// activation is zero outside [0, T)), by steps 1-3 over every chunk. Every
+// thread gets it. Uses the pass's staging buffers (stage 0).
+template <int K, int CI, int TM, int NI, int TYB, class Src>
+__device__ __forceinline__ float act_amax(
+    const Src& src, float* smem, const float* filt,
+    const float* __restrict__ alpha, const float* __restrict__ beta,
+    int logscale, int Cin, int T, int tstart, int nvalid, int dil) {
+  constexpr int NT = TX * TYB;
+  const Pass<K, CI, TM * TYB, TX * NI, NT> P(smem, dil, tstart, T);
+  __shared__ float red[32];
+  const int tid = threadIdx.x;
+  if (tid < 12) P.h[tid] = filt[tid];  // read after the first barrier below
+  const int jmax = nvalid + 2 * P.pad;
+  float m = 0.0f;
+  for (int c0 = 0; c0 < Cin; c0 += CI) {
+    P.stage_input(src, 0, c0, Cin, alpha, beta, logscale);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    P.template activate<Dot::F32>(0, 0.0f);
+    for (int e = tid; e < CI * P.aw; e += NT) {
+      if (e - split(e, P.inv_aw) * P.aw < jmax) m = fmaxf(m, fabsf(P.act[e]));
+    }
+    __syncthreads();  // the next chunk's staging overwrites this one's
+  }
+  return block_max(m, red);
+}
+
+// The act->conv pass. D: the dot precision; q and sw (the [Cout] weight
+// scales) are read by an I8 pass only.
+template <Dot D, int K, int CI, int TM, int NI, int TYB, class Src, class Epi>
+__device__ __forceinline__ void act_conv_tile(
+    const Src& src, const Epi& epi, float* smem, const float* filt,
+    const float* __restrict__ alpha, const float* __restrict__ beta,
+    int logscale, const float* __restrict__ w, int Cin, int Cout, int co0,
+    int T, int tstart, int dil, Quant q = {0.0f, 0.0f},
+    const float* __restrict__ sw = nullptr) {
+  using A = Acc<D>;
+  constexpr int NT = TX * TYB;  // threads
+  constexpr int BM = TM * TYB;  // output channels per pass
+  using P_t = Pass<K, CI, BM, TX * NI, NT>;
+  constexpr int R = P_t::R;
+  constexpr int WS = P_t::WS;
+  const P_t P(smem, dil, tstart, T);
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const long long CK = (long long)Cin * K;
+  const int n_chunks = (Cin + CI - 1) / CI;
+
+  if (tid < 12) P.h[tid] = filt[tid];  // read after the first barrier below
+
+  auto load = [&](int chunk, int stage) {
+    const int c0 = chunk * CI;
+    P.stage_input(src, stage, c0, Cin, alpha, beta, logscale);
+    float* ws = P.ws0 + stage * R * WS;
+    const long long rmax = CK - (long long)c0 * K;
+    for (int e = tid; e < BM * R; e += NT) {
+      const int co = e / R;
+      const int r = e - co * R;
+      const int gco = co0 + co;
+      const bool ok = gco < Cout && r < rmax;
+      cp_async4(ws + r * WS + co,
+                ok ? w + gco * CK + (long long)c0 * K + r : w, ok);
+    }
+    cp_async_commit();
+  };
+
+  A acc[TM][NI];
+#pragma unroll
+  for (int j = 0; j < TM; ++j)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) acc[j][i] = 0;
+
+  load(0, 0);
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int st = chunk & 1;
+    if (chunk + 1 < n_chunks) {
+      load(chunk + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    P.template activate<D>(st, q.qs);
+
+    const float* wsb = P.ws0 + st * R * WS + ty * TM;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float a[TM];
       load_row<TM>(wsb + r * WS, a);
-      const float* xp = act + (r / K) * aw + (r % K) * dil + tx;
+      const float* xp = P.act + (r / K) * P.aw + (r % K) * dil + tx;
       float v[NI];
 #pragma unroll
       for (int i = 0; i < NI; ++i) v[i] = xp[TX * i];
 #pragma unroll
       for (int j = 0; j < TM; ++j)
 #pragma unroll
-        for (int i = 0; i < NI; ++i) acc[j][i] = fmaf(a[j], v[i], acc[j][i]);
+        for (int i = 0; i < NI; ++i)
+          acc[j][i] = mad(bits_as<A>(a[j]), bits_as<A>(v[i]), acc[j][i]);
     }
     __syncthreads();  // the next chunk's staging overwrites this one's
   }
@@ -266,8 +343,10 @@ __device__ __forceinline__ void act_conv_tile(
   for (int j = 0; j < TM; ++j) {
     const int co = co0 + ty * TM + j;
     if (co >= Cout) continue;
+    float fac = 0.0f;
+    if constexpr (D == Dot::I8) fac = q.sx * sw[co];
 #pragma unroll
-    for (int i = 0; i < NI; ++i) epi(co, tx + TX * i, acc[j][i]);
+    for (int i = 0; i < NI; ++i) epi(co, tx + TX * i, dequant(acc[j][i], fac));
   }
 }
 

@@ -38,6 +38,15 @@
 // sample, as in kernel D. Weights (w1 and w2: 2 C^2 K floats, 3.2 MB at
 // C = 192, K = 11) are not resident: each block streams them through L2
 // once per phase, staged by cp.async a chunk ahead of the GEMM.
+//
+// dot_dtype (dot_dtype.cuh, act_conv_core.cuh): BF16 and I8 instances round
+// or quantise act1 and act2 in shared memory (conv1's output stays f32)
+// and take rounded or quantised weights from the host. I8 takes one scale
+// per phase: conv1's over act1 on [t0 - H - pad1, t0 + TT + H + pad1), by
+// an act_amax pass over x before phase 1, and conv2's over act2 on
+// [t0 - pad2, t0 + TT + pad2), by an act_amax pass over conv1's output in
+// shared memory before phase 2; each pass runs once for all the phase's
+// output-channel passes.
 
 #include "act_conv_core.cuh"
 
@@ -48,13 +57,17 @@ constexpr int BN = TX * NI;
 
 // One block per SM at C >= 96 (its conv1 buffer alone is >= 96 KB); the
 // 48-channel instance (C = 48: 76 KB) is capped for two blocks per SM.
-template <int K, int CI, int TM, int TYB>
+// w1, w2 hold int32 values (by their bits) for I8, with sw1, sw2 the [C]
+// scales
+template <Dot D, int K, int CI, int TM, int TYB>
 __global__ void __launch_bounds__(TX * TYB, TYB == 8 && TM == 6 ? 2 : 1)
 amp_unit_kernel(const float* __restrict__ x, const float* __restrict__ a1,
                 const float* __restrict__ be1, const float* __restrict__ a2,
                 const float* __restrict__ be2, const float* filt,
-                const float* __restrict__ w1, const float* __restrict__ bias1,
-                const float* __restrict__ w2, const float* __restrict__ bias2,
+                const float* __restrict__ w1, const float* __restrict__ sw1,
+                const float* __restrict__ bias1,
+                const float* __restrict__ w2, const float* __restrict__ sw2,
+                const float* __restrict__ bias2,
                 const float* __restrict__ e0, const float* __restrict__ e1,
                 float* __restrict__ y, int C, int T, int dil, int logscale,
                 float out_scale) {
@@ -72,9 +85,14 @@ amp_unit_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   auto epi1 = [&](int co, int l, float acc) {
     t1[co * BN + l] = acc + (bias1 != nullptr ? bias1[co] : 0.0f);
   };
+  Quant q{0.0f, 0.0f};
+  if constexpr (D == Dot::I8)
+    q = quant_of(act_amax<K, CI, TM, NI, TYB>(src1, work, filt, a1, be1,
+                                              logscale, C, T, t0 - H, BN, dil));
   for (int co0 = 0; co0 < C; co0 += BM)
-    act_conv_tile<K, CI, TM, NI, TYB>(src1, epi1, work, filt, a1, be1,
-                                      logscale, w1, C, C, co0, T, t0 - H, dil);
+    act_conv_tile<D, K, CI, TM, NI, TYB>(src1, epi1, work, filt, a1, be1,
+                                         logscale, w1, C, C, co0, T, t0 - H,
+                                         dil, q, sw1);
   __syncthreads();  // all of conv1's output before phase 2 reads it
 
   const SmemSrc src2{t1, BN, t0 - H, T};
@@ -89,9 +107,13 @@ amp_unit_kernel(const float* __restrict__ x, const float* __restrict__ a1,
     if (e1 != nullptr) v += e1[o];
     y[o] = v * out_scale;
   };
+  if constexpr (D == Dot::I8)
+    q = quant_of(act_amax<K, CI, TM, NI, TYB>(src2, work, filt, a2, be2,
+                                              logscale, C, T, t0, TT, 1));
   for (int co0 = 0; co0 < C; co0 += BM)
-    act_conv_tile<K, CI, TM, NI, TYB>(src2, epi2, work, filt, a2, be2,
-                                      logscale, w2, C, C, co0, T, t0, 1);
+    act_conv_tile<D, K, CI, TM, NI, TYB>(src2, epi2, work, filt, a2, be2,
+                                         logscale, w2, C, C, co0, T, t0, 1, q,
+                                         sw2);
 }
 
 template <int K, int CI, int TM, int TYB>
@@ -100,14 +122,14 @@ long long smem_bytes(int C, int dil) {
               core_floats(K, CI, TM * TYB, BN, dil * (K - 1) / 2));
 }
 
-template <int K, int CI, int TM, int TYB>
+template <Dot D, int K, int CI, int TM, int TYB>
 int launch(const float* x, const float* a1, const float* be1,
            const float* a2, const float* be2, const float* filt,
-           const float* w1, const float* bias1, const float* w2,
-           const float* bias2, const float* e0, const float* e1, float* y,
-           int B, int C, int T, int dil, int logscale, float out_scale,
-           cudaStream_t stream) {
-  auto kern = amp_unit_kernel<K, CI, TM, TYB>;
+           const float* w1, const float* sw1, const float* bias1,
+           const float* w2, const float* sw2, const float* bias2,
+           const float* e0, const float* e1, float* y, int B, int C, int T,
+           int dil, int logscale, float out_scale, cudaStream_t stream) {
+  auto kern = amp_unit_kernel<D, K, CI, TM, TYB>;
   const long long smem = smem_bytes<K, CI, TM, TYB>(C, dil);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -115,9 +137,9 @@ int launch(const float* x, const float* a1, const float* be1,
   if (e != cudaSuccess) return (int)e;
   constexpr int TT = BN - 2 * ((K - 1) / 2 + 6);
   dim3 grid((T + TT - 1) / TT, B);
-  kern<<<grid, TX * TYB, smem, stream>>>(x, a1, be1, a2, be2, filt, w1, bias1,
-                                         w2, bias2, e0, e1, y, C, T, dil,
-                                         logscale, out_scale);
+  kern<<<grid, TX * TYB, smem, stream>>>(x, a1, be1, a2, be2, filt, w1, sw1,
+                                         bias1, w2, sw2, bias2, e0, e1, y, C,
+                                         T, dil, logscale, out_scale);
   return (int)cudaGetLastError();
 }
 
@@ -129,18 +151,19 @@ struct SmemQuery {
   }
 };
 
+template <Dot D>
 struct Launcher {
-  const float *x, *a1, *be1, *a2, *be2, *filt, *w1, *bias1, *w2, *bias2,
-      *e0, *e1;
+  const float *x, *a1, *be1, *a2, *be2, *filt, *w1, *sw1, *bias1, *w2, *sw2,
+      *bias2, *e0, *e1;
   float* y;
   int B, C, T, dil, logscale;
   float out_scale;
   cudaStream_t s;
   template <int K, int CI, int TM, int TYB>
   long long run() const {
-    return launch<K, CI, TM, TYB>(x, a1, be1, a2, be2, filt, w1, bias1, w2,
-                                  bias2, e0, e1, y, B, C, T, dil, logscale,
-                                  out_scale, s);
+    return launch<D, K, CI, TM, TYB>(x, a1, be1, a2, be2, filt, w1, sw1,
+                                     bias1, w2, sw2, bias2, e0, e1, y, B, C,
+                                     T, dil, logscale, out_scale, s);
   }
 };
 
@@ -165,6 +188,22 @@ long long dispatch(int K, int C, const F& f) {
 #undef FHT_CASE
 }
 
+template <Dot D>
+int amp_unit(const float* x, const float* a1, const float* be1,
+             const float* a2, const float* be2, const float* filt,
+             const float* w1, const float* sw1, const float* bias1,
+             const float* w2, const float* sw2, const float* bias2,
+             const float* e0, const float* e1, float* y, int B, int C, int T,
+             int K, int dil, int logscale, float out_scale, void* stream) {
+  if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Launcher<D> f{x,  a1,  be1, a2, be2, filt, w1, sw1, bias1, w2,
+                      sw2, bias2, e0, e1, y, B, C, T, dil, logscale,
+                      out_scale, (cudaStream_t)stream};
+  const long long err = dispatch(K, C, f);
+  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+}
+
 }  // namespace
 
 // Shared memory one block takes (bytes), -1 without an instance; mirrored
@@ -173,8 +212,8 @@ extern "C" long long amp_unit_smem_bytes(int K, int dil, int C) {
   return dispatch(K, C, SmemQuery{C, dil});
 }
 
-// Returns cudaGetLastError() after the launch (or the error that kept it
-// from launching). be1, be2, bias1, bias2, e0 and e1 may be null. Each
+// Each returns cudaGetLastError() after the launch (or the error that kept
+// it from launching). be1, be2, bias1, bias2, e0 and e1 may be null. Each
 // block writes 256 - 2 ((K - 1) / 2 + 6) outputs of all C channels.
 extern "C" int amp_unit_f32(const float* x, const float* a1, const float* be1,
                             const float* a2, const float* be2,
@@ -184,11 +223,39 @@ extern "C" int amp_unit_f32(const float* x, const float* a1, const float* be1,
                             const float* e1, float* y, int B, int C, int T,
                             int K, int dil, int logscale, float out_scale,
                             void* stream) {
-  if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Launcher f{x,  a1, be1, a2, be2, filt, w1, bias1, w2, bias2, e0, e1,
-                   y,  B,  C,   T,  dil, logscale, out_scale,
-                   (cudaStream_t)stream};
-  const long long err = dispatch(K, C, f);
-  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+  return amp_unit<Dot::F32>(x, a1, be1, a2, be2, filt, w1, nullptr, bias1, w2,
+                            nullptr, bias2, e0, e1, y, B, C, T, K, dil,
+                            logscale, out_scale, stream);
+}
+
+// w1, w2: the weights rounded to bf16 (as f32)
+extern "C" int amp_unit_bf16(const float* x, const float* a1,
+                             const float* be1, const float* a2,
+                             const float* be2, const float* filt,
+                             const float* w1, const float* bias1,
+                             const float* w2, const float* bias2,
+                             const float* e0, const float* e1, float* y,
+                             int B, int C, int T, int K, int dil,
+                             int logscale, float out_scale, void* stream) {
+  return amp_unit<Dot::BF16>(x, a1, be1, a2, be2, filt, w1, nullptr, bias1,
+                             w2, nullptr, bias2, e0, e1, y, B, C, T, K, dil,
+                             logscale, out_scale, stream);
+}
+
+// wq1, wq2: int32 weights in [-127, 127], sw1, sw2: [C] scales
+// (ops/quant.py)
+extern "C" int amp_unit_int8(const float* x, const float* a1,
+                             const float* be1, const float* a2,
+                             const float* be2, const float* filt,
+                             const int* wq1, const float* sw1,
+                             const float* bias1, const int* wq2,
+                             const float* sw2, const float* bias2,
+                             const float* e0, const float* e1, float* y,
+                             int B, int C, int T, int K, int dil,
+                             int logscale, float out_scale, void* stream) {
+  return amp_unit<Dot::I8>(x, a1, be1, a2, be2, filt,
+                           reinterpret_cast<const float*>(wq1), sw1, bias1,
+                           reinterpret_cast<const float*>(wq2), sw2, bias2, e0,
+                           e1, y, B, C, T, K, dil, logscale, out_scale,
+                           stream);
 }

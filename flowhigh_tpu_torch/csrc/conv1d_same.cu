@@ -24,8 +24,17 @@
 // bytes) and TM weights (one address across the warp: a broadcast) for
 // 8*TM FMAs. The epilogue (bias, residuals, scale) runs in registers.
 // conv_post (Cout < 16) takes a direct kernel: one thread per output sample.
+//
+// dot_dtype (dot_dtype.cuh; the JAX kernel's bf16 and int8 modes,
+// packed.py:200-216): BF16 and I8 instances round or quantise each staged
+// x value in place, by the thread that staged it, once its cp.async has
+// landed; the weights come rounded (bf16) or quantised (int32 + per-channel
+// scale) from the host. I8 accumulates in int32, and first takes the
+// window's amax: one pass of the block over x[all Cin, t0 - pad ..
+// t0 + 256 + pad) (the x chunks are read again by the GEMM, from L2). The
+// narrow kernel has F32 and BF16 instances only.
 
-#include <cuda_runtime.h>
+#include "dot_dtype.cuh"
 
 namespace {
 
@@ -78,14 +87,17 @@ struct Tile {
   static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
 };
 
-template <int K, int CI, int TM>
+// w holds int32 values (by their bits) for I8, with sw the [Cout] scales
+template <Dot D, int K, int CI, int TM>
 __global__ void __launch_bounds__(NT, 2)
 conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ sw,
                    const float* __restrict__ bias,
                    const float* __restrict__ r0, const float* __restrict__ r1,
                    const float* __restrict__ r2, float* __restrict__ y,
                    int Cin, int Cout, int T, int dil, float out_scale) {
   using L = Tile<K, CI, TM>;
+  using A = Acc<D>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int tx = tid % TX;
@@ -125,19 +137,34 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     cp_async_commit();
   };
 
-  float acc[TM][8];
+  A acc[TM][8];
 #pragma unroll
   for (int j = 0; j < TM; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0;
 
   load(0, 0);
+  Quant q{0.0f, 0.0f};
+  if constexpr (D == Dot::I8) {  // the window's amax, while chunk 0 lands
+    __shared__ float red[32];
+    const int lo = max(t0 - pad, 0), hi = min(t0 + BN + pad, T);
+    float m = 0.0f;
+    for (int c = 0; c < Cin; ++c)
+      for (int g = lo + tid; g < hi; g += NT)
+        m = fmaxf(m, fabsf(xb[(long long)c * T + g]));
+    q = quant_of(block_max(m, red));
+  }
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     if (chunk + 1 < n_chunks) {
       load(chunk + 1, (chunk + 1) & 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
+    }
+    if constexpr (D != Dot::F32) {  // this thread's own staged x values
+      float* xo = smem + (chunk & 1) * L::STAGE + tid;
+#pragma unroll
+      for (int r = 0; r < L::R; ++r) xo[r * BN] = stage_value<D>(xo[r * BN], q.qs);
     }
     __syncthreads();
     const float* xs = smem + (chunk & 1) * L::STAGE + 4 * tx;
@@ -147,12 +174,13 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float a[TM];
       load_row<TM>(ws + r * L::WS, a);
       const float4 p = *reinterpret_cast<const float4*>(xs + r * BN);
-      const float4 q = *reinterpret_cast<const float4*>(xs + r * BN + BN / 2);
-      const float v[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+      const float4 u = *reinterpret_cast<const float4*>(xs + r * BN + BN / 2);
+      const float v[8] = {p.x, p.y, p.z, p.w, u.x, u.y, u.z, u.w};
 #pragma unroll
       for (int j = 0; j < TM; ++j)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(a[j], v[i], acc[j][i]);
+        for (int i = 0; i < 8; ++i)
+          acc[j][i] = mad(bits_as<A>(a[j]), bits_as<A>(v[i]), acc[j][i]);
     }
     __syncthreads();  // the next iteration's load overwrites this stage
   }
@@ -163,11 +191,12 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (co >= Cout) continue;
     const long long base = (b * Cout + co) * (long long)T;
     const float bv = bias != nullptr ? bias[co] : 0.0f;
+    const float fac = D == Dot::I8 ? q.sx * sw[co] : 0.0f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int t = t0 + (i / 4) * (BN / 2) + 4 * tx + (i % 4);
       if (t >= T) continue;
-      float v = acc[j][i] + bv;
+      float v = dequant(acc[j][i], fac) + bv;
       if (r0 != nullptr) v += r0[base + t];
       if (r1 != nullptr) v += r1[base + t];
       if (r2 != nullptr) v += r2[base + t];
@@ -177,7 +206,9 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // Few output channels (conv_post): one thread per output sample, weights
-// read through the read-only cache (one address across the warp).
+// read through the read-only cache (one address across the warp). F32 and
+// BF16 only.
+template <Dot D>
 __global__ void __launch_bounds__(NT)
 conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ bias,
@@ -197,7 +228,8 @@ conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* xr = xb + (long long)ci * T;
     for (int k = 0; k < K; ++k) {
       const int g = t + k * dil - pad;
-      if (g >= 0 && g < T) acc = fmaf(__ldg(wr + ci * K + k), xr[g], acc);
+      if (g >= 0 && g < T)
+        acc = fmaf(__ldg(wr + ci * K + k), stage_value<D>(xr[g], 0.0f), acc);
     }
   }
   const long long o = (b * Cout + co) * (long long)T + t;
@@ -208,67 +240,112 @@ conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
   y[o] = v * out_scale;
 }
 
-template <int K, int CI, int TM>
-int launch(const float* x, const float* w, const float* bias, const float* r0,
-           const float* r1, const float* r2, float* y, int B, int Cin,
-           int Cout, int T, int dil, float out_scale, cudaStream_t stream) {
+template <Dot D, int K, int CI, int TM>
+int launch(const float* x, const float* w, const float* sw, const float* bias,
+           const float* r0, const float* r1, const float* r2, float* y, int B,
+           int Cin, int Cout, int T, int dil, float out_scale,
+           cudaStream_t stream) {
   using L = Tile<K, CI, TM>;
-  auto kern = conv1d_gemm_kernel<K, CI, TM>;
+  auto kern = conv1d_gemm_kernel<D, K, CI, TM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((T + BN - 1) / BN, (Cout + L::BM - 1) / L::BM, B);
-  kern<<<grid, NT, L::SMEM, stream>>>(x, w, bias, r0, r1, r2, y, Cin, Cout, T,
-                                      dil, out_scale);
+  kern<<<grid, NT, L::SMEM, stream>>>(x, w, sw, bias, r0, r1, r2, y, Cin,
+                                      Cout, T, dil, out_scale);
   return (int)cudaGetLastError();
 }
 
 // BM = 48 for the C = 48, 96 stages (no idle rows), else 64
-template <int K, int CI>
-int launch_k(const float* x, const float* w, const float* bias,
-             const float* r0, const float* r1, const float* r2, float* y,
-             int B, int Cin, int Cout, int T, int dil, float out_scale,
-             cudaStream_t s) {
+template <Dot D, int K, int CI>
+int launch_k(const float* x, const float* w, const float* sw,
+             const float* bias, const float* r0, const float* r1,
+             const float* r2, float* y, int B, int Cin, int Cout, int T,
+             int dil, float out_scale, cudaStream_t s) {
   if (Cout % 48 == 0 && Cout % 64 != 0)
-    return launch<K, CI, 6>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T, dil,
-                            out_scale, s);
-  return launch<K, CI, 8>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T, dil,
-                          out_scale, s);
+    return launch<D, K, CI, 6>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
+                               T, dil, out_scale, s);
+  return launch<D, K, CI, 8>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout, T,
+                             dil, out_scale, s);
+}
+
+int supported(int K, int Cout, int dot) {
+  const bool gemm = K == 3 || K == 7 || K == 11;
+  if (K <= 0 || K % 2 == 0) return 0;
+  if (dot == (int)Dot::I8) return Cout >= 16 && gemm;
+  return (dot == (int)Dot::F32 || dot == (int)Dot::BF16) &&
+         (Cout < 16 || gemm);
+}
+
+template <Dot D>
+int conv1d_same(const float* x, const float* w, const float* sw,
+                const float* bias, const float* r0, const float* r1,
+                const float* r2, float* y, int B, int Cin, int Cout, int T,
+                int K, int dil, float out_scale, void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
+      Cout > 65535 || !supported(K, Cout, (int)D))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (D != Dot::I8) {
+    if (Cout < 16) {
+      dim3 grid((T + NT - 1) / NT, Cout, B);
+      conv1d_narrow_kernel<D><<<grid, NT, 0, s>>>(x, w, bias, r0, r1, r2, y,
+                                                  Cin, Cout, T, K, dil,
+                                                  out_scale);
+      return (int)cudaGetLastError();
+    }
+  }
+  switch (K) {  // CI x K = 24, 28, 22 rows of GEMM depth per chunk
+    case 3:
+      return launch_k<D, 3, 8>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
+                               T, dil, out_scale, s);
+    case 7:
+      return launch_k<D, 7, 4>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
+                               T, dil, out_scale, s);
+    default:
+      return launch_k<D, 11, 2>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
+                                T, dil, out_scale, s);
+  }
 }
 
 }  // namespace
 
-// 1 when (K, Cout) has a kernel: any K for Cout < 16, else K in {3, 7, 11}.
-extern "C" int conv1d_same_supported(int K, int Cout) {
-  return K > 0 && K % 2 == 1 && (Cout < 16 || K == 3 || K == 7 || K == 11);
+// 1 when (K, Cout) has an instance of dot dtype ``dot`` (0 f32, 1 bf16,
+// 2 int8): f32 and bf16 any odd K for Cout < 16, else K in {3, 7, 11};
+// int8 K in {3, 7, 11} and Cout >= 16.
+extern "C" int conv1d_same_supported(int K, int Cout, int dot) {
+  return supported(K, Cout, dot);
 }
 
-// Returns cudaGetLastError() after the launch (or the error that kept it
-// from launching). bias and r0..r2 may be null.
+// Each returns cudaGetLastError() after the launch (or the error that kept
+// it from launching). bias and r0..r2 may be null.
 extern "C" int conv1d_same_f32(const float* x, const float* w,
                                const float* bias, const float* r0,
                                const float* r1, const float* r2, float* y,
                                int B, int Cin, int Cout, int T, int K, int dil,
                                float out_scale, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
-      Cout > 65535 || !conv1d_same_supported(K, Cout))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (Cout < 16) {
-    dim3 grid((T + NT - 1) / NT, Cout, B);
-    conv1d_narrow_kernel<<<grid, NT, 0, s>>>(x, w, bias, r0, r1, r2, y, Cin,
-                                             Cout, T, K, dil, out_scale);
-    return (int)cudaGetLastError();
-  }
-  switch (K) {  // CI x K = 24, 28, 22 rows of GEMM depth per chunk
-    case 3:
-      return launch_k<3, 8>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T, dil,
-                            out_scale, s);
-    case 7:
-      return launch_k<7, 4>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T, dil,
-                            out_scale, s);
-    default:
-      return launch_k<11, 2>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T, dil,
-                             out_scale, s);
-  }
+  return conv1d_same<Dot::F32>(x, w, nullptr, bias, r0, r1, r2, y, B, Cin,
+                               Cout, T, K, dil, out_scale, stream);
+}
+
+// w: the weights rounded to bf16 (as f32)
+extern "C" int conv1d_same_bf16(const float* x, const float* w,
+                                const float* bias, const float* r0,
+                                const float* r1, const float* r2, float* y,
+                                int B, int Cin, int Cout, int T, int K,
+                                int dil, float out_scale, void* stream) {
+  return conv1d_same<Dot::BF16>(x, w, nullptr, bias, r0, r1, r2, y, B, Cin,
+                                Cout, T, K, dil, out_scale, stream);
+}
+
+// wq: int32 weights in [-127, 127], sw: [Cout] scales (ops/quant.py)
+extern "C" int conv1d_same_int8(const float* x, const int* wq,
+                                const float* sw, const float* bias,
+                                const float* r0, const float* r1,
+                                const float* r2, float* y, int B, int Cin,
+                                int Cout, int T, int K, int dil,
+                                float out_scale, void* stream) {
+  return conv1d_same<Dot::I8>(x, reinterpret_cast<const float*>(wq), sw, bias,
+                              r0, r1, r2, y, B, Cin, Cout, T, K, dil,
+                              out_scale, stream);
 }

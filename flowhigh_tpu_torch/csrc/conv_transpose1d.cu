@@ -20,8 +20,13 @@
 // and all U output phases of it; per Cin chunk it stages the x window (the
 // tile plus the tap halo) and the weights in shared memory. Each thread
 // keeps CPT x MPT x U f32 accumulators.
+//
+// dot_dtype (dot_dtype.cuh): a BF16 instance rounds each x value to bf16 as
+// it is staged; its weights come rounded from the host. The JAX package
+// keeps the upsamplers in f32 under int8 (bigvgan.py:406-414), so there is
+// no I8 instance.
 
-#include <cuda_runtime.h>
+#include "dot_dtype.cuh"
 
 namespace {
 
@@ -39,7 +44,7 @@ struct Plan {
   static constexpr int W = TILE_M + QHI - QLO;
 };
 
-template <int U, int K>
+template <Dot D, int U, int K>
 __global__ void __launch_bounds__(NT)
 conv_transpose1d_kernel(const float* __restrict__ x, const float* __restrict__ w,
                         const float* __restrict__ bias, float* __restrict__ y,
@@ -70,7 +75,9 @@ conv_transpose1d_kernel(const float* __restrict__ x, const float* __restrict__ w
       const int u = idx - ci * PL::W;
       const int g = m0 + PL::QLO + u;
       const int c = c0 + ci;
-      xs[ci][u] = (c < Cin && g >= 0 && g < T) ? xb[(long long)c * T + g] : 0.0f;
+      xs[ci][u] = (c < Cin && g >= 0 && g < T)
+                      ? stage_value<D>(xb[(long long)c * T + g], 0.0f)
+                      : 0.0f;
     }
     // weights: k fastest, then co, then ci (runs of TILE_CO*K contiguous
     // floats of w per input channel)
@@ -129,13 +136,31 @@ conv_transpose1d_kernel(const float* __restrict__ x, const float* __restrict__ w
   }
 }
 
-template <int U, int K>
+template <Dot D, int U, int K>
 int launch(const float* x, const float* w, const float* bias, float* y, int B,
            int Cin, int Cout, int T, cudaStream_t stream) {
   dim3 grid((T + TILE_M - 1) / TILE_M, (Cout + TILE_CO - 1) / TILE_CO, B);
-  conv_transpose1d_kernel<U, K><<<grid, NT, 0, stream>>>(x, w, bias, y, Cin,
-                                                        Cout, T);
+  conv_transpose1d_kernel<D, U, K><<<grid, NT, 0, stream>>>(x, w, bias, y,
+                                                           Cin, Cout, T);
   return (int)cudaGetLastError();
+}
+
+template <Dot D>
+int conv_transpose1d(const float* x, const float* w, const float* bias,
+                     float* y, int B, int Cin, int Cout, int T, int stride,
+                     int K, void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stride == 5 && K == 11)
+    return launch<D, 5, 11>(x, w, bias, y, B, Cin, Cout, T, s);
+  if (stride == 4 && K == 8)
+    return launch<D, 4, 8>(x, w, bias, y, B, Cin, Cout, T, s);
+  if (stride == 3 && K == 7)
+    return launch<D, 3, 7>(x, w, bias, y, B, Cin, Cout, T, s);
+  if (stride == 2 && K == 4)
+    return launch<D, 2, 4>(x, w, bias, y, B, Cin, Cout, T, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -146,17 +171,20 @@ extern "C" int conv_transpose1d_f32(const float* x, const float* w,
                                     const float* bias, float* y, int B,
                                     int Cin, int Cout, int T, int stride,
                                     int K, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (stride == 5 && K == 11) return launch<5, 11>(x, w, bias, y, B, Cin, Cout, T, s);
-  if (stride == 4 && K == 8) return launch<4, 8>(x, w, bias, y, B, Cin, Cout, T, s);
-  if (stride == 3 && K == 7) return launch<3, 7>(x, w, bias, y, B, Cin, Cout, T, s);
-  if (stride == 2 && K == 4) return launch<2, 4>(x, w, bias, y, B, Cin, Cout, T, s);
-  return (int)cudaErrorInvalidValue;
+  return conv_transpose1d<Dot::F32>(x, w, bias, y, B, Cin, Cout, T, stride,
+                                    K, stream);
 }
 
-// 1 when (stride, K) has a compiled instance.
+// w: the weights rounded to bf16 (as f32)
+extern "C" int conv_transpose1d_bf16(const float* x, const float* w,
+                                     const float* bias, float* y, int B,
+                                     int Cin, int Cout, int T, int stride,
+                                     int K, void* stream) {
+  return conv_transpose1d<Dot::BF16>(x, w, bias, y, B, Cin, Cout, T, stride,
+                                     K, stream);
+}
+
+// 1 when (stride, K) has a compiled instance (float32 and bfloat16).
 extern "C" int conv_transpose1d_supported(int stride, int K) {
   return (stride == 5 && K == 11) || (stride == 4 && K == 8) ||
          (stride == 3 && K == 7) || (stride == 2 && K == 4);

@@ -24,6 +24,14 @@ The MRF branch average is folded into the last branch's final kernel as
 residual + extras x 1/num_kernels. ``activation_post`` and ``conv_post``
 run on kernels A and B, the five upsamplers on kernel C; ``conv_pre`` is a
 plain ``F.conv1d``.
+
+``conv_dtype`` (``None`` = float32, ``torch.bfloat16``, ``torch.int8``) is
+the JAX package's ``BigVGAN.conv_dtype``: the dot precision of every
+resblock conv (kernels B, D, E; ``ops/quant.py``). The stage-boundary
+convs follow the JAX package's ``_boundary_dtype``: bfloat16 for the
+upsamplers and ``conv_post`` under bfloat16, float32 under int8.
+``conv_pre`` and the snakes stay float32, and every feature map stays
+float32 in device memory.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from torch import nn
 from ..config import VocoderConfig
 from ..ops import (act_conv1d, act_conv_plan, amp_unit, amp_unit_plan, conv1d,
                    conv_transpose1d, snake_activation1d)
+from ..ops.quant import check_dot_dtype
 from ..utils import cudnn_f32
 
 
@@ -164,13 +173,15 @@ class AMPBlock1(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int], activation: str = "snakebeta",
-                 logscale: bool = True, fuse_act_conv=True):
+                 logscale: bool = True, fuse_act_conv=True,
+                 dot_dtype: torch.dtype = torch.float32):
         super().__init__()
         if not (fuse_act_conv is True or fuse_act_conv is False
                 or fuse_act_conv in ("auto", "pairs")):
             raise ValueError("fuse_act_conv must be True, False, 'auto' or "
                              f"'pairs', got {fuse_act_conv!r}")
         self.fuse_act_conv = fuse_act_conv
+        self.dot_dtype = check_dot_dtype(dot_dtype)
         self.dilations = tuple(dilations)
         self.convs1 = nn.ModuleList([
             nn.Conv1d(channels, channels, kernel_size, dilation=d,
@@ -194,9 +205,11 @@ class AMPBlock1(nn.Module):
         if fuse and act_conv_plan(k, dilation, x.shape[1], x.shape[-1]):
             return act_conv1d(x, act.act.alpha, act.act.beta, act.logscale,
                               conv.weight, conv.bias, dilation=dilation,
-                              residuals=residuals, out_scale=out_scale)
+                              residuals=residuals, out_scale=out_scale,
+                              dot_dtype=self.dot_dtype)
         return conv1d(act(x), conv.weight, conv.bias, dilation=dilation,
-                      residuals=residuals, out_scale=out_scale)
+                      residuals=residuals, out_scale=out_scale,
+                      dot_dtype=self.dot_dtype)
 
     def forward(self, x, extra_residuals: Sequence[torch.Tensor] = (),
                 out_scale: float = 1.0):
@@ -215,7 +228,8 @@ class AMPBlock1(nn.Module):
                 x = amp_unit(x, a1.act.alpha, a1.act.beta, a2.act.alpha,
                              a2.act.beta, a1.logscale, c1.weight, c1.bias,
                              c2.weight, c2.bias, dilation=d,
-                             extra_residuals=extras, out_scale=scale)
+                             extra_residuals=extras, out_scale=scale,
+                             dot_dtype=self.dot_dtype)
                 continue
             xt = self._act_then_conv(x, a1, c1, d)
             x = self._act_then_conv(xt, a2, c2, 1, residuals=(x,) + extras,
@@ -227,13 +241,18 @@ class BigVGAN(nn.Module):
     """conv_pre -> [upsample -> MRF average]* -> act -> conv_post -> tanh."""
 
     def __init__(self, cfg: VocoderConfig = VocoderConfig(),
-                 fuse_act_conv=True):
-        """``fuse_act_conv``: True | False | "auto" | "pairs" (see the
-        module docstring)."""
+                 fuse_act_conv=True, conv_dtype: Optional[torch.dtype] = None):
+        """``fuse_act_conv``: True | False | "auto" | "pairs"; ``conv_dtype``:
+        None (float32) | torch.bfloat16 | torch.int8 (see the module
+        docstring)."""
         super().__init__()
         if cfg.resblock != "1":
             raise NotImplementedError("only AMPBlock1 (resblock '1') is ported")
         self.cfg = cfg
+        self.conv_dtype = check_dot_dtype(conv_dtype or torch.float32)
+        # the JAX package's _boundary_dtype: int8 quantises resblocks only
+        self.boundary_dtype = (torch.float32 if self.conv_dtype == torch.int8
+                               else self.conv_dtype)
         ch = cfg.upsample_initial_channel
         self.num_kernels = len(cfg.resblock_kernel_sizes)
         self.conv_pre = nn.Conv1d(cfg.num_mels, ch, 7, padding=3)
@@ -248,7 +267,8 @@ class BigVGAN(nn.Module):
                               cfg.resblock_dilation_sizes):
                 self.resblocks.append(AMPBlock1(cout, rk, rd, cfg.activation,
                                                 cfg.snake_logscale,
-                                                fuse_act_conv))
+                                                fuse_act_conv,
+                                                self.conv_dtype))
         self.activation_post = Activation1d(cout, cfg.activation,
                                             cfg.snake_logscale)
         self.conv_post = nn.Conv1d(cout, 1, 7, padding=3)
@@ -260,7 +280,8 @@ class BigVGAN(nn.Module):
         nk = self.num_kernels
         for i, u in enumerate(self.cfg.upsample_rates):
             up = self.ups[i][0]
-            x = conv_transpose1d(x, up.weight, up.bias, stride=u)
+            x = conv_transpose1d(x, up.weight, up.bias, stride=u,
+                                 dot_dtype=self.boundary_dtype)
             ys: list = []
             for j in range(nk):
                 block = self.resblocks[i * nk + j]
@@ -270,5 +291,6 @@ class BigVGAN(nn.Module):
                     ys.append(block(x))
             x = ys[-1]
         x = self.activation_post(x)
-        x = conv1d(x, self.conv_post.weight, self.conv_post.bias)
+        x = conv1d(x, self.conv_post.weight, self.conv_post.bias,
+                   dot_dtype=self.boundary_dtype)
         return torch.tanh(x)[:, 0, :]

@@ -28,21 +28,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_CONV = [_P] * 7 + [_I] * 6 + [_F, _P]
+_CONVT = [_P] * 4 + [_I] * 6 + [_P]
+_PAIR = [_P] * 10 + [_I] * 7 + [_F, _P]
+_UNIT = [_P] * 13 + [_I] * 6 + [_F, _P]
 # argument types of each C entry point, in declaration order; every entry
-# point returns a C int (a CUDA error code or a flag) unless RESTYPES says
+# point returns a C int (a CUDA error code or a flag) unless RESTYPES says.
+# each int8 instance takes one more pointer per weight tensor: its scales
 SIGNATURES = {
     "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "conv1d_same": {"conv1d_same_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _I, _I, _F, _P],
-                    "conv1d_same_supported": [_I, _I]},
+    "conv1d_same": {"conv1d_same_f32": _CONV, "conv1d_same_bf16": _CONV,
+                    "conv1d_same_int8": [_P] + _CONV,
+                    "conv1d_same_supported": [_I, _I, _I]},
     "conv_transpose1d": {
-        "conv_transpose1d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "conv_transpose1d_f32": _CONVT, "conv_transpose1d_bf16": _CONVT,
         "conv_transpose1d_supported": [_I, _I]},
     "act_conv1d": {
-        "act_conv1d_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
+        "act_conv1d_f32": _PAIR, "act_conv1d_bf16": _PAIR,
+        "act_conv1d_int8": [_P] + _PAIR,
         "act_conv1d_smem_bytes": [_I, _I, _I]},
     "amp_unit": {
-        "amp_unit_f32": [_P] * 13 + [_I] * 6 + [_F, _P],
+        "amp_unit_f32": _UNIT, "amp_unit_bf16": _UNIT,
+        "amp_unit_int8": [_P, _P] + _UNIT,
         "amp_unit_smem_bytes": [_I, _I, _I]},
     "flash_attn": {"flash_attn_f32": [_P] * 5 + [_I] * 5 + [_F, _P],
                    "flash_attn_supported": [_I]},

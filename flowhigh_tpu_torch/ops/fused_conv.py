@@ -16,6 +16,11 @@ dilation unit), their plain PyTorch versions and the card's fusion plans.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (no fallback: a shape no kernel instance takes is an error).
 
+``dot_dtype`` (``ops/quant.py``) picks the instance: float32 (the default),
+bfloat16 or int8. Rounding or quantisation applies to each activation
+after its edge mask, as in the JAX kernels (``packed.py:829``, ``:1188``,
+``:1199``); conv1's output inside a unit stays f32.
+
 The plans decide, from shapes alone, where the vocoder routes a unit or a
 pair (``models/bigvgan.py:AMPBlock1``). They are capacity rules for one
 thread block's shared memory on the H100 (227 KB), mirrored from the
@@ -30,8 +35,10 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .conv import _check, conv1d_plain
+from .conv import (DOT_NAME, _check, _stream, conv1d_plain, count_launch,
+                   weight_ptrs)
 from .fused_act import _filter, snake_activation1d_plain
+from .quant import check_dot_dtype, int8_conv_windows, untile, windows
 
 SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
 PAIR_TILE = 256          # kernel D's time tile: 32 lanes x 8 samples
@@ -148,12 +155,15 @@ def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
                      beta: Optional[torch.Tensor], logscale: bool,
                      w: torch.Tensor, b: Optional[torch.Tensor], *,
                      dilation: int, residuals: Sequence[torch.Tensor] = (),
-                     out_scale: float = 1.0) -> torch.Tensor:
+                     out_scale: float = 1.0,
+                     dot_dtype: torch.dtype = torch.float32,
+                     tile: int = PAIR_TILE) -> torch.Tensor:
     """x [B, Cin, T], w [Cout, Cin, K] -> [B, Cout, T]:
-    conv1d_plain(snake_activation1d_plain(x)) with the epilogue."""
+    conv1d_plain(snake_activation1d_plain(x)) with the epilogue; ``tile``
+    is the int8 partition (``ops/quant.py``)."""
     return conv1d_plain(snake_activation1d_plain(x, alpha, beta, logscale),
                         w, b, dilation=dilation, residuals=residuals,
-                        out_scale=out_scale)
+                        out_scale=out_scale, dot_dtype=dot_dtype, tile=tile)
 
 
 def amp_unit_plain(x: torch.Tensor, a1: torch.Tensor,
@@ -162,13 +172,69 @@ def amp_unit_plain(x: torch.Tensor, a1: torch.Tensor,
                    w1: torch.Tensor, bias1: Optional[torch.Tensor],
                    w2: torch.Tensor, bias2: Optional[torch.Tensor], *,
                    dilation: int, extra_residuals: Sequence[torch.Tensor] = (),
-                   out_scale: float = 1.0) -> torch.Tensor:
+                   out_scale: float = 1.0,
+                   dot_dtype: torch.dtype = torch.float32,
+                   tile: Optional[int] = None) -> torch.Tensor:
     """x [B, C, T] -> out_scale * (conv2(act2(conv1(act1(x)))) + x +
-    sum(extras)); conv1 is (K, dilation), conv2 (K, 1)."""
-    t = act_conv1d_plain(x, a1, b1, logscale, w1, bias1, dilation=dilation)
+    sum(extras)); conv1 is (K, dilation), conv2 (K, 1). ``tile`` (int8
+    only; default kernel E's 256 - 2 ``unit_halo(K)``) is the partition of
+    ``ops/quant.py``: float32 and bfloat16 have no windows, so there the
+    unit is its two pairs."""
+    if check_dot_dtype(dot_dtype) == torch.int8:
+        return _amp_unit_int8(x, a1, b1, a2, b2, logscale, w1, bias1, w2,
+                              bias2, dilation, tuple(extra_residuals),
+                              out_scale, tile)
+    t = act_conv1d_plain(x, a1, b1, logscale, w1, bias1, dilation=dilation,
+                         dot_dtype=dot_dtype)
     return act_conv1d_plain(t, a2, b2, logscale, w2, bias2, dilation=1,
                             residuals=(x,) + tuple(extra_residuals),
-                            out_scale=out_scale)
+                            out_scale=out_scale, dot_dtype=dot_dtype)
+
+
+def _amp_unit_int8(x, a1, b1, a2, b2, logscale, w1, bias1, w2, bias2,
+                   dilation, extras, out_scale, tile):
+    """The int8 unit tile by tile, as kernel E computes it: each tile runs
+    conv1 over its outputs plus a halo H on each side with its own act1
+    scale, then act2 over that conv1 output and conv2 with its own act2
+    scale."""
+    bsz, c, t = x.shape
+    k = w1.shape[-1]
+    h = unit_halo(k)
+    tile = tile or UNIT_PASS - 2 * h
+    pad1, pad2 = dilation * (k - 1) // 2, (k - 1) // 2
+    n, span = -(-t // tile), tile + 2 * h
+    act1 = snake_activation1d_plain(x, a1, b1, logscale)
+    t1 = int8_conv_windows(windows(act1, -h - pad1, span + 2 * pad1, tile, n),
+                           w1, dilation)                     # [B, n, C, span]
+    if bias1 is not None:
+        t1 = t1 + bias1[:, None]
+
+    def act2(seg):
+        return snake_activation1d_plain(seg, a2, b2, logscale)
+
+    # act2 of each tile's conv1 output; its values within 6 samples of a
+    # span's end are wrong and unused (act2 reads +-6 samples), except
+    # where the span meets the sequence's edge: those tiles take act2 of
+    # the span cut to [0, T), whose edges the snake pads as the sequence's
+    a = act2(t1.reshape(bsz * n, c, span)).reshape(bsz, n, c, span)
+    for i in range(n):
+        lo, hi = max(0, h - i * tile), min(span, t - i * tile + h)
+        if lo > 0 or hi < span:
+            a[:, i, :, lo:hi] = act2(t1[:, i, :, lo:hi])
+    # conv2's window: act2 over [t0 - pad2, t0 + tile + pad2), zero outside
+    # [0, T)
+    off = h - pad2
+    pos = (torch.arange(n, device=x.device)[:, None] * tile - pad2
+           + torch.arange(tile + 2 * pad2, device=x.device))
+    win2 = torch.where(((pos >= 0) & (pos < t))[None, :, None, :],
+                       a[..., off:off + tile + 2 * pad2], 0.0)
+    y = untile(int8_conv_windows(win2, w2, 1), t)
+    if bias2 is not None:
+        y = y + bias2[:, None]
+    y = y + x
+    for e in extras:
+        y = y + e
+    return y if out_scale == 1.0 else y * out_scale
 
 
 # --- kernel wrappers -------------------------------------------------------------
@@ -187,14 +253,16 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
                beta: Optional[torch.Tensor], logscale: bool, w: torch.Tensor,
                b: Optional[torch.Tensor], *, dilation: int,
                residuals: Sequence[torch.Tensor] = (),
-               out_scale: float = 1.0) -> torch.Tensor:
+               out_scale: float = 1.0,
+               dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Fused snake -> dilated "same" conv with bias, up to three residuals
     and a scale (kernel D)."""
     residuals = tuple(residuals)
+    check_dot_dtype(dot_dtype)
     if x.device.type == "cpu":
         return act_conv1d_plain(x, alpha, beta, logscale, w, b,
                                 dilation=dilation, residuals=residuals,
-                                out_scale=out_scale)
+                                out_scale=out_scale, dot_dtype=dot_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"act_conv1d: unsupported device {x.device}")
     bsz, cin, t = x.shape
@@ -214,17 +282,18 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
     lib = _build.library("act_conv1d")
     y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
-    err = lib.act_conv1d_f32(
+    err = getattr(lib, f"act_conv1d_{DOT_NAME[dot_dtype]}")(
         x.data_ptr(), alpha.data_ptr(), _ptr(beta), _filter(x.device).data_ptr(),
-        w.data_ptr(), _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(), bsz, cin,
-        cout, t, k, dilation, int(logscale), float(out_scale),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *weight_ptrs(w, dot_dtype), _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(),
+        bsz, cin, cout, t, k, dilation, int(logscale), float(out_scale),
+        _stream(x))
     _build.check(err, "act_conv1d")
-    act_conv1d.launches += 1
+    count_launch(act_conv1d, dot_dtype)
     return y
 
 
 act_conv1d.launches = 0
+act_conv1d.variant_launches = {torch.bfloat16: 0, torch.int8: 0}
 
 
 def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
@@ -232,14 +301,16 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
              w1: torch.Tensor, bias1: Optional[torch.Tensor],
              w2: torch.Tensor, bias2: Optional[torch.Tensor], *,
              dilation: int, extra_residuals: Sequence[torch.Tensor] = (),
-             out_scale: float = 1.0) -> torch.Tensor:
+             out_scale: float = 1.0,
+             dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One AMPBlock1 dilation unit, act1 -> conv1 -> act2 -> conv2 -> +x
     (+ up to two extras) x out_scale, in one launch (kernel E)."""
     extras = tuple(extra_residuals)
+    check_dot_dtype(dot_dtype)
     if x.device.type == "cpu":
         return amp_unit_plain(x, a1, b1, a2, b2, logscale, w1, bias1, w2,
                               bias2, dilation=dilation, extra_residuals=extras,
-                              out_scale=out_scale)
+                              out_scale=out_scale, dot_dtype=dot_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"amp_unit: unsupported device {x.device}")
     bsz, c, t = x.shape
@@ -263,15 +334,15 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
     lib = _build.library("amp_unit")
     y = torch.empty_like(x)
     ep = [r.data_ptr() for r in extras] + [None] * (2 - len(extras))
-    err = lib.amp_unit_f32(
+    err = getattr(lib, f"amp_unit_{DOT_NAME[dot_dtype]}")(
         x.data_ptr(), a1.data_ptr(), _ptr(b1), a2.data_ptr(), _ptr(b2),
-        _filter(x.device).data_ptr(), w1.data_ptr(), _ptr(bias1),
-        w2.data_ptr(), _ptr(bias2), ep[0], ep[1], y.data_ptr(), bsz, c, t, k,
-        dilation, int(logscale), float(out_scale),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _filter(x.device).data_ptr(), *weight_ptrs(w1, dot_dtype), _ptr(bias1),
+        *weight_ptrs(w2, dot_dtype), _ptr(bias2), ep[0], ep[1], y.data_ptr(),
+        bsz, c, t, k, dilation, int(logscale), float(out_scale), _stream(x))
     _build.check(err, "amp_unit")
-    amp_unit.launches += 1
+    count_launch(amp_unit, dot_dtype)
     return y
 
 
 amp_unit.launches = 0
+amp_unit.variant_launches = {torch.bfloat16: 0, torch.int8: 0}

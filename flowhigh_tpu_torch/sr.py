@@ -84,6 +84,22 @@ def prepare_clip(audio) -> np.ndarray:
     return audio.astype(np.float32)
 
 
+_CONV_DTYPES = {None: None, torch.bfloat16: torch.bfloat16,
+                torch.int8: torch.int8, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}
+
+
+def _conv_dtype(value) -> Optional[torch.dtype]:
+    """``vocoder_conv_dtype`` -> None (float32), torch.bfloat16 or
+    torch.int8."""
+    try:
+        return _CONV_DTYPES[value]
+    except (KeyError, TypeError):
+        raise ValueError("vocoder_conv_dtype must be None, torch.bfloat16, "
+                         f"torch.int8, 'bfloat16' or 'int8', got {value!r}"
+                         ) from None
+
+
 class FlowHighSR:
     def __init__(self, config: FlowHighConfig = FlowHighConfig(), params=None,
                  vocoder_params=None, *, cfm_method: Optional[str] = None,
@@ -91,12 +107,17 @@ class FlowHighSR:
                  ode_method: Optional[str] = None,
                  prior_semantics: str = "reference",
                  upsampling_method: str = "scipy", fuse_act_conv=True,
+                 vocoder_conv_dtype=None, vocoder_storage_dtype=None,
                  device=None):
         """``params``/``vocoder_params``: the JAX package's param trees
         (nested dicts of arrays), carried across by ``compat.jax_params``;
         without them the networks keep their constructor init until
         ``init_params``. ``fuse_act_conv`` (True | False | "auto" |
         "pairs") chooses the vocoder's kernels (``models/bigvgan.py``).
+        ``vocoder_conv_dtype`` (None | torch.bfloat16 | torch.int8 |
+        "bfloat16" | "int8") is the dot precision of the vocoder's convs, as
+        the JAX package's switch of the same name; every entry point below
+        inherits it. ``vocoder_storage_dtype`` is not ported.
         ``device=None`` means CUDA, and raises without it."""
         self.config = config
         self.device = resolve_device(device)
@@ -119,9 +140,15 @@ class FlowHighSR:
         if prior_semantics != "reference":
             raise ValueError(f"prior_semantics must be 'reference' or 'paper', "
                              f"got {prior_semantics!r}")
+        if vocoder_storage_dtype is not None:
+            raise NotImplementedError(
+                "vocoder_storage_dtype (bf16 feature maps through kernels A-E) "
+                "is not ported (ROADMAP.md queue 1 item 15)")
+        self.vocoder_conv_dtype = _conv_dtype(vocoder_conv_dtype)
 
         self.net = VectorFieldNet(config.model).eval()
-        self.vocoder = BigVGAN(config.vocoder, fuse_act_conv).eval()
+        self.vocoder = BigVGAN(config.vocoder, fuse_act_conv,
+                               self.vocoder_conv_dtype).eval()
         if params is not None:
             self.net.load_state_dict(
                 vector_field_state_from_jax(params, config.model))

@@ -177,12 +177,17 @@ def test_fused_wrappers_raise_without_an_instance(cuda, gen):
                      dilation=1)
 
 
-def _main_path_calls(cfg, frames, fuse):
+def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def _main_path_calls(cfg, frames, fuse):
+    chip_smoke = _chip_smoke()
     calls = chip_smoke.main_path_calls(cfg, frames, fuse)
     return [sum(calls[k].values()) for k in chip_smoke.KERNEL_NAMES]
 
@@ -270,3 +275,129 @@ def test_flash_vector_field_on_card_matches_cpu(cuda, gen):
                            cond=cond.to(cuda), mask=mask.to(cuda)).cpu()
     assert ops.flash_attention.launches == 2  # one per layer
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+# --- the reduced-precision instances (dot_dtype bfloat16 and int8) -----------
+
+VARIANT_CONVS = [(torch.bfloat16, 48, 48, 11, 5, 3), (torch.bfloat16, 40, 70, 7, 3, 1),
+                 (torch.bfloat16, 48, 1, 7, 1, 0), (torch.int8, 48, 48, 11, 5, 2),
+                 (torch.int8, 96, 96, 3, 1, 1), (torch.int8, 45, 64, 7, 3, 0)]
+
+
+@pytest.mark.parametrize("dot_dtype,cin,cout,k,d,n_res", VARIANT_CONVS)
+def test_conv1d_variant_matches_plain(cuda, gen, dot_dtype, cin, cout, k, d,
+                                      n_res):
+    # the same input tensor on both sides: the same bf16 roundings, the same
+    # int8 windows and integer sums; only the f32 epilogue's order differs
+    t = 777
+    x = _randn(gen, cuda, 2, cin, t)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = tuple(_randn(gen, cuda, 2, cout, t) for _ in range(n_res))
+    kw = dict(dilation=d, residuals=res, out_scale=0.5, dot_dtype=dot_dtype)
+    n0, v0 = ops.conv1d.launches, ops.conv1d.variant_launches[dot_dtype]
+    _close(ops.conv1d(x, w, bias, **kw), ops.conv1d_plain(x, w, bias, **kw))
+    assert ops.conv1d.variant_launches[dot_dtype] == v0 + 1
+    assert ops.conv1d.launches == n0
+
+
+@pytest.mark.parametrize("u,k", UPSAMPLERS)
+def test_conv_transpose1d_bf16_matches_plain(cuda, gen, u, k):
+    x = _randn(gen, cuda, 2, 40, 101)
+    w = _randn(gen, cuda, 40, 24, k, scale=(24 * k) ** -0.5)
+    bias = _randn(gen, cuda, 24)
+    v0 = ops.conv_transpose1d.variant_launches[torch.bfloat16]
+    _close(ops.conv_transpose1d(x, w, bias, stride=u, dot_dtype=torch.bfloat16),
+           ops.conv_transpose1d_plain(x, w, bias, stride=u,
+                                      dot_dtype=torch.bfloat16))
+    assert ops.conv_transpose1d.variant_launches[torch.bfloat16] == v0 + 1
+
+
+# (dot_dtype, K, d, B, C, T): T over several tiles, T below one tile, every K
+VARIANT_FUSED = [(torch.bfloat16, 3, 5, 2, 48, 777), (torch.bfloat16, 7, 3, 1, 96, 300),
+                 (torch.bfloat16, 11, 1, 1, 64, 5), (torch.int8, 3, 1, 1, 96, 777),
+                 (torch.int8, 7, 5, 2, 48, 300), (torch.int8, 11, 3, 1, 64, 37)]
+
+
+@pytest.mark.parametrize("dot_dtype,k,d,b,c,t", VARIANT_FUSED)
+def test_act_conv1d_variant_matches_plain(cuda, gen, dot_dtype, k, d, b, c, t):
+    x = _randn(gen, cuda, b, c, t)
+    a, be = _randn(gen, cuda, c, scale=0.3), _randn(gen, cuda, c, scale=0.3)
+    w = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    bias = _randn(gen, cuda, c, scale=0.1)
+    res = (_randn(gen, cuda, b, c, t),)
+    args = (x, a, be, True, w, bias)
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3,
+              dot_dtype=dot_dtype)
+    v0 = ops.act_conv1d.variant_launches[dot_dtype]
+    cs = _chip_smoke()  # chip_smoke.py's tolerance of the variants
+    cs._compare("act_conv1d" + cs.suffix(dot_dtype), (b, c, t),
+                ops.act_conv1d(*args, **kw), ops.act_conv1d_plain(*args, **kw))
+    assert ops.act_conv1d.variant_launches[dot_dtype] == v0 + 1
+
+
+@pytest.mark.parametrize("dot_dtype,k,d,b,c,t", VARIANT_FUSED)
+def test_amp_unit_variant_matches_plain(cuda, gen, dot_dtype, k, d, b, c, t):
+    c = {48: 48, 96: 192, 64: 160}[c]  # each of E's pass widths: 48, 96, 64
+    x = _randn(gen, cuda, b, c, t, scale=0.5)
+    acts = [_randn(gen, cuda, c, scale=0.3) for _ in range(4)]
+    w1 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    w2 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    b1, b2 = _randn(gen, cuda, c, scale=0.1), _randn(gen, cuda, c, scale=0.1)
+    ex = (_randn(gen, cuda, b, c, t),)
+    args = (x, acts[0], acts[1], acts[2], acts[3], True, w1, b1, w2, b2)
+    kw = dict(dilation=d, extra_residuals=ex, out_scale=0.5,
+              dot_dtype=dot_dtype)
+    v0 = ops.amp_unit.variant_launches[dot_dtype]
+    cs = _chip_smoke()  # chip_smoke.py's tolerance of the variants
+    cs._compare("amp_unit" + cs.suffix(dot_dtype), (b, c, t),
+                ops.amp_unit(*args, **kw), ops.amp_unit_plain(*args, **kw))
+    assert ops.amp_unit.variant_launches[dot_dtype] == v0 + 1
+
+
+def test_variant_wrappers_raise_without_an_instance(cuda, gen):
+    x = _randn(gen, cuda, 1, 48, 64)
+    with pytest.raises(ValueError, match="no kernel instance"):  # int8, Cout < 16
+        ops.conv1d(x, _randn(gen, cuda, 1, 48, 7), None, dot_dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8"):  # upsamplers stay f32
+        ops.conv_transpose1d(x, _randn(gen, cuda, 48, 24, 8), None, stride=4,
+                             dot_dtype=torch.int8)
+    with pytest.raises(ValueError, match="dot_dtype"):
+        ops.conv1d(x, _randn(gen, cuda, 48, 48, 3), None,
+                   dot_dtype=torch.float16)
+    a = torch.zeros(48, device=cuda)
+    with pytest.raises(ValueError):  # no K = 5 instance at any dtype
+        ops.act_conv1d(x, a, None, True, _randn(gen, cuda, 48, 48, 5), None,
+                       dilation=1, dot_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.bfloat16, torch.int8])
+def test_reduced_precision_vocoder_on_card_matches_cpu(cuda, gen, dot_dtype):
+    # every variant of the fused path launches as chip_smoke.py predicts,
+    # and every launch agrees with its plain version on its own inputs. End
+    # to end, the reduced-precision vocoder amplifies f32 rounding (a flipped
+    # bf16 rounding or int8 quantum upstream moves everything after it), so
+    # card against CPU is held to the CPU's own change under a nudge of the
+    # mel by +-2^-16
+    chip_smoke = _chip_smoke()
+    cfg = VocoderConfig(upsample_initial_channel=1024)
+    voc = seeded_init_(BigVGAN(cfg, conv_dtype=dot_dtype).eval(), 0)
+    mel = _randn(gen, "cpu", 1, 8, cfg.num_mels)
+    records = []
+    with torch.inference_mode():
+        want = voc(mel)
+        floor = max(chip_smoke.rel_l2(voc(mel * (1 + s)), want)
+                    for s in (2.0 ** -16, -2.0 ** -16))
+        voc.to(cuda)
+        ops.reset_launch_counts()
+        got = voc(mel.to(cuda)).cpu()
+        counts = chip_smoke.launch_counts()
+        with chip_smoke.replayed(records):
+            voc(mel.to(cuda))
+    calls = chip_smoke.main_path_calls(cfg, 8, True, dot_dtype)
+    assert counts == {k: sum(calls.get(k, {}).values()) for k in counts}
+    sfx = chip_smoke.suffix(dot_dtype)
+    assert all(counts[k + sfx] > 0 for k in ("act_conv1d", "amp_unit"))
+    assert len(records) == sum(counts.values())
+    assert torch.isfinite(got).all()
+    assert chip_smoke.rel_l2(got, want) <= max(1e-2, 2 * floor)
