@@ -72,12 +72,33 @@ L. long-form: the same weights with ``ModelConfig(attn_flash=True)`` run
    chunks, 1 s overlap): RTF on the float32 and int16 wires, int16 within
    1e-4 of float32, seam LSD against the single-pass output below
    max(2.0, 2.5 x overall LSD);
+M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
+   of scripts/bench_act_mxu.py): the probe script's run over its four
+   cases with every launch count zeroed just before and read just after
+   (kernels A and B, A's firs-only instance, G and H's four instances must
+   each have launched); then at each case G, the firs-only instance and H
+   (f32 and bf16, with and without the snake; p > 1) against their plain
+   versions: G, firs-only and f32 H at atol / rtol 1e-4 on values divided
+   by the largest |plain value|, bf16 H in relative L2 (1e-3) and scaled
+   max abs (``PROBE_BF16_TOL``); each with its bound, its plain version's
+   time and kernels A and B on the same elements beside it;
+I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
+   signal as a 16 kHz int16 wav (random weights at full width, seed 0, as
+   phase 2) within 1 int16 step of phase 2's model's ``generate`` on the
+   same samples, with phase 2's launch counts; ``--input_dir`` on three
+   wavs (16 and 8 kHz, ``--wire int16``) each within 1 step of
+   ``generate``; ``vocoder`` on a 1 s, 48 kHz wav (the vocoder's default
+   path launches); ``--tiny``, whose (8, 16) and (4, 8) upsamplers take
+   kernel C and (5, 10), (3, 6) the library conv (both counts printed),
+   within 1e-3 of the same CLI on the CPU;
 4. print the ``kernels`` JSON line (per kernel: the default path's launches
    and the per-clip sums over them, the unfused path's in ``unfused_path``,
    the long-form path's in ``longform_path``; kernel F's launches and sums
    are per long-form clip; each variant's on its dtype's fused path, or
-   the unfused one for B.int8, which only that path runs), the card line
-   and, last, the ``ok`` line.
+   the unfused one for B.int8, which only that path runs; the probe
+   kernels' launches from phase M's run, their times summed over the
+   probe script's cases, one launch each), the card line and, last, the
+   ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
 """
@@ -982,6 +1003,248 @@ def reduced_phase(config, frames: int, f32_out: np.ndarray,
     return res
 
 
+# --- phase M: the probe kernels --------------------------------------------------
+
+# probe instance -> the probe script's row that launches it
+PROBE_ROWS = {"snake_aa.firs": "firs_only", "snake_only": "snake_floor",
+              "mxu_fir": "mxu_fir f32", "mxu_fir.dots": "mxu_fir f32 dots_only",
+              "mxu_fir.bf16": "mxu_fir bf16",
+              "mxu_fir.bf16_dots": "mxu_fir bf16 dots_only"}
+# bf16 H against its plain version: (rel L2, max abs over max(1, max |plain|));
+# kernel and plain sum s2 in other orders, so now and then a bf16 rounding
+# of s2 flips and moves one output row by a bf16 step of s2 times dn
+PROBE_BF16_TOL = (1e-3, 1e-2)
+
+
+def _load_probe_script():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "port_bench_act_mxu", ROOT / "scripts" / "port_bench_act_mxu.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def probe_counts() -> dict:
+    """{instance: launches} of the probe path's kernels since the last
+    ``ops.reset_launch_counts``."""
+    from flowhigh_tpu_torch import ops
+    h = ops.mxu_fir.instance_launches
+    return {"snake_aa": ops.snake_activation1d.launches,
+            "conv1d_same": ops.conv1d.launches,
+            "snake_aa.firs": ops.act_firs_only.launches,
+            "snake_only": ops.snake_only.launches,
+            "mxu_fir": h["mxu_fir_f32"], "mxu_fir.dots": h["mxu_fir_f32_dots"],
+            "mxu_fir.bf16": h["mxu_fir_bf16"],
+            "mxu_fir.bf16_dots": h["mxu_fir_bf16_dots"]}
+
+
+def _compare_probe(inst: str, case: str, got, want) -> float:
+    """Max abs error of a probe kernel against its plain version; raises
+    beyond its tolerance (see the module docstring)."""
+    import torch
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    max_abs = float(diff.max())
+    scale = float(want.abs().max())
+    if inst.startswith("mxu_fir.bf16"):
+        rel = float(diff.norm() / want.norm())
+        ok = (rel <= PROBE_BF16_TOL[0]
+              and max_abs <= PROBE_BF16_TOL[1] * max(1.0, scale))
+        shown = f"rel L2 {rel:.3e}"
+    else:  # atol / rtol on values divided by the largest |plain value|
+        ok = bool(torch.all(diff / scale <= ATOL + RTOL * want.abs() / scale))
+        shown = f"max abs / max |plain| {max_abs / scale:.3e}"
+    print(f"  {inst} ({case}): max_abs {max_abs:.3e}, {shown} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"{inst} at {case} disagrees with its plain "
+                             "version")
+    return max_abs
+
+
+def probe_phase(peaks) -> tuple[dict, dict]:
+    """Phase M (see the module docstring). Returns ({instance: its record
+    for the ``kernels`` line, with per-case rows}, the drive run's
+    counts)."""
+    from flowhigh_tpu_torch import ops
+
+    bench = _load_probe_script()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    records = bench.run(REPS, WARMUP,
+                        emit=lambda line: print(f"  {line}", flush=True))
+    counts = probe_counts()
+    print(f"phase M: probe script run ({len(records)} cases) in "
+          f"{time.perf_counter() - t0:.1f} s; launches {counts}", flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel of the probe path did not run: "
+                             f"{counts}")
+
+    rng = np.random.default_rng(0)  # the script's inputs, drawn again
+    res = {inst: {"launches": counts[inst], "cases": []}
+           for inst in PROBE_ROWS}
+    for rec, (name, s, c, p) in zip(records, bench.CASES):
+        inp = bench.case_inputs(rng, s, c, p, "cuda")
+        rows = bench.case_rows(inp, s, c, p, peaks)
+        for inst, row in PROBE_ROWS.items():
+            if row not in rows:
+                continue
+            run, plain, bound_ms, bound_by = rows[row]
+            err = _compare_probe(inst, name, run(), plain())
+            res[inst]["cases"].append({
+                "case": name, "ms": rec["rows"][row]["ms"],
+                "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": err,
+                "kernel_a_ms": rec["rows"]["act_full"]["ms"],
+                "kernel_b_ms": rec["rows"]["conv k7d3"]["ms"]})
+        del inp, rows
+    for inst, r in res.items():
+        cs = r["cases"]
+        r.update({f: sum(x[f] for x in cs) for f in
+                  ("ms", "plain_ms", "bound_ms", "kernel_a_ms",
+                   "kernel_b_ms")})
+        r["bound_by"] = max(cs, key=lambda x: x["bound_ms"])["bound_by"]
+        r["max_abs_err"] = max(x["max_abs_err"] for x in cs)
+        r["library_ms"] = None
+        r["unfused_chain_ms"] = None
+        print(f"  {inst}: {r['launches']} launches; one per case: "
+              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.3f} {r['bound_by']}; kernel A "
+              f"{r['kernel_a_ms']:.3f}, B {r['kernel_b_ms']:.3f} on the same "
+              f"elements)", flush=True)
+    print(f"phase M: done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return res, counts
+
+
+CLI_SOLVER = ["--time_step", "1", "--ode_method", "euler",
+              "--cfm_method", "independent_cfm_adaptive"]
+
+
+def cli_phase(sr, audio: np.ndarray, calls: dict) -> dict:
+    """Phase I (see the module docstring). ``sr`` is phase 2's model,
+    ``audio`` its 10 s signal, ``calls`` its path's calls."""
+    import shutil
+
+    import scipy.io.wavfile as wavfile
+
+    from flowhigh_tpu_torch import cli, ops
+    from flowhigh_tpu_torch.config import VocoderConfig
+    from flowhigh_tpu_torch.models import BigVGAN
+    from flowhigh_tpu_torch.profiling import clip_signal
+
+    work_dir = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    work_dir.mkdir(parents=True)
+
+    def pcm(x):
+        return np.round(np.clip(x, -1.0, 1.0) * 32767).astype(np.int16)
+
+    def as_written(out):  # the CLI's write: clip, x 32767, int16
+        return (np.clip(out[0], -1, 1) * 32767).astype(np.int16).astype(int)
+
+    def read(path):
+        rate, data = wavfile.read(path)
+        if rate != 48000 or data.dtype != np.int16:
+            raise AssertionError(f"{path}: {rate} Hz {data.dtype}")
+        return data.astype(int)
+
+    def cli_run(what, argv):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"phase I: {what}: exit code {rc}")
+        return wall
+
+    res: dict = {}
+    # infer --input, 10 s
+    a16 = pcm(audio)
+    wavfile.write(work_dir / "in10.wav", IN_SR, a16)
+    want = as_written(sr.generate(a16, IN_SR, timestep=1))
+    ops.reset_launch_counts()
+    wall = cli_run("infer --input", [
+        "infer", "--input", str(work_dir / "in10.wav"), "--output",
+        str(work_dir / "out10.wav")] + CLI_SOLVER)
+    counts = launch_counts()
+    got = read(work_dir / "out10.wav")
+    d = int(np.abs(got - want).max()) if got.shape == want.shape else None
+    print(f"phase I: cli infer --input 10 s: {wall:.2f} s wall (model build "
+          f"included); output vs phase 2's model's generate on the same "
+          f"samples: max {d} int16 steps (<= 1)", flush=True)
+    if d is None or d > 1:
+        raise AssertionError(f"phase I: cli infer differs from generate: {d}")
+    check_launches("phase I: cli infer --input", counts, calls)
+    res["infer_input"] = {"wall_s": wall, "max_steps_vs_generate": d,
+                          "launches": counts}
+
+    # infer --input_dir, three wavs, int16 wire
+    in_dir = work_dir / "wavs"
+    in_dir.mkdir()
+    clips = [(16000, 2.0, 0.8), (8000, 3.0, 0.6), (16000, 1.5, 0.5)]
+    for i, (rate, sec, gain) in enumerate(clips):
+        wavfile.write(in_dir / f"clip{i}.wav", rate,
+                      pcm(clip_signal(sec, rate) * np.float32(gain)))
+    wall = cli_run("infer --input_dir", [
+        "infer", "--input_dir", str(in_dir), "--output_dir",
+        str(work_dir / "out"), "--wire", "int16"] + CLI_SOLVER)
+    steps = []
+    for i, (rate, sec, _) in enumerate(clips):
+        got = read(work_dir / "out" / f"clip{i}_48k.wav")
+        want = as_written(sr.generate(
+            wavfile.read(in_dir / f"clip{i}.wav")[1], rate, timestep=1))
+        steps.append(int(np.abs(got - want).max())
+                     if got.shape == want.shape else None)
+    print(f"phase I: cli infer --input_dir (3 wavs, 16 and 8 kHz, int16 "
+          f"wire): {wall:.2f} s wall; each vs generate: {steps} int16 steps "
+          f"(<= 1)", flush=True)
+    if any(d is None or d > 1 for d in steps):
+        raise AssertionError(f"phase I: --input_dir differs: {steps}")
+    res["infer_input_dir"] = {"wall_s": wall, "max_steps_vs_generate": steps}
+
+    # vocoder, 1 s at 48 kHz, random weights at full width
+    voc_dir = work_dir / "voc"
+    voc_dir.mkdir()
+    wavfile.write(voc_dir / "a.wav", 48000, pcm(clip_signal(1.0, 48000)))
+    ops.reset_launch_counts()
+    wall = cli_run("vocoder", ["vocoder", "--input_dir", str(voc_dir),
+                               "--output_dir", str(work_dir / "voc_out")])
+    counts = launch_counts()
+    got = read(work_dir / "voc_out" / "a_generated.wav")
+    print(f"phase I: cli vocoder 1 s at 48 kHz: {wall:.2f} s wall, "
+          f"{len(got)} samples", flush=True)
+    if len(got) != 48000:
+        raise AssertionError(f"phase I: vocoder output {got.shape}")
+    check_launches("phase I: cli vocoder", counts,
+                   main_path_calls(VocoderConfig(), 48000 // 480))
+    res["vocoder"] = {"wall_s": wall, "launches": counts}
+
+    # --tiny: kernel C at its even upsamplers, the library at its odd ones
+    wavfile.write(work_dir / "in1.wav", IN_SR, pcm(clip_signal(1.0, IN_SR)))
+    tiny = ["infer", "--input", str(work_dir / "in1.wav"), "--tiny"]
+    ops.reset_launch_counts()
+    BigVGAN.library_upsamplers = 0
+    cli_run("infer --tiny", tiny + ["--output", str(work_dir / "tiny.wav")]
+            + CLI_SOLVER)
+    n_c, n_lib = ops.conv_transpose1d.launches, BigVGAN.library_upsamplers
+    cli_run("infer --tiny --device cpu", tiny + [
+        "--output", str(work_dir / "tiny_cpu.wav"), "--device", "cpu"]
+        + CLI_SOLVER)
+    got, want = read(work_dir / "tiny.wav"), read(work_dir / "tiny_cpu.wav")
+    d = int(np.abs(got - want).max()) if got.shape == want.shape else None
+    print(f"phase I: cli infer --tiny: upsamplers on kernel C {n_c} "
+          f"((8, 16), (4, 8)), on the library conv {n_lib} ((5, 10), "
+          f"(3, 6)); card vs CPU max {d} int16 steps (<= 33, 1e-3)",
+          flush=True)
+    if n_c != 2 or n_lib != 2 or d is None or d > 33:
+        raise AssertionError(f"phase I: --tiny: C {n_c}, library {n_lib}, "
+                             f"card vs CPU {d}")
+    res["tiny"] = {"kernel_c": n_c, "library_upsamplers": n_lib,
+                   "card_vs_cpu_steps": d}
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return res
+
+
 SOURCES = {
     "snake_aa": ("flowhigh_tpu_torch/csrc/snake_aa.cu",
                  "flowhigh_tpu/ops/fused_act.py:193, flowhigh_tpu/ops/packed.py:749"),
@@ -1002,6 +1265,20 @@ for _v in VARIANT_NAMES:  # each variant: its kernel's source and dot_dtype
     _base, _, _sfx = _v.partition(".")
     SOURCES[_v] = (SOURCES[_base][0], SOURCES[_base][1].replace(
         ")", f", dot_dtype={SUFFIXES[_sfx]})"))
+_H = ("flowhigh_tpu_torch/csrc/probe_fir.cu",
+      "scripts/bench_act_mxu.py:102 (mxu_fir")
+SOURCES.update({
+    "snake_aa.firs": ("flowhigh_tpu_torch/csrc/snake_aa.cu",
+                      "scripts/bench_act_mxu.py:147-150 (firs_only: "
+                      "flowhigh_tpu/ops/packed.py:749 with _snake_packed "
+                      "as the identity)"),
+    "snake_only": ("flowhigh_tpu_torch/csrc/probe_snake.cu",
+                   "scripts/bench_act_mxu.py:52 (snake_only)"),
+    "mxu_fir": (_H[0], _H[1] + ", float32)"),
+    "mxu_fir.dots": (_H[0], _H[1] + ", float32, do_snake=False)"),
+    "mxu_fir.bf16": (_H[0], _H[1] + ", bfloat16)"),
+    "mxu_fir.bf16_dots": (_H[0], _H[1] + ", bfloat16, do_snake=False)"),
+})
 RECORD = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
           "unfused_chain_ms", "max_abs_err", "launches")
 
@@ -1094,6 +1371,9 @@ def main() -> int:
     print(f"phase 1: flash_attn checked and timed at {len(flash_rows)} shapes "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase M: the probe kernels on the probe script's path
+    probes, probe_launches = probe_phase(peaks)
+
     # phase 2: full width, 10 s clip, default path then unfused path
     sr = make_sr(config, "cuda")
     audio = clip_signal(SECONDS, IN_SR)
@@ -1128,6 +1408,11 @@ def main() -> int:
 
     # serving phase
     serving = serving_phase(sr)
+
+    # phase I: the CLI on the card
+    t0 = time.perf_counter()
+    cli_res = cli_phase(sr, audio, calls)
+    print(f"phase I: done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 3: 1 s clip, card vs CPU plain path, same weights
     short = clip_signal(1.0, IN_SR)
@@ -1189,6 +1474,13 @@ def main() -> int:
             entry["unfused_path"] = {f: unfused_t[k][f]
                                      for f in RECORD + ("f32_ms",)}
         kernels.append(entry)
+    for k, r in probes.items():  # phase M's run; ms etc. one per case
+        src, replaces = SOURCES[k]
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": replaces, **{f: r[f] for f in RECORD},
+                        "path": "scripts/port_bench_act_mxu.py (probe)",
+                        "kernel_a_ms": r["kernel_a_ms"],
+                        "kernel_b_ms": r["kernel_b_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -1205,6 +1497,7 @@ def main() -> int:
         "longform": longform,
         "longform_path": long_tot,
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
+        "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,9 @@
 // Replaces the Pallas kernel
 // flowhigh_tpu/ops/packed.py:pallas_packed_conv_transpose1d (plan
 // _convt_plan, core _pallas_conv_rows) at p_in = p_out = 1: BigVGAN's five
-// stage-boundary upsamplers, (U, K) = (5,11), (4,8), (4,8), (3,7), (2,4).
+// stage-boundary upsamplers, (U, K) = (5,11), (4,8), (4,8), (3,7), (2,4),
+// and (8,16), the first upsampler of the CLI's --tiny vocoder (whose odd
+// pairs (5,10), (3,6) run the library conv, models/bigvgan.py).
 //
 // Layout: x [B, Cin, T], w [Cin, Cout, K] (PyTorch ConvTranspose1d),
 // y [B, Cout, U*T], float32, contiguous.
@@ -160,12 +162,14 @@ int conv_transpose1d(const float* x, const float* w, const float* bias,
     return launch<D, 3, 7>(x, w, bias, y, B, Cin, Cout, T, s);
   if (stride == 2 && K == 4)
     return launch<D, 2, 4>(x, w, bias, y, B, Cin, Cout, T, s);
+  if (stride == 8 && K == 16)
+    return launch<D, 8, 16>(x, w, bias, y, B, Cin, Cout, T, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The (stride, K) pairs of BigVGAN's upsamplers; others return
+// The (stride, K) pairs of BigVGAN's upsamplers and (8, 16); others return
 // cudaErrorInvalidValue. Returns cudaGetLastError() after the launch.
 extern "C" int conv_transpose1d_f32(const float* x, const float* w,
                                     const float* bias, float* y, int B,
@@ -187,5 +191,6 @@ extern "C" int conv_transpose1d_bf16(const float* x, const float* w,
 // 1 when (stride, K) has a compiled instance (float32 and bfloat16).
 extern "C" int conv_transpose1d_supported(int stride, int K) {
   return (stride == 5 && K == 11) || (stride == 4 && K == 8) ||
-         (stride == 3 && K == 7) || (stride == 2 && K == 4);
+         (stride == 3 && K == 7) || (stride == 2 && K == 4) ||
+         (stride == 8 && K == 16);
 }

@@ -22,15 +22,25 @@
 // its x tile with a +-6 sample halo in shared memory (coalesced loads), forms
 // the 2x-rate snake signal for the tile in shared memory, then each thread
 // writes outputs at consecutive addresses. The 2x-rate intermediate never
-// leaves the SM. The sine is the precise sinf.
+// leaves the SM. The sine is the precise sinf (snake.cuh, shared with
+// probe kernel G).
+//
+// The firs-only instance (kSnake = false, entry snake_aa_firs_f32) replaces
+// the snake by the identity: down2(up2(x)), the FIR half of the work. It is
+// the card's counterpart of scripts/bench_act_mxu.py's `firs_only` row (the
+// JAX script monkeypatches ops/packed.py:_snake_packed to the identity) and
+// runs only in the probe script and chip_smoke.py.
 
 #include <cuda_runtime.h>
+
+#include "snake.cuh"
 
 namespace {
 
 constexpr int TILE = 1024;
 constexpr int THREADS = 256;
 
+template <bool kSnake>
 __global__ void __launch_bounds__(THREADS)
 snake_aa_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
                 const float* __restrict__ beta, const float* __restrict__ filt,
@@ -48,14 +58,17 @@ snake_aa_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
     const int g = min(max(t0 - 6 + i, 0), T - 1);
     xs[i] = xr[g];
   }
-  const int c = (int)(row % channels);
-  float a = alpha[c];
-  float b = beta != nullptr ? beta[c] : a;
-  if (logscale) {
-    a = expf(a);
-    b = expf(b);
+  float a = 0.0f, inv_b = 0.0f;
+  if (kSnake) {
+    const int c = (int)(row % channels);
+    a = alpha[c];
+    float b = beta != nullptr ? beta[c] : a;
+    if (logscale) {
+      a = expf(a);
+      b = expf(b);
+    }
+    inv_b = 1.0f / (b + 1e-9f);
   }
-  const float inv_b = 1.0f / (b + 1e-9f);
   __syncthreads();
 
   // 2x-rate snake signal for m = t0 - 3 + i: s[2m] reads xs[i .. i+5],
@@ -67,10 +80,8 @@ snake_aa_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
       se = fmaf(2.0f * h[2 * k], xs[i + k], se);
       so = fmaf(2.0f * h[2 * k + 1], xs[i + 1 + k], so);
     }
-    const float pe = sinf(a * se);
-    const float po = sinf(a * so);
-    ss[2 * i] = se + inv_b * (pe * pe);
-    ss[2 * i + 1] = so + inv_b * (po * po);
+    ss[2 * i] = kSnake ? snake_fn(se, a, inv_b) : se;
+    ss[2 * i + 1] = kSnake ? snake_fn(so, a, inv_b) : so;
   }
   __syncthreads();
 
@@ -102,7 +113,17 @@ extern "C" int snake_aa_f32(const float* x, const float* alpha,
   if (rows <= 0 || T <= 0 || channels <= 0 || rows > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((T + TILE - 1) / TILE, rows);
-  snake_aa_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  snake_aa_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       x, alpha, beta, filt, y, channels, T, logscale);
+  return (int)cudaGetLastError();
+}
+
+// The firs-only instance: y = down2(up2(x)) on [rows, T], same edges.
+extern "C" int snake_aa_firs_f32(const float* x, const float* filt, float* y,
+                                 int rows, int T, void* stream) {
+  if (rows <= 0 || T <= 0 || rows > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((T + TILE - 1) / TILE, rows);
+  snake_aa_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      x, nullptr, nullptr, filt, y, 1, T, 0);
   return (int)cudaGetLastError();
 }

@@ -22,8 +22,13 @@ AMPBlock1``), how each AMPBlock1 dilation unit runs:
 
 The MRF branch average is folded into the last branch's final kernel as
 residual + extras x 1/num_kernels. ``activation_post`` and ``conv_post``
-run on kernels A and B, the five upsamplers on kernel C; ``conv_pre`` is a
-plain ``F.conv1d``.
+run on kernels A and B, the upsamplers on kernel C; ``conv_pre`` is a
+plain ``F.conv1d``. An upsampler whose K - stride is odd (none in the
+published config) runs the library transposed conv in float32 instead, by
+the JAX package's rule (``flowhigh_tpu/models/bigvgan.py``: such a pair
+goes to XLA's ``conv_transpose1d``, outside any kernel, with no dot
+dtype); the class counter ``BigVGAN.library_upsamplers`` counts those
+calls.
 
 ``conv_dtype`` (``None`` = float32, ``torch.bfloat16``, ``torch.int8``) is
 the JAX package's ``BigVGAN.conv_dtype``: the dot precision of every
@@ -240,6 +245,10 @@ class AMPBlock1(nn.Module):
 class BigVGAN(nn.Module):
     """conv_pre -> [upsample -> MRF average]* -> act -> conv_post -> tanh."""
 
+    # calls of the library transposed conv (odd K - stride), over every
+    # instance, like the kernel wrappers' ``launches``
+    library_upsamplers = 0
+
     def __init__(self, cfg: VocoderConfig = VocoderConfig(),
                  fuse_act_conv=True, conv_dtype: Optional[torch.dtype] = None):
         """``fuse_act_conv``: True | False | "auto" | "pairs"; ``conv_dtype``:
@@ -273,15 +282,25 @@ class BigVGAN(nn.Module):
                                             cfg.snake_logscale)
         self.conv_post = nn.Conv1d(cout, 1, 7, padding=3)
 
+    def _upsample(self, x, up: nn.ConvTranspose1d, u: int):
+        """Kernel C where K - u is even (exactly u * T outputs), else the
+        library transposed conv in float32."""
+        k = up.weight.shape[-1]
+        if (k - u) % 2 == 0:
+            return conv_transpose1d(x, up.weight, up.bias, stride=u,
+                                    dot_dtype=self.boundary_dtype)
+        BigVGAN.library_upsamplers += 1
+        with cudnn_f32():
+            return F.conv_transpose1d(x, up.weight, up.bias, stride=u,
+                                      padding=(k - u) // 2)
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, frames, n_mels] -> waveform [B, frames * prod(rates)]."""
         with cudnn_f32():
             x = self.conv_pre(mel.transpose(1, 2).contiguous())
         nk = self.num_kernels
         for i, u in enumerate(self.cfg.upsample_rates):
-            up = self.ups[i][0]
-            x = conv_transpose1d(x, up.weight, up.bias, stride=u,
-                                 dot_dtype=self.boundary_dtype)
+            x = self._upsample(x, self.ups[i][0], u)
             ys: list = []
             for j in range(nk):
                 block = self.resblocks[i * nk + j]

@@ -23,11 +23,12 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "flowhigh_tpu_torch"
 SOURCES = ("snake_aa", "conv1d_same", "conv_transpose1d", "act_conv1d",
-           "amp_unit", "flash_attn")
+           "amp_unit", "flash_attn", "probe_snake", "probe_fir")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _CONV = [_P] * 7 + [_I] * 6 + [_F, _P]
 _CONVT = [_P] * 4 + [_I] * 6 + [_P]
 _PAIR = [_P] * 10 + [_I] * 7 + [_F, _P]
@@ -36,7 +37,8 @@ _UNIT = [_P] * 13 + [_I] * 6 + [_F, _P]
 # point returns a C int (a CUDA error code or a flag) unless RESTYPES says.
 # each int8 instance takes one more pointer per weight tensor: its scales
 SIGNATURES = {
-    "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                 "snake_aa_firs_f32": [_P, _P, _P, _I, _I, _P]},
     "conv1d_same": {"conv1d_same_f32": _CONV, "conv1d_same_bf16": _CONV,
                     "conv1d_same_int8": [_P] + _CONV,
                     "conv1d_same_supported": [_I, _I, _I]},
@@ -53,6 +55,10 @@ SIGNATURES = {
         "amp_unit_smem_bytes": [_I, _I, _I]},
     "flash_attn": {"flash_attn_f32": [_P] * 5 + [_I] * 5 + [_F, _P],
                    "flash_attn_supported": [_I]},
+    "probe_snake": {"snake_only_f32": [_P, _P, _P, _L, _I, _P]},
+    "probe_fir": {name: [_P] * 5 + [_I] * 3 + [_P] for name in (
+        "mxu_fir_f32", "mxu_fir_f32_dots", "mxu_fir_bf16",
+        "mxu_fir_bf16_dots")},
 }
 RESTYPES = {"act_conv1d_smem_bytes": ctypes.c_longlong,
             "amp_unit_smem_bytes": ctypes.c_longlong}

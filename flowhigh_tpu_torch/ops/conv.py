@@ -158,8 +158,8 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor], *, stride: int,
                      dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """ConvTranspose1d, padding (K - stride) // 2, + bias (kernel C, which
-    has instances for BigVGAN's (stride, K) pairs, all with K - stride even
-    and so exactly stride*T outputs)."""
+    has instances for BigVGAN's (stride, K) pairs and (8, 16), all with
+    K - stride even and so exactly stride*T outputs)."""
     _check_convt_dtype(dot_dtype)
     if x.device.type == "cpu":
         return conv_transpose1d_plain(x, w, b, stride=stride,

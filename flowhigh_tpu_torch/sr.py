@@ -1,7 +1,7 @@
 """FlowHighSR — any-rate -> 48 kHz super-resolution, counterpart of the
 ``generate`` / ``generate_batch`` / ``dispatch_generate`` /
-``generate_longform`` / ``vocode_chunked`` / ``from_local`` surface of
-``flowhigh_tpu/sr.py``.
+``generate_longform`` / ``vocode_chunked`` / ``from_local`` /
+``from_pretrained`` surface of ``flowhigh_tpu/sr.py``.
 
 One clip runs: polyphase upsample, masked peak-norm, mel encode, cutoff
 search, prior, fixed-grid ODE solve of the vector field, BigVGAN vocode
@@ -417,3 +417,23 @@ class FlowHighSR:
         return load_flowhigh_checkpoint(cls, Path(ckpt_dir), model_file,
                                         cfm_method, model_config, device,
                                         **kwargs)
+
+    @classmethod
+    def from_pretrained(cls, device=None, **kwargs) -> "FlowHighSR":
+        """Fetch the published checkpoint (``ResembleAI/FlowHigh`` on the
+        Hugging Face hub: both configs and both weight files) with
+        ``huggingface_hub`` and hand its directory to ``from_local``. Needs
+        network access; without ``huggingface_hub`` it raises and names
+        ``from_local``."""
+        try:
+            from huggingface_hub import hf_hub_download
+        except ImportError as e:
+            raise RuntimeError(
+                "huggingface_hub is unavailable; download the checkpoint files "
+                "manually and use FlowHighSR.from_local(ckpt_dir)") from e
+        local = None
+        for fpath in ("FLowHigh_basic_400k.json", "bigvgan_48khz_256band.json",
+                      "FLowHigh_basic_400k.pt", "bigvgan_48khz_256band.pt"):
+            local = hf_hub_download(repo_id="ResembleAI/FlowHigh",
+                                    filename=fpath)
+        return cls.from_local(Path(local).parent, device=device, **kwargs)

@@ -17,7 +17,7 @@ from flowhigh_tpu_torch import ops
 from flowhigh_tpu_torch.compat import seeded_init_
 from flowhigh_tpu_torch.config import VocoderConfig
 from flowhigh_tpu_torch.models import BigVGAN
-from flowhigh_tpu_torch.ops import _build, fused_conv
+from flowhigh_tpu_torch.ops import _build, fused_conv, probes
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -401,3 +401,89 @@ def test_reduced_precision_vocoder_on_card_matches_cpu(cuda, gen, dot_dtype):
     assert len(records) == sum(counts.values())
     assert torch.isfinite(got).all()
     assert chip_smoke.rel_l2(got, want) <= max(1e-2, 2 * floor)
+
+
+# --- the probe kernels G, H and kernel A's firs-only instance ------------------
+
+@pytest.mark.parametrize("b,s,lanes", [(1, 600, 384), (2, 37, 64), (1, 9, 10)])
+def test_snake_only_kernel_matches_plain(cuda, gen, b, s, lanes):
+    # L % 4 == 0 takes the 16-byte path, L = 10 the scalar one
+    x = _randn(gen, cuda, b, s, lanes, scale=0.3)
+    ab = torch.exp(_randn(gen, cuda, 2, lanes, scale=0.1))
+    n0 = ops.snake_only.launches
+    _close(ops.snake_only(x, ab), ops.snake_only_plain(x, ab))
+    assert ops.snake_only.launches == n0 + 1
+
+
+@pytest.mark.parametrize("b,c,t", [(2, 48, 3000), (1, 4, 5)])
+def test_act_firs_only_kernel_matches_plain(cuda, gen, b, c, t):
+    x = _randn(gen, cuda, b, c, t)
+    n0 = ops.act_firs_only.launches
+    _close(ops.act_firs_only(x), ops.act_firs_only_plain(x))
+    assert ops.act_firs_only.launches == n0 + 1
+
+
+def _mxu_inputs(gen, device, b, s, lanes, dtype):
+    x = _randn(gen, device, b, s, lanes, scale=0.3)
+    up = _randn(gen, device, 3, lanes, 2 * lanes).to(dtype)
+    dn = _randn(gen, device, 3, 2 * lanes, lanes).to(dtype)
+    ab2 = torch.exp(_randn(gen, device, 2, 2 * lanes, scale=0.1))
+    return x, up, dn, ab2
+
+
+def _close_max_normalised(got, want):
+    # values reach a few hundred: atol / rtol 1e-4 on got / max|want|
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,lanes", [(2, 128, 64), (1, 200, 128),
+                                       (1, 512, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("do_snake", [True, False])
+def test_mxu_fir_kernel_matches_plain(cuda, gen, b, s, lanes, dtype, do_snake):
+    x, up, dn, ab2 = _mxu_inputs(gen, cuda, b, s, lanes, dtype)
+    inst = probes.mxu_fir_instance(dtype, do_snake)
+    n0, i0 = ops.mxu_fir.launches, ops.mxu_fir.instance_launches[inst]
+    got = ops.mxu_fir(x, up, dn, ab2, do_snake=do_snake)
+    want = ops.mxu_fir_plain(x, up, dn, ab2, do_snake=do_snake)
+    assert ops.mxu_fir.launches == n0 + 1
+    assert ops.mxu_fir.instance_launches[inst] == i0 + 1
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        _close_max_normalised(got, want)
+    else:
+        # a flipped bf16 rounding of s2 (kernel and plain sum in other
+        # orders) moves an output row by a bf16 step times dn
+        d = (got - want).double()
+        assert d.norm() / want.double().norm() <= 1e-3
+        assert d.abs().max() <= 1e-2 * max(1.0, float(want.abs().max()))
+
+
+def test_mxu_fir_wrapper_rejects_what_the_kernel_does_not_take(cuda, gen):
+    for lanes in (32, 448):
+        x, up, dn, ab2 = _mxu_inputs(gen, cuda, 1, 64, lanes, torch.float32)
+        with pytest.raises(ValueError, match="L % 64"):
+            ops.mxu_fir(x, up, dn, ab2)
+    x, up, dn, ab2 = _mxu_inputs(gen, cuda, 1, 64, 64, torch.float32)
+    shifted = torch.empty(up.numel() + 1, device=cuda)[1:].view(up.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.mxu_fir(x, shifted.copy_(up), dn, ab2)
+
+
+# --- the CLI's --tiny vocoder: odd (K - u) upsamplers on the library conv ------
+
+def test_tiny_vocoder_on_card_routes_odd_upsamplers_to_the_library(cuda, gen):
+    from flowhigh_tpu_torch.cli import tiny_config
+    cfg = tiny_config().vocoder  # (u, K): (8, 16) (5, 10) (4, 8) (3, 6)
+    voc = seeded_init_(BigVGAN(cfg).eval(), 0)
+    mel = _randn(gen, "cpu", 1, 12, cfg.num_mels)
+    with torch.inference_mode():
+        want = voc(mel)
+        voc.to(cuda)
+        ops.reset_launch_counts()
+        BigVGAN.library_upsamplers = 0
+        got = voc(mel.to(cuda)).cpu()
+    assert ops.conv_transpose1d.launches == 2  # (8, 16), (4, 8)
+    assert BigVGAN.library_upsamplers == 2     # (5, 10), (3, 6)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

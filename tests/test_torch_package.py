@@ -18,7 +18,7 @@ from flowhigh_tpu_torch import FlowHighSR, ops
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "flowhigh_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("port_*.py"))
 CONFIGS = ["MelConfig", "VocoderConfig", "ModelConfig", "CFMConfig",
            "DataConfig", "TrainConfig", "FlowHighConfig"]
 
@@ -44,6 +44,12 @@ def test_import_leaves_jax_unloaded():
         "from flowhigh_tpu_torch import StreamingSR, boundary_lsd, "
         "log_spectral_distance\n"
         "import flowhigh_tpu_torch.metrics, flowhigh_tpu_torch.streaming\n"
+        "import flowhigh_tpu_torch.cli, flowhigh_tpu_torch.ops.probes\n"
+        "import flowhigh_tpu_torch.train.data, flowhigh_tpu_torch.app\n"
+        "import flowhigh_tpu_torch.example, importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('probe_script', "
+        "'scripts/port_bench_act_mxu.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'flowhigh_tpu')]\n"
         "assert not bad, bad\n")
@@ -116,6 +122,13 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_probe_script_refuses_without_a_card():
+    res = subprocess.run([sys.executable, "scripts/port_bench_act_mxu.py"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "needs a CUDA card" in res.stderr and not res.stdout
 
 
 def test_chip_smoke_main_path_launch_counts():
