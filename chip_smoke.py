@@ -30,7 +30,10 @@ Phases (any failure raises and the script exits non-zero):
    scaled max abs (``STAT_TOL``); timed beside their float32 instance (``f32_ms``),
    the PyTorch conv on bf16 tensors as the bf16 library call (int8 has
    none) and the A + B chain at the same dtype for D and E; bounds at the
-   data-sheet tensor-core peak of their dtype;
+   data-sheet tensor-core peak of their dtype. Kernel C's float32 instance
+   runs 3xTF32 on the tensor cores, so its bound counts three TF32
+   products per f32 product at the TF32 peak (``DOT_UNITS``); C's rows per
+   upsampler of the 10 s clip (f32 and bf16) are printed;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
    random weights) on a 10 s, 16 kHz clip, first on the default path, then
    on the unfused path: launch counts of every kernel on each run (zeroed
@@ -69,7 +72,8 @@ L. long-form: the same weights with ``ModelConfig(attn_flash=True)`` run
    against ``generate`` (<= 2e-4), ``vocode_chunked`` against the whole
    vocoder on a 2,000-frame mel (<= 1e-5), the flash model's ``generate``
    against phase 2's dense one (<= 1e-3). StreamingSR on a 60 s clip (10 s
-   chunks, 1 s overlap): RTF on the float32 and int16 wires, int16 within
+   chunks, 1 s overlap): RTF on the float32 and int16 wires (median of 3
+   runs each), int16 within
    1e-4 of float32, seam LSD against the single-pass output below
    max(2.0, 2.5 x overall LSD);
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
@@ -120,17 +124,25 @@ ATOL = RTOL = 1e-4
 REPS, WARMUP = 15, 3
 # long-form: clip, vocoder windows (the JAX package's defaults)
 LONG_SECONDS, CHUNK, OVERLAP = 300.0, 1000, 32
+STREAM_REPS = 3  # timed StreamingSR runs of each wire (median)
 
 # published peaks (NVIDIA data sheets): f32 FMA-unit FLOP/s, memory B/s,
-# dense tensor-core bf16 FLOP/s and int8 OP/s
-PEAKS = {"sxm": (67e12, 3.35e12, 989e12, 1979e12),
-         "pcie": (51e12, 2.0e12, 756e12, 1513e12),
-         "nvl": (60e12, 3.9e12, 835e12, 1671e12)}
+# dense tensor-core bf16 FLOP/s, int8 OP/s and TF32 FLOP/s
+PEAKS = {"sxm": (67e12, 3.35e12, 989e12, 1979e12, 495e12),
+         "pcie": (51e12, 2.0e12, 756e12, 1513e12, 378e12),
+         "nvl": (60e12, 3.9e12, 835e12, 1671e12, 417e12)}
+# instances whose dot products run on another unit than their dtype's:
+# kernel C's float32 instance runs each f32 product as three TF32 products
+# on the tensor cores (3xTF32): {instance: (products per dot product, peak)}
+DOT_UNITS = {"conv_transpose1d": (3, 4)}
 
 
-def dot_peak(peaks, kernel: str) -> float:
-    """The peak rate of a kernel instance's dot products."""
-    return peaks[{"": 0, "bf16": 2, "int8": 3}[kernel.partition(".")[2]]]
+def dot_seconds(peaks, kernel: str, dots: float) -> float:
+    """The least time of ``dots`` dot-product operations of a kernel
+    instance on the unit its products run on."""
+    n, peak = DOT_UNITS.get(kernel, (1, {"": 0, "bf16": 2, "int8": 3}[
+        kernel.partition(".")[2]]))
+    return n * dots / peaks[peak]
 
 
 def card_peaks(name: str) -> tuple:
@@ -444,7 +456,7 @@ def check_kernels(shapes: dict, device, peaks) -> dict:
             row = {"max_abs_err": max_abs, "max_rel_err": max_rel,
                    "bytes": byt, "ops": dots + other,
                    "bytes_ms": byt / bw * 1e3,
-                   "ops_ms": (dots / dot_peak(peaks, kernel)
+                   "ops_ms": (dot_seconds(peaks, kernel, dots)
                               + other / flops) * 1e3,
                    "ms": time_ms(run), "plain_ms": time_ms(plain),
                    "library_ms": time_ms(lib) if lib is not None else None,
@@ -847,7 +859,8 @@ def longform_phase(config, dense_out: np.ndarray, audio10: np.ndarray) -> dict:
         raise AssertionError(f"long-form 10 s checks failed: {d_lf}, "
                              f"{d_voc}, {d_fd}")
 
-    # StreamingSR on 60 s against the single pass
+    # StreamingSR on 60 s against the single pass; wall time the median of
+    # STREAM_REPS runs of each wire (one run spread beyond 4%)
     audio60 = clip_signal(60.0, IN_SR)
     single = sr.generate_longform(audio60, IN_SR, timestep=1)
     streams = {}
@@ -856,9 +869,12 @@ def longform_phase(config, dense_out: np.ndarray, audio10: np.ndarray) -> dict:
                          wire=wire)
         if wire == "float32":
             st.generate(audio60, IN_SR)  # warm-up: the 10 s chunk shapes
-        t0 = time.perf_counter()
-        got = st.generate(audio60, IN_SR)
-        streams[wire] = (got, time.perf_counter() - t0)
+        walls = []
+        for _ in range(STREAM_REPS):
+            t0 = time.perf_counter()
+            got = st.generate(audio60, IN_SR)
+            walls.append(time.perf_counter() - t0)
+        streams[wire] = (got, float(np.median(walls)))
         if got.shape != single.shape or not np.isfinite(got).all():
             raise AssertionError(f"StreamingSR ({wire}): bad output "
                                  f"{got.shape}")
@@ -1312,7 +1328,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
     print(f"card: {card}; peaks used for bounds: {peaks[0] / 1e12:g} TFLOP/s "
-          f"f32, {peaks[1] / 1e12:g} TB/s", flush=True)
+          f"f32, {peaks[1] / 1e12:g} TB/s, {peaks[4] / 1e12:g} TFLOP/s TF32",
+          flush=True)
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"phase 0: built {len(libs)} kernels in "
@@ -1366,6 +1383,14 @@ def main() -> int:
               f"{r['bound_by']}, library {r['library_ms']}, unfused chain "
               f"{r['unfused_chain_ms']}), max abs err {r['max_abs_err']:.2e}",
               flush=True)
+    for k, tot in (("conv_transpose1d", main_tot),
+                   ("conv_transpose1d.bf16", red_tot["bfloat16"][0])):
+        for r in tot[k]["shapes"]:  # kernel C per upsampler of the clip
+            print(f"  {k} {tuple(r['key'])}: {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "
+                  f"bound {max(r['bytes_ms'], r['ops_ms']):.3f} "
+                  f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'}), "
+                  f"max abs err {r['max_abs_err']:.2e}", flush=True)
     t0 = time.perf_counter()
     flash_rows = check_flash(peaks, long_frames)
     print(f"phase 1: flash_attn checked and timed at {len(flash_rows)} shapes "

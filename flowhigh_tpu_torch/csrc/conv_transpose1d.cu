@@ -6,152 +6,328 @@
 // to r + P mod U, about K/U of them: the zero-stuffed input is never formed.
 //
 // Replaces the Pallas kernel
-// flowhigh_tpu/ops/packed.py:pallas_packed_conv_transpose1d (plan
-// _convt_plan, core _pallas_conv_rows) at p_in = p_out = 1: BigVGAN's five
-// stage-boundary upsamplers, (U, K) = (5,11), (4,8), (4,8), (3,7), (2,4),
-// and (8,16), the first upsampler of the CLI's --tiny vocoder (whose odd
-// pairs (5,10), (3,6) run the library conv, models/bigvgan.py).
+// flowhigh_tpu/ops/packed.py:pallas_packed_conv_transpose1d (:432; plan
+// _convt_plan, core _pallas_conv_rows, pallas_call :361) at p_in = p_out = 1:
+// BigVGAN's five stage-boundary upsamplers, (U, K) = (5,11), (4,8), (4,8),
+// (3,7), (2,4), and (8,16), the first upsampler of the CLI's --tiny vocoder
+// (whose odd pairs (5,10), (3,6) run the library conv, models/bigvgan.py).
 //
-// Layout: x [B, Cin, T], w [Cin, Cout, K] (PyTorch ConvTranspose1d),
-// y [B, Cout, U*T], float32, contiguous.
+// Layout: x [B, Cin, T] and y [B, Cout, U*T], float32, contiguous. The
+// weights come prepared on the host (ops/conv.py:convt_weights, cached per
+// weight tensor): [K][Cout_p][Cin_p], Cout_p = Cout rounded up to TILE_CO,
+// Cin_p = Cin rounded up to CIN_ALIGN, zero-padded; float32 for F32,
+// bf16 (rounded to nearest even) for BF16.
 //
-// Bound: f32 arithmetic (T*Cin*Cout*K multiply-adds over a few MB of
-// traffic). Design: U and K are template parameters, so the tap-to-phase
-// plan above is resolved at compile time and the inner loops are fully
-// unrolled with no divergence. A block owns a (Cout tile x input-time tile)
-// and all U output phases of it; per Cin chunk it stages the x window (the
-// tile plus the tap halo) and the weights in shared memory. Each thread
-// keeps CPT x MPT x U f32 accumulators.
+// The phase plan (Plan below): tap j belongs to phase r(j) = (j - P) mod U
+// and reads x[m + q(j)], q(j) = (r(j) + P - j) / U in [QLO, QHI]:
+//   (5,11) P 3, q in [-2, 1]   (4,8) P 2, q in [-2, 1]   (3,7) P 2, q in [-2, 1]
+//   (2,4)  P 1, q in [-1, 1]   (8,16) P 4, q in [-2, 1]
+// Each phase is a GEMM: y_r[co, m] = sum over its taps j and over ci of
+// W_j[co, ci] x[ci, m + q(j)]: M = Cout, N = time, depth Cin x (taps of r).
 //
-// dot_dtype (dot_dtype.cuh): a BF16 instance rounds each x value to bf16 as
-// it is staged; its weights come rounded from the host. The JAX package
-// keeps the upsamplers in f32 under int8 (bigvgan.py:406-414), so there is
-// no I8 instance.
+// Bound (a 10 s clip, 102.6 GFLOP over 562 MB, 183 flop/byte): BF16 is bound
+// by bytes (its products fit the bf16 tensor cores 5x over); F32, as 3xTF32
+// (three TF32 products per f32 product), by operations. Design:
+// - implicit GEMM on the tensor cores: mma.sync m16n8k16 bf16 -> f32 for
+//   BF16 (a bf16 x bf16 product is exact, so this is still the JAX kernel's
+//   bf16 dot with f32 accumulation; only the order of the sums changes);
+//   3xTF32 on m16n8k8 for F32 (mma_sm90.cuh: hi + lo splits, the lo x lo
+//   term dropped, f32-grade: about 2^-22 of each product; each tap's three
+//   products are summed apart and added to the accumulator in f32 with
+//   round to nearest, since the tensor cores' own sums round toward zero
+//   and drifted by 1.2e-4 over Cin = 1536). BF16 sums in the tensor cores
+//   (2.2e-5 at Cin = 1536, inside the instance's 1e-4 bound);
+// - a block owns TILE_CO = 64 output channels x BN input frames and all U
+//   phases of them (BN = 32 NT: 64 frames for U = 4, 5, so stage 1's
+//   1,000 frames give 16 x 12 = 192 blocks); 8 warps as 2 (channels) x 4
+//   (time), a warp 32 channels x 8 NT frames x U phases of accumulators;
+// - per chunk of KC input channels the block stages, double-buffered with
+//   cp.async, the x window of its tile plus the tap halo, transposed to
+//   [frame][ci] (4-byte copies: a tap shift q is a row offset, and every
+//   fragment load stays aligned), and the chunk's weights [K][64][KC]
+//   (16-byte copies); the next chunk loads while the current one multiplies;
+// - B fragments (x) are loaded once per shift q and serve every tap of that
+//   shift in every phase; A fragments (weights) once per tap. F32 splits
+//   both into TF32 hi and lo as it loads them, so shared memory holds f32
+//   once (a host-side hi/lo pair would double the weight stage and halve
+//   the blocks per SM); BF16 rounds x to bf16 as it loads it (ldmatrix for
+//   the weights);
+// - the output goes through shared memory: the accumulators of all U phases
+//   interleave there into [64][U*BN] (y's own order, y[co, U*m + r]), and
+//   the block stores whole rows with 16-byte stores, bias added.
+// Row strides are padded so that fragment loads are free of bank conflicts.
+//
+// dot_dtype (dot_dtype.cuh): F32 and BF16. The JAX package keeps the
+// upsamplers in f32 under int8 (bigvgan.py:406-414), so there is no I8
+// instance.
 
 #include "dot_dtype.cuh"
+#include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int CPT = 4, MPT = 4, TY = 16, TX = 16, CI = 8;
-constexpr int TILE_CO = CPT * TY;
-constexpr int TILE_M = MPT * TX;
-constexpr int NT = TY * TX;
+constexpr int THREADS = 256;  // 8 warps: 2 along channels x 4 along time
+constexpr int WM = 2, WN = 4;
+constexpr int MT = 2;                  // m16 tiles a warp (32 channels)
+constexpr int TILE_CO = WM * MT * 16;  // 64: Cout_p is a multiple of it
+constexpr int CIN_ALIGN = 16;          // Cin_p is a multiple of it
+constexpr int STAGES = 3;              // chunks in flight in shared memory
 
 template <int U, int K>
 struct Plan {
   static constexpr int P = (K - U) / 2;
-  // tap j reads x[m + q] with q = (r + P - j) / U, over r in [0, U)
   static constexpr int QLO = -((K - 1 - P + U - 1) / U);  // floor((P-K+1)/U)
   static constexpr int QHI = (U - 1 + P) / U;
-  static constexpr int W = TILE_M + QHI - QLO;
+  __host__ __device__ static constexpr int r_of(int j) {
+    return ((j - P) % U + U) % U;
+  }
+  __host__ __device__ static constexpr int q_of(int j) {
+    return (r_of(j) + P - j) / U;
+  }
 };
 
 template <Dot D, int U, int K>
-__global__ void __launch_bounds__(NT)
-conv_transpose1d_kernel(const float* __restrict__ x, const float* __restrict__ w,
+struct Cfg {
+  static constexpr bool BF = D == Dot::BF16;
+  using WT = typename std::conditional<BF, __nv_bfloat16, float>::type;
+  static constexpr int KC = BF ? 16 : 8;  // input channels a chunk: 32 bytes
+  static constexpr int EPS = 16 / (int)sizeof(WT);  // elements a 16-byte copy
+  // weights [K][64][KC], unpadded, the two 16-byte halves of row w swapped
+  // when (w / 4) is odd; x [XR][XS] f32, rows padded
+  static constexpr int XS = BF ? 24 : 12;
+  static constexpr int NT = U == 2 ? 4 : U == 3 ? 3 : U == 8 ? 1 : 2;
+  static constexpr int BN = WN * NT * 8;  // input frames a block
+  static constexpr int XR =
+      (BN + Plan<U, K>::QHI - Plan<U, K>::QLO + 7) / 8 * 8;  // window rows
+  static constexpr int W_BYTES = K * TILE_CO * KC * (int)sizeof(WT);
+  static constexpr int X_BYTES = XR * XS * 4;
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int OS = U * BN + 4;  // output tile row stride (floats)
+  static constexpr int O_BYTES = TILE_CO * OS * 4;
+  static constexpr int SMEM =
+      STAGES * STAGE > O_BYTES ? STAGES * STAGE : O_BYTES;
+  static_assert(KC * sizeof(WT) == 32, "a weight row is two 16-byte copies");
+  static_assert(W_BYTES % 16 == 0 && X_BYTES % 16 == 0, "stage alignment");
+  static_assert(32 % KC == 0, "a thread stages one input channel of x");
+};
+
+template <Dot D, int U, int K>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_transpose1d_kernel(const float* __restrict__ x,
+                        const typename Cfg<D, U, K>::WT* __restrict__ wp,
                         const float* __restrict__ bias, float* __restrict__ y,
                         int Cin, int Cout, int T) {
   using PL = Plan<U, K>;
-  __shared__ float xs[CI][PL::W];
-  __shared__ float ws[CI][K][TILE_CO];
+  using C = Cfg<D, U, K>;
+  using WT = typename C::WT;
+  constexpr int KC = C::KC, EPS = C::EPS, XS = C::XS, NT = C::NT,
+                BN = C::BN;
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.x * TILE_M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * BN;
   const int co0 = blockIdx.y * TILE_CO;
   const long long b = blockIdx.z;
+  const int cin_p = (Cin + CIN_ALIGN - 1) / CIN_ALIGN * CIN_ALIGN;
+  const int cout_p = (Cout + TILE_CO - 1) / TILE_CO * TILE_CO;
   const float* xb = x + b * (long long)Cin * T;
 
-  float acc[U][CPT][MPT];
+  auto w_stage = [&](int s) {
+    return reinterpret_cast<WT*>(smem + s * C::STAGE);
+  };
+  auto x_stage = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * C::STAGE + C::W_BYTES);
+  };
+
+  // What a thread stages of every chunk, fixed for the kernel's life:
+  // weight rows wrow + 128 i (row = 64 j + co), 16-byte half wseg, whose
+  // source moves by two taps a step; and x's input channel xci at window
+  // rows xu + i * (256 / KC), lane = 8 (ci % 4) + u % 8 (32-byte global
+  // segments; no bank conflicts at XS = 12)
+  constexpr int WROWS = THREADS / 2, NW = (K * TILE_CO + WROWS - 1) / WROWS;
+  const int wseg = tid & 1, wrow = tid >> 1;
+  WT* const wdst0 =
+      w_stage(0) + wrow * KC + (wseg ^ ((wrow >> 2) & 1)) * EPS;
+  const WT* const wsrc0 =
+      wp + ((long long)(wrow / TILE_CO) * cout_p + co0 + wrow % TILE_CO) *
+               cin_p + wseg * EPS;
+  const long long wstep = (long long)(WROWS / TILE_CO) * cout_p * cin_p;
+  constexpr int XSTEP = THREADS / KC, NX = (C::XR * KC + THREADS - 1) / THREADS;
+  const int xci = (tid >> 3) % KC;
+  const int xu = ((tid >> 3) / KC) * 8 + (tid & 7);
+  const int xg = m0 + PL::QLO + xu;
+
+  auto load = [&](int c0, int s) {
+    WT* wd = wdst0 + s * (C::STAGE / (int)sizeof(WT));
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      if ((K * TILE_CO) % WROWS == 0 || wrow + i * WROWS < K * TILE_CO)
+        cp_async16(wd + i * WROWS * KC, wsrc0 + i * wstep + c0);
+    float* xd = x_stage(s) + xu * XS + xci;
+    const bool cvalid = c0 + xci < Cin;
+    const float* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      if ((C::XR * KC) % THREADS != 0 && xu + i * XSTEP >= C::XR) break;
+      const int gt = xg + i * XSTEP;
+      const bool valid = cvalid && (unsigned)gt < (unsigned)T;
+      cp_async4_zfill(xd + i * XSTEP * XS, valid ? xs + gt : xb, valid);
+    }
+  };
+
+  float acc[U][MT][NT][4];
 #pragma unroll
   for (int r = 0; r < U; ++r)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int i = 0; i < MPT; ++i) acc[r][j][i] = 0.0f;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][i][n][e] = 0.0f;
 
-  for (int c0 = 0; c0 < Cin; c0 += CI) {
-    for (int idx = tid; idx < CI * PL::W; idx += NT) {
-      const int ci = idx / PL::W;
-      const int u = idx - ci * PL::W;
-      const int g = m0 + PL::QLO + u;
-      const int c = c0 + ci;
-      xs[ci][u] = (c < Cin && g >= 0 && g < T)
-                      ? stage_value<D>(xb[(long long)c * T + g], 0.0f)
-                      : 0.0f;
-    }
-    // weights: k fastest, then co, then ci (runs of TILE_CO*K contiguous
-    // floats of w per input channel)
-    for (int idx = tid; idx < CI * TILE_CO * K; idx += NT) {
-      const int ci = idx / (TILE_CO * K);
-      const int rem = idx - ci * (TILE_CO * K);
-      const int co = rem / K;
-      const int k = rem - co * K;
-      const int c = c0 + ci;
-      const int gco = co0 + co;
-      ws[ci][k][co] = (c < Cin && gco < Cout)
-                          ? w[((long long)c * Cout + gco) * K + k]
-                          : 0.0f;
-    }
+  // a ring of STAGES chunks, one barrier a chunk: the barrier at chunk c
+  // also ends every warp's reads of chunk c - 1, whose stage the load of
+  // chunk c + STAGES - 1 then refills
+  const int n_chunks = cin_p / KC;
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < n_chunks) load(c * KC, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    if (c + STAGES - 1 < n_chunks)
+      load((c + STAGES - 1) * KC, (c + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const WT* ws = w_stage(c % STAGES);
+    const float* xs = x_stage(c % STAGES);
 
-#pragma unroll 1
-    for (int ci = 0; ci < CI; ++ci) {
 #pragma unroll
-      for (int r = 0; r < U; ++r) {
+    for (int q = PL::QLO; q <= PL::QHI; ++q) {
+      // B fragments of shift q: frames wn*NT*8 + 8n + g (+ q - QLO)
+      unsigned bh[NT][2], bl[NT][2];
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          if ((r + PL::P - j) % U != 0) continue;  // resolved at compile time
-          const int q = (r + PL::P - j) / U;
-          float wv[CPT];
-          float xv[MPT];
+      for (int n = 0; n < NT; ++n) {
+        const float* xr = xs + ((wn * NT + n) * 8 + g + q - PL::QLO) * XS;
+        if constexpr (C::BF) {
+          const float2 v0 = *reinterpret_cast<const float2*>(xr + 2 * t);
+          const float2 v1 = *reinterpret_cast<const float2*>(xr + 2 * t + 8);
+          bh[n][0] = pack_bf16x2(v0.x, v0.y);
+          bh[n][1] = pack_bf16x2(v1.x, v1.y);
+        } else {
+          tf32_split(xr[t], bh[n][0], bl[n][0]);
+          tf32_split(xr[t + 4], bh[n][1], bl[n][1]);
+        }
+      }
 #pragma unroll
-          for (int jj = 0; jj < CPT; ++jj) wv[jj] = ws[ci][j][ty * CPT + jj];
+      for (int j = 0; j < K; ++j) {
+        if (PL::q_of(j) != q) continue;  // resolved at compile time
+        const int r = PL::r_of(j);
 #pragma unroll
-          for (int i = 0; i < MPT; ++i) xv[i] = xs[ci][tx + i * TX + q - PL::QLO];
+        for (int i = 0; i < MT; ++i) {
+          const int row0 = j * TILE_CO + (wm * MT + i) * 16;
+          if constexpr (C::BF) {
+            // rows row0 + lane % 16, half lane / 16 (swapped as stored)
+            const int row = row0 + (lane & 15);
+            unsigned a[4];
+            ldmatrix_x4(a, ws + row * KC +
+                               (((lane >> 4) ^ ((row >> 2) & 1)) * EPS));
 #pragma unroll
-          for (int jj = 0; jj < CPT; ++jj)
+            for (int n = 0; n < NT; ++n)
+              mma_bf16_16816(acc[r][i][n], a, bh[n][0], bh[n][1]);
+          } else {
+            // rows row0 + g and + 8 share (row / 4) % 2 = (g / 4) % 2
+            const int sw = ((g >> 2) & 1) * 4;
+            const float* wr = reinterpret_cast<const float*>(ws) +
+                              (row0 + g) * KC;
+            unsigned ah[4], al[4];
+            tf32_split(wr[t ^ sw], ah[0], al[0]);
+            tf32_split(wr[8 * KC + (t ^ sw)], ah[1], al[1]);
+            tf32_split(wr[(t + 4) ^ sw], ah[2], al[2]);
+            tf32_split(wr[8 * KC + ((t + 4) ^ sw)], ah[3], al[3]);
 #pragma unroll
-            for (int i = 0; i < MPT; ++i)
-              acc[r][jj][i] = fmaf(wv[jj], xv[i], acc[r][jj][i]);
+            for (int n = 0; n < NT; ++n)
+              mma_3xtf32_1688(acc[r][i][n], ah, al, bh[n][0], bh[n][1],
+                              bl[n][0], bl[n][1]);
+          }
         }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages
 
+  // the U phases interleave in shared memory as y's own order: [64][U*BN]
+  float* os = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int r = 0; r < U; ++r)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = (wm * MT + i) * 16 + g + 8 * (e >> 1);
+          const int m = (wn * NT + n) * 8 + 2 * t + (e & 1);
+          os[co * C::OS + U * m + r] = acc[r][i][n][e];
+        }
+  __syncthreads();
+
+  // whole rows out, bias added: 16-byte stores where y's rows are 16-byte
+  // aligned (U*T % 4 == 0; U*m0 is a multiple of 4), else 4-byte stores
   const long long t_out = (long long)U * T;
-#pragma unroll
-  for (int jj = 0; jj < CPT; ++jj) {
-    const int co = co0 + ty * CPT + jj;
-    if (co >= Cout) continue;
-    const float bv = bias != nullptr ? bias[co] : 0.0f;
-    float* yr = y + (b * Cout + co) * t_out;
-#pragma unroll
-    for (int i = 0; i < MPT; ++i) {
-      const int m = m0 + tx + i * TX;
-      if (m >= T) continue;
-#pragma unroll
-      for (int r = 0; r < U; ++r) yr[(long long)U * m + r] = acc[r][jj][i] + bv;
+  const int cols = (int)min((long long)U * BN, t_out - (long long)U * m0);
+  if (t_out % 4 == 0) {
+    constexpr int V = U * BN / 4;
+    for (int idx = tid; idx < TILE_CO * V; idx += THREADS) {
+      const int row = idx / V, col = (idx - row * V) * 4;
+      const int co = co0 + row;
+      if (co >= Cout || col >= cols) continue;
+      const float bv = bias != nullptr ? bias[co] : 0.0f;
+      float4 v = *reinterpret_cast<const float4*>(os + row * C::OS + col);
+      v.x += bv;
+      v.y += bv;
+      v.z += bv;
+      v.w += bv;
+      *reinterpret_cast<float4*>(y + (b * Cout + co) * t_out +
+                                 (long long)U * m0 + col) = v;
+    }
+  } else {
+    constexpr int V = U * BN;
+    for (int idx = tid; idx < TILE_CO * V; idx += THREADS) {
+      const int row = idx / V, col = idx - row * V;
+      const int co = co0 + row;
+      if (co >= Cout || col >= cols) continue;
+      const float bv = bias != nullptr ? bias[co] : 0.0f;
+      y[(b * Cout + co) * t_out + (long long)U * m0 + col] =
+          os[row * C::OS + col] + bv;
     }
   }
 }
 
 template <Dot D, int U, int K>
-int launch(const float* x, const float* w, const float* bias, float* y, int B,
+int launch(const float* x, const void* w, const float* bias, float* y, int B,
            int Cin, int Cout, int T, cudaStream_t stream) {
-  dim3 grid((T + TILE_M - 1) / TILE_M, (Cout + TILE_CO - 1) / TILE_CO, B);
-  conv_transpose1d_kernel<D, U, K><<<grid, NT, 0, stream>>>(x, w, bias, y,
-                                                           Cin, Cout, T);
+  using C = Cfg<D, U, K>;
+  auto kernel = conv_transpose1d_kernel<D, U, K>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((T + C::BN - 1) / C::BN, (Cout + TILE_CO - 1) / TILE_CO, B);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(
+      x, static_cast<const typename C::WT*>(w), bias, y, Cin, Cout, T);
   return (int)cudaGetLastError();
 }
 
 template <Dot D>
-int conv_transpose1d(const float* x, const float* w, const float* bias,
+int conv_transpose1d(const float* x, const void* w, const float* bias,
                      float* y, int B, int Cin, int Cout, int T, int stride,
                      int K, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535)
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535 ||
+      (Cout + TILE_CO - 1) / TILE_CO > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (stride == 5 && K == 11)
@@ -170,8 +346,9 @@ int conv_transpose1d(const float* x, const float* w, const float* bias,
 }  // namespace
 
 // The (stride, K) pairs of BigVGAN's upsamplers and (8, 16); others return
-// cudaErrorInvalidValue. Returns cudaGetLastError() after the launch.
-extern "C" int conv_transpose1d_f32(const float* x, const float* w,
+// cudaErrorInvalidValue. w: the f32 weights as [K][Cout_p][Cin_p] (see the
+// note above). Returns cudaGetLastError() after the launch.
+extern "C" int conv_transpose1d_f32(const float* x, const void* w,
                                     const float* bias, float* y, int B,
                                     int Cin, int Cout, int T, int stride,
                                     int K, void* stream) {
@@ -179,8 +356,8 @@ extern "C" int conv_transpose1d_f32(const float* x, const float* w,
                                     K, stream);
 }
 
-// w: the weights rounded to bf16 (as f32)
-extern "C" int conv_transpose1d_bf16(const float* x, const float* w,
+// w: the weights rounded to bf16, as [K][Cout_p][Cin_p] bf16
+extern "C" int conv_transpose1d_bf16(const float* x, const void* w,
                                      const float* bias, float* y, int B,
                                      int Cin, int Cout, int T, int stride,
                                      int K, void* stream) {
@@ -193,4 +370,9 @@ extern "C" int conv_transpose1d_supported(int stride, int K) {
   return (stride == 5 && K == 11) || (stride == 4 && K == 8) ||
          (stride == 3 && K == 7) || (stride == 2 && K == 4) ||
          (stride == 8 && K == 16);
+}
+
+// The padding of the prepared weights: 0 -> Cin_p's multiple, 1 -> Cout_p's.
+extern "C" int conv_transpose1d_weight_align(int which) {
+  return which == 0 ? CIN_ALIGN : TILE_CO;
 }

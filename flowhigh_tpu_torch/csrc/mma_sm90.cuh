@@ -1,0 +1,135 @@
+// Warp-level tensor-core and asynchronous-copy helpers for sm_90a (mma.sync,
+// ldmatrix, cp.async) and the 3xTF32 split, shared by the kernels that run
+// their dot products on the tensor cores (kernel C, csrc/conv_transpose1d.cu).
+//
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / m16n8k8"),
+// for lane = 4 g + t (g = lane / 4 in [0, 8), t = lane % 4):
+//   m16n8k16 bf16   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..),
+//                   a2 (g, 2t+8..), a3 (g+8, 2t+8..), two bf16 a register
+//                   (the lower k in the low half); B (16 x 8, "col": k
+//                   contiguous for one n): b0 (k 2t..2t+1, n g), b1 (k
+//                   2t+8..2t+9, n g);
+//   m16n8k8 tf32    A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+//                   a3 (g+8, t+4); B (8 x 8): b0 (k t, n g), b1 (k t+4, n g);
+//   accumulator     c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, the same
+//                   cols), f32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+// --- asynchronous copies, global -> shared ------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes, both addresses 16-byte aligned; bypasses L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// 4 bytes; writes 0.0f (and reads nothing) when !valid; ``src`` must be a
+// valid address all the same
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// --- fragments ----------------------------------------------------------------
+
+// four 8 x 8 b16 matrices; lane l gives the address of row (l % 8) of
+// matrix l / 8 (16 bytes, 16-byte aligned)
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// two f32 -> one register of two bf16, each rounded to nearest even; ``lo``
+// in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// --- the 3xTF32 split -------------------------------------------------------------
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as the bits of an f32
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo + (a remainder below 2^-22 |v|), hi and lo TF32 values
+__device__ __forceinline__ void tf32_split(float v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// --- products -----------------------------------------------------------------
+
+// c += a b, m16n8k16, bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, m16n8k8, tf32 operands, f32 accumulator
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b to f32 accuracy with three TF32 products (the small ones first):
+// a_lo b_hi + a_hi b_lo + a_hi b_hi; the omitted a_lo b_lo is below
+// 2^-22 |a b|. The tensor cores round their sums toward zero, which biases
+// a long chain of products by about half an ulp of c a step (1.2e-4 at
+// Cin 1536 measured on an H100 where c took the whole sum), so the three
+// products go into a fresh accumulator and reach c through f32 adds that
+// round to nearest, as an FMA loop's would.
+__device__ __forceinline__ void mma_3xtf32_1688(float (&c)[4],
+                                                const unsigned (&ahi)[4],
+                                                const unsigned (&alo)[4],
+                                                unsigned bhi0, unsigned bhi1,
+                                                unsigned blo0, unsigned blo1) {
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32_1688(d, alo, bhi0, bhi1);
+  mma_tf32_1688(d, ahi, blo0, blo1);
+  mma_tf32_1688(d, ahi, bhi0, bhi1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], d[e]);
+}
+
+}  // namespace

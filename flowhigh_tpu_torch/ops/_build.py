@@ -44,7 +44,8 @@ SIGNATURES = {
                     "conv1d_same_supported": [_I, _I, _I]},
     "conv_transpose1d": {
         "conv_transpose1d_f32": _CONVT, "conv_transpose1d_bf16": _CONVT,
-        "conv_transpose1d_supported": [_I, _I]},
+        "conv_transpose1d_supported": [_I, _I],
+        "conv_transpose1d_weight_align": [_I]},
     "act_conv1d": {
         "act_conv1d_f32": _PAIR, "act_conv1d_bf16": _PAIR,
         "act_conv1d_int8": [_P] + _PAIR,

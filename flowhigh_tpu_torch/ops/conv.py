@@ -9,10 +9,12 @@
 - ``conv_transpose1d`` replaces
   ``flowhigh_tpu/ops/packed.py:pallas_packed_conv_transpose1d``: a
   ConvTranspose1d with stride u, padding (K - u) / 2 and exactly u*T
-  outputs, + bias, computed as a polyphase conv.
+  outputs, + bias, computed as a polyphase conv (``convt_phase_plan``) on
+  the tensor cores: bf16 ``mma.sync``, and 3xTF32 for float32. It takes its
+  weights in the layout ``convt_weights`` prepares once per weight tensor.
 
-Both are bound by f32 arithmetic on the card (see the sources). A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 
 ``dot_dtype`` (``ops/quant.py``) picks the kernel's instance: float32 (the
 default), bfloat16 (B and C) or int8 (B, over the windows of
@@ -21,6 +23,7 @@ default), bfloat16 (B and C) or int8 (B, over the windows of
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -28,14 +31,17 @@ import torch.nn.functional as F
 
 from ..utils import cudnn_f32
 from . import _build
-from .quant import (bf16_weights, check_dot_dtype, conv1d_int8, int8_weights,
-                    round_bf16)
+from .quant import (_cached, bf16_weights, check_dot_dtype, conv1d_int8,
+                    int8_weights, round_bf16)
 
 CONV_TILE = 256  # kernel B's time tile: the int8 partition of conv1d
 # the name of each instance's C entry point, and its code for the
 # ``*_supported`` queries
 DOT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 DOT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# kernel C's weight layout pads Cin and Cout to these multiples
+# (csrc/conv_transpose1d.cu: CIN_ALIGN, TILE_CO; conv_transpose1d_weight_align)
+CONVT_CIN_ALIGN, CONVT_COUT_ALIGN = 16, 64
 
 
 def _check(what: str, x: torch.Tensor, *tensors) -> None:
@@ -140,6 +146,42 @@ def _check_convt_dtype(dot_dtype: torch.dtype) -> None:
                          "upsamplers stay float32 under int8)")
 
 
+def convt_phase_plan(stride: int, k: int) -> tuple:
+    """Kernel C's polyphase plan: ((j, r, q), ...) for each tap j of a
+    ConvTranspose1d with padding p = (k - stride) // 2, which feeds output
+    phase r = (j - p) mod stride from x[m + q], q = (r + p - j) / stride:
+    y[:, :, stride*m + r] += w[:, :, j]^T x[:, :, m + q]."""
+    p = (k - stride) // 2
+    plan = []
+    for j in range(k):
+        r = (j - p) % stride
+        plan.append((j, r, (r + p - j) // stride))
+    return tuple(plan)
+
+
+def convt_weight_layout(w: torch.Tensor,
+                        dot_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """w [Cin, Cout, K] -> [K, Cout_p, Cin_p], zero-padded to the multiples
+    ``CONVT_COUT_ALIGN`` and ``CONVT_CIN_ALIGN``, contiguous: float32, or
+    bfloat16 rounded to nearest even (``round_bf16``'s values) for the
+    bf16 instance."""
+    cin, cout, k = w.shape
+    cin_p = -(-cin // CONVT_CIN_ALIGN) * CONVT_CIN_ALIGN
+    cout_p = -(-cout // CONVT_COUT_ALIGN) * CONVT_COUT_ALIGN
+    dt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
+    out = torch.zeros((k, cout_p, cin_p), dtype=dt, device=w.device)
+    out[:, :cout, :cin] = w.permute(2, 1, 0).to(dt)
+    return out
+
+
+def convt_weights(w: torch.Tensor, dot_dtype: torch.dtype) -> torch.Tensor:
+    """``convt_weight_layout(w, dot_dtype)``, once per weight tensor (cached
+    by its version counter, as ``quant.bf16_weights``)."""
+    return _cached(w, f"convt_{DOT_NAME[dot_dtype]}",
+                   lambda v: convt_weight_layout(v, dot_dtype))
+
+
 def conv_transpose1d_plain(x: torch.Tensor, w: torch.Tensor,
                            b: Optional[torch.Tensor], *, stride: int,
                            dot_dtype: torch.dtype = torch.float32
@@ -152,6 +194,19 @@ def conv_transpose1d_plain(x: torch.Tensor, w: torch.Tensor,
     with cudnn_f32():
         return F.conv_transpose1d(x, w, b, stride=stride,
                                   padding=(w.shape[-1] - stride) // 2)
+
+
+@functools.cache
+def _convt_library():
+    """Kernel C's library, once its weight layout is checked against
+    ``convt_weight_layout``'s."""
+    lib = _build.library("conv_transpose1d")
+    if (lib.conv_transpose1d_weight_align(0),
+            lib.conv_transpose1d_weight_align(1)) != (CONVT_CIN_ALIGN,
+                                                      CONVT_COUT_ALIGN):
+        raise RuntimeError("conv_transpose1d: the kernel's weight layout "
+                           "differs from convt_weight_layout's")
+    return lib
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
@@ -172,14 +227,14 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv_transpose1d: bad shapes x {tuple(x.shape)} "
                          f"w {tuple(w.shape)}")
     _check("conv_transpose1d", x, w, b)
-    lib = _build.library("conv_transpose1d")
+    lib = _convt_library()
     if not lib.conv_transpose1d_supported(stride, k):
         raise ValueError(f"conv_transpose1d: no kernel instance for "
                          f"stride={stride}, K={k}")
     y = torch.empty((bsz, cout, stride * t), device=x.device,
                     dtype=torch.float32)
     err = getattr(lib, f"conv_transpose1d_{DOT_NAME[dot_dtype]}")(
-        x.data_ptr(), *weight_ptrs(w, dot_dtype),
+        x.data_ptr(), convt_weights(w, dot_dtype).data_ptr(),
         b.data_ptr() if b is not None else None,
         y.data_ptr(), bsz, cin, cout, t, stride, k, _stream(x))
     _build.check(err, "conv_transpose1d")

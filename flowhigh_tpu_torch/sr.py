@@ -100,6 +100,19 @@ def _conv_dtype(value) -> Optional[torch.dtype]:
                          ) from None
 
 
+def _check_lowering_switches(fused_vocoder, packed_vocoder,
+                             kernel_pipeline) -> None:
+    if not isinstance(fused_vocoder, bool):
+        raise ValueError(f"fused_vocoder must be a bool, got {fused_vocoder!r}")
+    if packed_vocoder is not None and not isinstance(packed_vocoder, bool):
+        raise ValueError("packed_vocoder must be None or a bool, got "
+                         f"{packed_vocoder!r}")
+    if isinstance(kernel_pipeline, bool) or not isinstance(
+            kernel_pipeline, int) or kernel_pipeline < 1:
+        raise ValueError("vocoder_kernel_pipeline must be an int >= 1, got "
+                         f"{kernel_pipeline!r}")
+
+
 class FlowHighSR:
     def __init__(self, config: FlowHighConfig = FlowHighConfig(), params=None,
                  vocoder_params=None, *, cfm_method: Optional[str] = None,
@@ -108,7 +121,9 @@ class FlowHighSR:
                  prior_semantics: str = "reference",
                  upsampling_method: str = "scipy", fuse_act_conv=True,
                  vocoder_conv_dtype=None, vocoder_storage_dtype=None,
-                 device=None):
+                 fused_vocoder: bool = False,
+                 packed_vocoder: Optional[bool] = None,
+                 vocoder_kernel_pipeline: int = 1, device=None):
         """``params``/``vocoder_params``: the JAX package's param trees
         (nested dicts of arrays), carried across by ``compat.jax_params``;
         without them the networks keep their constructor init until
@@ -118,7 +133,14 @@ class FlowHighSR:
         "bfloat16" | "int8") is the dot precision of the vocoder's convs, as
         the JAX package's switch of the same name; every entry point below
         inherits it. ``vocoder_storage_dtype`` is not ported.
+        ``fused_vocoder`` (a bool), ``packed_vocoder`` (None or a bool) and
+        ``vocoder_kernel_pipeline`` (an int >= 1) are the JAX constructor's
+        TPU lowering switches: accepted and validated so that its calls
+        build the port's model, and otherwise ignored, since the card's
+        kernels do not depend on them (``ValueError`` on another value).
         ``device=None`` means CUDA, and raises without it."""
+        _check_lowering_switches(fused_vocoder, packed_vocoder,
+                                 vocoder_kernel_pipeline)
         self.config = config
         self.device = resolve_device(device)
         self.cfm_method = cfm_method or config.cfm.cfm_method

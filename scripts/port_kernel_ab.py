@@ -10,7 +10,10 @@ run the script for each tree in turn, A B B A. Prints one JSON line: the
 mean ms of one launch (15 launches after 3 warm-up launches, CUDA events)
 of kernel D (``act_conv1d``) and kernel E (``amp_unit``) at main-path shapes
 of a 10 s clip (C, T, k, d), and, for the yardstick, of kernels A and B at
-the D shapes. Inputs are seeded random tensors. Needs a CUDA card.
+the D shapes; and of kernel C (``conv_transpose1d``), float32 and bfloat16
+instances, at the five upsampler shapes of a 10 s clip (Cin, Cout, T_in, u,
+K), with their per-clip sums (``C sum``, ``C.bf16 sum``). Inputs are seeded
+random tensors. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ import numpy as np
 PAIRS = [(768, 5000, 3, 1), (768, 5000, 11, 1), (384, 20000, 7, 3),
          (48, 480000, 3, 1)]
 UNITS = [(192, 80000, 3, 1), (192, 80000, 11, 1), (48, 480000, 7, 3)]
+# BigVGAN's upsamplers on a 10 s clip (1,000 frames): Cin, Cout, T_in, u, K
+UPSAMPLERS = [(1536, 768, 1000, 5, 11), (768, 384, 5000, 4, 8),
+              (384, 192, 20000, 4, 8), (192, 96, 80000, 3, 7),
+              (96, 48, 240000, 2, 4)]
 
 
 def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -76,6 +83,17 @@ def main() -> int:
         w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(c, scale=0.1)
         res[f"E {c} {k} {d}"] = time_ms(lambda: ops.amp_unit(
             x, a, b, a, b, True, w, bias, w, bias, dilation=d))
+    for name, dt in (("C", torch.float32), ("C.bf16", torch.bfloat16)):
+        total = 0.0
+        for cin, cout, t, u, k in UPSAMPLERS:
+            x = randn(1, cin, t)
+            w, bias = randn(cin, cout, k, scale=(cout * k) ** -0.5), randn(
+                cout, scale=0.1)
+            ms = time_ms(lambda: ops.conv_transpose1d(x, w, bias, stride=u,
+                                                      dot_dtype=dt))
+            res[f"{name} {cin} {u} {k}"] = ms
+            total += ms
+        res[f"{name} sum"] = total
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -80,15 +80,38 @@ def test_conv1d_kernel_matches_plain(cuda, gen, cin, cout, k, d, n_res):
     assert ops.conv1d.launches == n0 + 1
 
 
-@pytest.mark.parametrize("u,k", UPSAMPLERS)
-def test_conv_transpose1d_kernel_matches_plain(cuda, gen, u, k):
-    x = _randn(gen, cuda, 2, 40, 101)
-    w = _randn(gen, cuda, 40, 24, k, scale=(24 * k) ** -0.5)
-    bias = _randn(gen, cuda, 24)
+# kernel C's edges, at every (u, K) instance: (B, Cin, Cout, T) with a
+# ragged Cin chunk (40, 17), Cout 24, 48 and 70 (a ragged 64-channel tile),
+# T off every time tile, T below the tap halo, and u*T both a multiple of 4
+# (16-byte stores) and not
+CONVT_INSTANCES = UPSAMPLERS + [(8, 16)]
+CONVT_SHAPES = [(2, 40, 24, 101), (1, 96, 48, 133), (2, 17, 70, 257),
+                (1, 40, 48, 3)]
+
+
+@pytest.mark.parametrize("b,cin,cout,t", CONVT_SHAPES)
+@pytest.mark.parametrize("u,k", CONVT_INSTANCES)
+def test_conv_transpose1d_kernel_matches_plain(cuda, gen, u, k, b, cin, cout,
+                                               t):
+    x = _randn(gen, cuda, b, cin, t)
+    w = _randn(gen, cuda, cin, cout, k, scale=(cout * k) ** -0.5)
+    bias = _randn(gen, cuda, cout)
     n0 = ops.conv_transpose1d.launches
     _close(ops.conv_transpose1d(x, w, bias, stride=u),
            ops.conv_transpose1d_plain(x, w, bias, stride=u))
     assert ops.conv_transpose1d.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+def test_conv_transpose1d_stage1_full_width(cuda, gen, dot_dtype):
+    # BigVGAN's first upsampler on a 10 s clip: 1536 -> 768, T = 1,000,
+    # (5, 11); without bias, as kernel C also runs
+    x = _randn(gen, cuda, 1, 1536, 1000)
+    w = _randn(gen, cuda, 1536, 768, 11, scale=(768 * 11) ** -0.5)
+    for bias in (_randn(gen, cuda, 768, scale=0.1), None):
+        _close(ops.conv_transpose1d(x, w, bias, stride=5, dot_dtype=dot_dtype),
+               ops.conv_transpose1d_plain(x, w, bias, stride=5,
+                                          dot_dtype=dot_dtype))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
@@ -301,11 +324,12 @@ def test_conv1d_variant_matches_plain(cuda, gen, dot_dtype, cin, cout, k, d,
     assert ops.conv1d.launches == n0
 
 
-@pytest.mark.parametrize("u,k", UPSAMPLERS)
-def test_conv_transpose1d_bf16_matches_plain(cuda, gen, u, k):
-    x = _randn(gen, cuda, 2, 40, 101)
-    w = _randn(gen, cuda, 40, 24, k, scale=(24 * k) ** -0.5)
-    bias = _randn(gen, cuda, 24)
+@pytest.mark.parametrize("b,cin,cout,t", CONVT_SHAPES)
+@pytest.mark.parametrize("u,k", CONVT_INSTANCES)
+def test_conv_transpose1d_bf16_matches_plain(cuda, gen, u, k, b, cin, cout, t):
+    x = _randn(gen, cuda, b, cin, t)
+    w = _randn(gen, cuda, cin, cout, k, scale=(cout * k) ** -0.5)
+    bias = _randn(gen, cuda, cout)
     v0 = ops.conv_transpose1d.variant_launches[torch.bfloat16]
     _close(ops.conv_transpose1d(x, w, bias, stride=u, dot_dtype=torch.bfloat16),
            ops.conv_transpose1d_plain(x, w, bias, stride=u,
