@@ -30,10 +30,13 @@ Phases (any failure raises and the script exits non-zero):
    scaled max abs (``STAT_TOL``); timed beside their float32 instance (``f32_ms``),
    the PyTorch conv on bf16 tensors as the bf16 library call (int8 has
    none) and the A + B chain at the same dtype for D and E; bounds at the
-   data-sheet tensor-core peak of their dtype. Kernel C's float32 instance
-   runs 3xTF32 on the tensor cores, so its bound counts three TF32
-   products per f32 product at the TF32 peak (``DOT_UNITS``); C's rows per
-   upsampler of the 10 s clip (f32 and bf16) are printed;
+   data-sheet tensor-core peak of their dtype. The float32 instances of
+   kernel C and of kernel B's GEMM route run 3xTF32 on the tensor cores,
+   so their bounds count three TF32 products per f32 product at the TF32
+   peak (``DOT_UNITS``); B's narrow route (``conv_post``) runs on the FMA
+   units. C's rows per upsampler of the 10 s clip (f32 and bf16) are
+   printed, and B's per resblock shape of the unfused 10 s clip (stage x K
+   x d, f32 and bf16) and its ``conv_post`` row;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
    random weights) on a 10 s, 16 kHz clip, first on the default path, then
    on the unfused path: launch counts of every kernel on each run (zeroed
@@ -132,16 +135,24 @@ PEAKS = {"sxm": (67e12, 3.35e12, 989e12, 1979e12, 495e12),
          "pcie": (51e12, 2.0e12, 756e12, 1513e12, 378e12),
          "nvl": (60e12, 3.9e12, 835e12, 1671e12, 417e12)}
 # instances whose dot products run on another unit than their dtype's:
-# kernel C's float32 instance runs each f32 product as three TF32 products
-# on the tensor cores (3xTF32): {instance: (products per dot product, peak)}
-DOT_UNITS = {"conv_transpose1d": (3, 4)}
+# kernel C's float32 instance and kernel B's (its GEMM route) run each f32
+# product as three TF32 products on the tensor cores (3xTF32):
+# {instance: (products per dot product, peak)}
+DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4)}
+# kernel B's narrow route (conv_post) below this Cout: f32 FMA at any dtype
+# (flowhigh_tpu_torch/ops/conv.py: NARROW_COUT)
+NARROW_COUT = 16
 
 
-def dot_seconds(peaks, kernel: str, dots: float) -> float:
+def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
     """The least time of ``dots`` dot-product operations of a kernel
-    instance on the unit its products run on."""
-    n, peak = DOT_UNITS.get(kernel, (1, {"": 0, "bf16": 2, "int8": 3}[
-        kernel.partition(".")[2]]))
+    instance (at shape ``key``, where its route depends on it) on the unit
+    its products run on."""
+    base, _, sfx = kernel.partition(".")
+    if base == "conv1d_same" and sfx != "int8" and key is not None \
+            and key[1] < NARROW_COUT:
+        return dots / peaks[0]
+    n, peak = DOT_UNITS.get(kernel, (1, {"": 0, "bf16": 2, "int8": 3}[sfx]))
     return n * dots / peaks[peak]
 
 
@@ -456,7 +467,7 @@ def check_kernels(shapes: dict, device, peaks) -> dict:
             row = {"max_abs_err": max_abs, "max_rel_err": max_rel,
                    "bytes": byt, "ops": dots + other,
                    "bytes_ms": byt / bw * 1e3,
-                   "ops_ms": (dot_seconds(peaks, kernel, dots)
+                   "ops_ms": (dot_seconds(peaks, kernel, dots, key)
                               + other / flops) * 1e3,
                    "ms": time_ms(run), "plain_ms": time_ms(plain),
                    "library_ms": time_ms(lib) if lib is not None else None,
@@ -494,6 +505,40 @@ def path_totals(calls: dict, rows: dict) -> dict:
         if "f32_ms" in sel[0][1]:  # a variant: its float32 instance's time
             out[kernel]["f32_ms"] = tot("f32_ms")
     return out
+
+
+def conv_groups(total: dict) -> dict:
+    """Kernel B's per-launch rows of one path (``path_totals``) grouped by
+    resblock shape (C, T, K, d), and conv_post by its key: {group: {launches,
+    ms, library_ms, bound_ms, max_abs_err}}, each summed over the group's
+    launches."""
+    out: dict = {}
+    for r in total["shapes"]:
+        cin, cout, t, k, d = r["key"][:5]
+        grp = (cin, t, k, d) if cout >= NARROW_COUT else tuple(r["key"])
+        n = r["launches"]
+        g = out.setdefault(grp, {"launches": 0, "ms": 0.0, "library_ms": 0.0,
+                                 "bound_ms": 0.0, "max_abs_err": 0.0})
+        g["launches"] += n
+        g["ms"] += n * r["ms"]
+        g["library_ms"] += n * (r["library_ms"] or 0.0)
+        g["bound_ms"] += n * max(r["bytes_ms"], r["ops_ms"])
+        g["max_abs_err"] = max(g["max_abs_err"], r["max_abs_err"])
+    return out
+
+
+def print_conv_rows(kernel: str, total: dict) -> None:
+    """Phase 1: kernel B's rows per resblock shape of one path, per clip."""
+    for grp, g in sorted(conv_groups(total).items(),
+                         key=lambda kv: (-kv[0][0], kv[0][1:])):
+        what = ("(C, T, K, d) " if len(grp) == 4 else "conv_post ") + str(grp)
+        print(f"  {kernel} {what}: {g['launches']} launches, per clip "
+              f"{g['ms']:.3f} ms (cuDNN {g['library_ms']:.3f}, bound "
+              f"{g['bound_ms']:.3f}), max abs err {g['max_abs_err']:.2e}",
+              flush=True)
+    print(f"  {kernel}: {total['launches']} launches, per clip "
+          f"{total['ms']:.2f} ms (cuDNN {total['library_ms']:.2f}, bound "
+          f"{total['bound_ms']:.2f} {total['bound_by']})", flush=True)
 
 
 # --- kernel F ------------------------------------------------------------------
@@ -1391,6 +1436,9 @@ def main() -> int:
                   f"bound {max(r['bytes_ms'], r['ops_ms']):.3f} "
                   f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'}), "
                   f"max abs err {r['max_abs_err']:.2e}", flush=True)
+    for k, tot in (("conv1d_same", unfused_tot),
+                   ("conv1d_same.bf16", red_tot["bfloat16"][1])):
+        print_conv_rows(k, tot[k])
     t0 = time.perf_counter()
     flash_rows = check_flash(peaks, long_frames)
     print(f"phase 1: flash_attn checked and timed at {len(flash_rows)} shapes "

@@ -3,7 +3,7 @@
 //   y = out_scale * (bias + conv(a) + r0 + r1 + r2),   a = snakebeta-AA(x),
 //
 // with the conv's zero padding applied to a and the snake's replicate
-// padding applied to x. Equals kernel B (conv1d_same.cu) on kernel A's
+// padding applied to x. Computes kernel B (conv1d_same.cu) on kernel A's
 // (snake_aa.cu) output, without writing a to device memory.
 //
 // Replaces the Pallas kernel flowhigh_tpu/ops/packed.py:

@@ -17,16 +17,18 @@
 //      the next chunk is staged (cp.async where src is in device memory)
 //      while this one is computed;
 //   2. form the 2x-rate snake signal over aw + 6 base-rate positions in
-//      shared memory, exactly as kernel A does (same taps, same order);
+//      shared memory, as kernel A does (same taps, same order; the I8
+//      instances without FMAs, see Pass::activate);
 //   3. downsample it into the activation over aw positions, zero outside
 //      [0, T);
-//   4. run kernel B's implicit GEMM over the chunk's CI*K rows, reading the
-//      activation at offset k*d: each thread keeps TM channels x NI samples
+//   4. run an implicit GEMM on the FMA units (kernel B.int8's) over the
+//      chunk's CI*K rows, reading the activation at offset k*d: each
+//      thread keeps TM channels x NI samples
 //      (samples tx + 32 i, so a warp reads 32 consecutive floats per row);
 //      TYB warps share the block's BM = TM * TYB output channels, so the
 //      activation of a chunk is computed once per BM channels.
-// The sums run in kernel B's order (chunk, channel, tap), so D and E give
-// what kernel B gives on kernel A's output.
+// The sums run in the order (chunk, channel, tap), as kernel B.int8's;
+// kernel B's float32 and bf16 instances sum on the tensor cores instead.
 //
 // Shared memory, in floats (mirrored by
 // flowhigh_tpu_torch/ops/fused_conv.py:core_smem_floats):
@@ -179,8 +181,12 @@ struct Pass {
 
   // Steps 2 and 3 on stage st (staged and visible to all threads): the
   // activation, as the dot of D stages it (qs: the I8 scale 127 / amax).
-  // Ends with a barrier.
-  template <Dot D>
+  // ORDERED (the I8 instances) takes every product and sum as a separate
+  // f32 operation rounded to nearest, in the order of
+  // ops/fused_act.py:snake_activation1d_ordered, so that its plain version
+  // on the card gives the same bits and the same int8 quanta; the other
+  // instances let the compiler fuse them into FMAs. Ends with a barrier.
+  template <Dot D, bool ORDERED = D == Dot::I8>
   __device__ __forceinline__ void activate(int st, float qs) const {
     const int tid = threadIdx.x;
     // 2x-rate snake signal at m = tstart - pad - 3 + i: s[2m] reads raw
@@ -192,17 +198,29 @@ struct Pass {
       const int i = e - ci * sn;
       const float* xi = xr + ci * xw + i;
       float se = 0.0f, so = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        se = fmaf(2.0f * h[2 * k], xi[k], se);
-        so = fmaf(2.0f * h[2 * k + 1], xi[k + 1], so);
-      }
       const float a = ab[ci];
       const float inv_b = ab[CI + ci];
-      const float pe = sinf(a * se);
-      const float po = sinf(a * so);
-      ss[2 * e] = se + inv_b * (pe * pe);
-      ss[2 * e + 1] = so + inv_b * (po * po);
+      if constexpr (ORDERED) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          se = __fadd_rn(se, __fmul_rn(2.0f * h[2 * k], xi[k]));
+          so = __fadd_rn(so, __fmul_rn(2.0f * h[2 * k + 1], xi[k + 1]));
+        }
+        const float pe = sinf(__fmul_rn(se, a));
+        const float po = sinf(__fmul_rn(so, a));
+        ss[2 * e] = __fadd_rn(se, __fmul_rn(inv_b, __fmul_rn(pe, pe)));
+        ss[2 * e + 1] = __fadd_rn(so, __fmul_rn(inv_b, __fmul_rn(po, po)));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          se = fmaf(2.0f * h[2 * k], xi[k], se);
+          so = fmaf(2.0f * h[2 * k + 1], xi[k + 1], so);
+        }
+        const float pe = sinf(a * se);
+        const float po = sinf(a * so);
+        ss[2 * e] = se + inv_b * (pe * pe);
+        ss[2 * e + 1] = so + inv_b * (po * po);
+      }
     }
     __syncthreads();
 
@@ -219,12 +237,15 @@ struct Pass {
       if (n >= 3 && n <= T - 4) {
         const float* s0 = sc + 2 * n - 5;
 #pragma unroll
-        for (int q = 0; q < 12; ++q) v = fmaf(h[q], s0[q], v);
+        for (int q = 0; q < 12; ++q)
+          v = ORDERED ? __fadd_rn(v, __fmul_rn(h[q], s0[q]))
+                      : fmaf(h[q], s0[q], v);
       } else if (n >= 0 && n < T) {
 #pragma unroll
         for (int q = 0; q < 12; ++q) {
           const int s = min(max(2 * n + q - 5, 0), s_max);
-          v = fmaf(h[q], sc[s], v);
+          v = ORDERED ? __fadd_rn(v, __fmul_rn(h[q], sc[s]))
+                      : fmaf(h[q], sc[s], v);
         }
       }
       act[e] = stage_value<D>(v, qs);
@@ -254,7 +275,7 @@ __device__ __forceinline__ float act_amax(
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    P.template activate<Dot::F32>(0, 0.0f);
+    P.template activate<Dot::F32, true>(0, 0.0f);  // the I8 arithmetic
     for (int e = tid; e < CI * P.aw; e += NT) {
       if (e - split(e, P.inv_aw) * P.aw < jmax) m = fmaxf(m, fabsf(P.act[e]));
     }

@@ -3,57 +3,537 @@
 //                    + r0 + r1 + r2),         pad = d*(K-1)/2, zero padding.
 //
 // Replaces the Pallas kernel flowhigh_tpu/ops/packed.py:pallas_packed_conv1d
-// (core _pallas_conv_rows, body _make_conv_kernel) at p = 1: the BigVGAN
-// resblock convs (k in {3,7,11}, d in {1,3,5}) with up to three residuals
-// and the folded MRF average (out_scale = 1/3), and conv_post (Cout = 1).
+// (:235; core _pallas_conv_rows, body _make_conv_kernel :183, pallas_call
+// :361) at p = 1: the BigVGAN resblock convs (K in {3,7,11}, d in {1,3,5})
+// with up to three residuals and the folded MRF average (out_scale = 1/3),
+// and conv_post (Cout = 1).
 //
-// Layout: x [B, Cin, T], w [Cout, Cin, K] (PyTorch Conv1d), residuals and y
-// [B, Cout, T], all float32 and contiguous.
+// Layout: x [B, Cin, T], residuals and y [B, Cout, T], float32, contiguous.
+// The weights come in the layout of their route (below).
 //
-// Bound: f32 arithmetic. A resblock conv does T*Cin*Cout*K multiply-adds
-// against 2-3 reads and one write of a [C, T] map; at C >= 48 that is above
-// the card's f32 FMA-to-bandwidth ratio. Design: an implicit GEMM on the FMA
-// units, Y[co, t] = sum_r W[co, r] X[r, t] over r = (ci, k) with
-// X[(ci, k), t] = x[ci, t + k*d - pad]. A block owns a BM x 256 output tile
-// and walks Cin in chunks of CI channels (GEMM depth R = CI*K, K a template
-// parameter so the loop over the chunk is fully unrolled). Each chunk's
-// im2col rows [R][256] and weights [R][BM] are copied by cp.async into one
-// of two shared-memory stages while the other stage is computed, so global
-// latency overlaps the FMAs. A thread keeps a TM x 8 register tile: per
-// row r it reads 2 x 16 B of x (the warp's 32 lanes cover 512 contiguous
-// bytes) and TM weights (one address across the warp: a broadcast) for
-// 8*TM FMAs. The epilogue (bias, residuals, scale) runs in registers.
-// conv_post (Cout < 16) takes a direct kernel: one thread per output sample.
+// Three routes:
 //
-// dot_dtype (dot_dtype.cuh; the JAX kernel's bf16 and int8 modes,
-// packed.py:200-216): BF16 and I8 instances round or quantise each staged
-// x value in place, by the thread that staged it, once its cp.async has
-// landed; the weights come rounded (bf16) or quantised (int32 + per-channel
-// scale) from the host. I8 accumulates in int32, and first takes the
-// window's amax: one pass of the block over x[all Cin, t0 - pad ..
-// t0 + 256 + pad) (the x chunks are read again by the GEMM, from L2). The
-// narrow kernel has F32 and BF16 instances only.
+// 1. The GEMM route (F32, BF16; Cout >= 16, K in {3, 7, 11}): an implicit
+//    GEMM on the tensor cores, Y[co, t] = sum_k W_k[co, :] x[:, t + k*d - pad].
+//    Bound (a 10 s clip, 91 launches): F32 by operations (3.07 TFLOP of
+//    products, run as 3xTF32: three TF32 products per f32 product), BF16 by
+//    bytes. Design, as kernel C (conv_transpose1d.cu), whose helpers it
+//    shares (mma_sm90.cuh):
+//    - BF16: mma.sync m16n8k16 bf16 -> f32 (a bf16 x bf16 product is exact,
+//      so this is the JAX kernel's bf16 dot with f32 accumulation); F32:
+//      3xTF32 on m16n8k8 (the weights split into TF32 hi and lo in
+//      registers, x once a chunk in shared memory), each tap's three
+//      products summed in a fresh accumulator and added to the sum in f32
+//      with round to nearest (the tensor cores' own sums round toward zero,
+//      which drifts over the 8,448-deep sums of stage 1). BF16 keeps the
+//      tensor cores' sums (tests/test_torch_conv_plan.py emulates both);
+//    - a block owns TILE_CO output channels x BN = 256 frames: TILE_CO = 64
+//      (8 warps as 2 along channels x 4 along time, a warp 32 x 64), or 48
+//      where 48 divides Cout and 64 does not (the C = 48, 96 stages: 8 warps
+//      along time, a warp 48 x 32), so no tile row idles there;
+//    - per chunk of KC input channels (8 f32, 16 bf16: 32 bytes) the block
+//      stages the chunk's weights [K][TILE_CO][KC] (16-byte cp.async) and x
+//      over the tile plus the taps' reach, BN + 2 pad frames, transposed to
+//      [frame][ci] (4-byte cp.async, zero-filled at the sequence's edges and
+//      beyond Cin): tap k is then the row offset k*d, so one staged window
+//      serves every tap and every x value is staged once (the int8 route's
+//      im2col stages it K times). Each thread then splits (F32, see
+//      split_x_once) or rounds to bf16 rows read by ldmatrix (BF16) the
+//      values it staged. Two
+//      stages: the next chunk loads while this one multiplies, one barrier
+//      a chunk;
+//    - the accumulators pass through shared memory, and the epilogue (bias,
+//      residuals, scale) leaves as 16-byte row stores.
+//    Weights: [K][Cout_p][Cin_p] (Cout_p a multiple of COUT_ALIGN, Cin_p of
+//    CIN_ALIGN, zero-padded), f32, or bf16 rounded to nearest even for BF16
+//    (ops/conv.py:conv_weights, prepared once per weight tensor).
+//
+// 2. The narrow route (F32, BF16; Cout < 16, any odd K: conv_post, Cin 48,
+//    K 7, T 480,000 on a 10 s clip). Bound: bytes (a read of x and a write
+//    of y). A block of 128 threads owns NB = 512 outputs of one output
+//    channel and walks Cin in chunks of NCC = 8 channels: it stages x over
+//    its outputs plus the taps' reach by 16-byte cp.async (4-byte where T
+//    is not a multiple of 4), two stages, so that the next chunk's copies
+//    are in flight while this one computes; each thread computes 4 outputs
+//    (t0 + tid + 128 j, so a warp's shared-memory reads are consecutive) on
+//    the FMA units. Weights: [Cout][Cin][K] f32 (bf16 values for BF16).
+//
+// 3. The int8 route (I8; Cout >= 16, K in {3, 7, 11}): the JAX kernel's
+//    int8 dot (dot_dtype.cuh) over the card's 256-sample windows
+//    (ops/quant.py), on the FMA units: a BM x 256 output tile (BM 48 or 64),
+//    each chunk's im2col rows [CI*K][256] and weights [CI*K][BM] staged by
+//    cp.async, double-buffered; a thread keeps a TM x 8 register tile of
+//    int32 sums. The block first takes its window's amax: one pass over
+//    x[all Cin, t0 - pad .. t0 + 256 + pad). Weights: [Cout][Cin][K] int32
+//    values in [-127, 127] with [Cout] scales.
 
 #include "dot_dtype.cuh"
+#include "mma_sm90.cuh"
 
 namespace {
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src-size 0 writes a zero: the conv's padding and the ragged edges
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 4 : 0));
+constexpr int NT = 256;  // threads a block of the GEMM and int8 routes
+constexpr int SMEM_MAX = 232448;  // bytes a block may use on the H100
+
+// --- 1. the GEMM route -------------------------------------------------------------
+
+constexpr int BN = 256;  // frames a block
+constexpr int CIN_ALIGN = 16;  // Cin_p is a multiple of it (both KC divide it)
+constexpr int COUT_ALIGN = 64;  // Cout_p is a multiple of it (TILE_CO <= it)
+
+// WM warps along channels (MT m16 tiles each), 8 / WM along time (NT8 n8
+// tiles each)
+template <Dot D, int WM, int MT>
+struct Gemm {
+  static constexpr bool BF = D == Dot::BF16;
+  using WT = typename std::conditional<BF, __nv_bfloat16, float>::type;
+  static constexpr int WN = 8 / WM;
+  static constexpr int TILE_CO = WM * MT * 16;
+  static constexpr int NT8 = BN / (WN * 8);
+  static constexpr int KC = BF ? 16 : 8;              // channels a chunk
+  static constexpr int EPS = 16 / (int)sizeof(WT);    // elements a 16-byte copy
+  // x staged f32 [frame][XS] by 4-byte cp.async (XS = 20: conflict-free
+  // writes and fragment loads). F32 splits each value in place into TF32
+  // hi (columns 0-7) and lo (8-15); BF16 converts each chunk to bf16 rows
+  // of XSB elements (48 bytes: conflict-free ldmatrix at any row offset)
+  static constexpr int XS = 20;
+  static constexpr int XSB = 24;
+  static constexpr int OS = BN + 8;  // output tile row stride: float2 stores
+  static constexpr int O_BYTES = TILE_CO * OS * 4;
+  static_assert(KC * sizeof(WT) == 32, "a weight row is two 16-byte copies");
+  static_assert(NT8 % 2 == 0, "BF16 loads x fragments for two n-tiles");
+  static_assert(TILE_CO <= COUT_ALIGN && COUT_ALIGN % 16 == 0, "tiles");
+  __host__ __device__ static int w_bytes(int K) {
+    return K * TILE_CO * KC * (int)sizeof(WT);
+  }
+  // window rows: BN frames plus the taps' reach
+  __host__ __device__ static int x_rows(int K, int dil) {
+    return BN + dil * (K - 1);
+  }
+  __host__ __device__ static int x32_bytes(int K, int dil) {
+    return (x_rows(K, dil) * XS * 4 + 15) / 16 * 16;
+  }
+  // a stage: the chunk's weights and its x as the fragments read it (f32
+  // hi and lo, or bf16 for BF16, whose single f32 staging buffer follows
+  // the stages)
+  __host__ __device__ static int stage_bytes(int K, int dil) {
+    return w_bytes(K) + (BF ? (x_rows(K, dil) * XSB * 2 + 15) / 16 * 16
+                            : x32_bytes(K, dil));
+  }
+  static int smem(int K, int dil) {
+    const int s = 2 * stage_bytes(K, dil) + (BF ? x32_bytes(K, dil) : 0);
+    return s > O_BYTES ? s : O_BYTES;
+  }
+};
+
+// F32 splits x into TF32 hi and lo once a chunk in shared memory, except
+// the K = 3 instance with 48-channel tiles, which splits each fragment as
+// it loads it and so fits 128 registers: split once, it takes 145 at one
+// block an SM and ran 0.427 ms against 0.358 (96 channels, T 240,000, d 5;
+// H100 80GB HBM3, scripts/port_conv_variants.py).
+__host__ __device__ constexpr bool split_x_once(Dot D, int K, int WM) {
+  return D == Dot::F32 && !(K == 3 && WM == 1);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Blocks an SM keeps: 2 (at most 128 registers a thread), except the F32
+// instances with K = 7, 11, which spill 16-32 bytes at 128 registers
+// (ptxas) and keep 1 (147-194 registers, no spills). That costs 5-7%
+// against 2 blocks with the spills: 1.351 / 1.277 ms (768 channels, K 11,
+// d 5), 0.894 / 0.850 (384, K 7), 0.553 / 0.517 (48, K 11) on an H100
+// 80GB HBM3 (scripts/port_conv_variants.py).
+__host__ __device__ constexpr int mma_min_blocks(Dot D, int K) {
+  return D == Dot::F32 && K != 3 ? 1 : 2;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+template <Dot D, int K, int WM, int MT>
+__global__ void __launch_bounds__(NT, mma_min_blocks(D, K))
+conv1d_mma_kernel(const float* __restrict__ x,
+                  const typename Gemm<D, WM, MT>::WT* __restrict__ wp,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ r0, const float* __restrict__ r1,
+                  const float* __restrict__ r2, float* __restrict__ y,
+                  int Cin, int Cout, int T, int dil, float out_scale) {
+  using G = Gemm<D, WM, MT>;
+  using WT = typename G::WT;
+  constexpr int KC = G::KC, EPS = G::EPS, XS = G::XS, XSB = G::XSB,
+                NT8 = G::NT8, TILE_CO = G::TILE_CO;
+  constexpr bool SPLIT_ONCE = split_x_once(D, K, WM);
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = blockIdx.x * BN;
+  const int co0 = blockIdx.y * TILE_CO;
+  const long long b = blockIdx.z;
+  const int pad = dil * (K - 1) / 2;
+  const int cin_p = (Cin + CIN_ALIGN - 1) / CIN_ALIGN * CIN_ALIGN;
+  const int cout_p = (Cout + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
+  const int xr_n = G::x_rows(K, dil);
+  const int stage = G::stage_bytes(K, dil);
+  const float* xb = x + b * (long long)Cin * T;
+
+  auto w_stage = [&](int s) {
+    return reinterpret_cast<WT*>(smem + s * stage);
+  };
+  // x as staged (f32; BF16: one buffer for both stages) and, for BF16, as
+  // the fragments read it (bf16)
+  auto x_stage = [&](int s) {
+    return reinterpret_cast<float*>(smem + (G::BF ? 2 * stage
+                                                  : s * stage + G::w_bytes(K)));
+  };
+  auto xb_stage = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + s * stage + G::w_bytes(K));
+  };
+
+  // What a thread stages of every chunk: weight rows wrow + 128 i, 16-byte
+  // half wseg; x's input channel xci at window rows xu + i XSTEP, lane =
+  // 8 (ci % 4) + u % 8 (32-byte global segments; no bank conflicts)
+  constexpr int WROWS = NT / 2, NW = (K * TILE_CO + WROWS - 1) / WROWS;
+  const int wseg = tid & 1, wrow = tid >> 1;
+  constexpr int XSTEP = NT / KC;
+  const int xci = (tid >> 3) % KC;
+  const int xu = ((tid >> 3) / KC) * 8 + (tid & 7);
+
+  auto load = [&](int c0, int s) {
+    WT* wd = w_stage(s);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int row = wrow + i * WROWS;  // = k TILE_CO + r
+      if ((K * TILE_CO) % WROWS != 0 && row >= K * TILE_CO) break;
+      const int k = row / TILE_CO, r = row - k * TILE_CO;
+      cp_async16(wd + w_row_offset(row, wseg, EPS),
+                 wp + ((long long)k * cout_p + co0 + r) * cin_p + c0 +
+                     wseg * EPS);
+    }
+    float* xd = x_stage(s) + xci;
+    const bool cvalid = c0 + xci < Cin;
+    const float* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
+    for (int u = xu; u < xr_n; u += XSTEP) {
+      const int gt = t0 - pad + u;
+      const bool valid = cvalid && (unsigned)gt < (unsigned)T;
+      cp_async4_zfill(xd + u * XS, valid ? xs + gt : xb, valid);
+    }
+  };
+
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+
+  // two stages, one barrier a chunk: the barrier at chunk c ends every
+  // warp's reads of chunk c - 1, whose stage the load of chunk c + 1 refills
+  // (and, for BF16, every thread's conversion of chunk c out of the f32
+  // buffer that the load refills)
+  const int n_chunks = cin_p / KC;
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();
+    if constexpr (G::BF) {  // the values this thread staged, to bf16
+      const float* xf = x_stage(0) + xci;
+      __nv_bfloat16* xh = xb_stage(c & 1) + xci;
+      for (int u = xu; u < xr_n; u += XSTEP)
+        xh[u * XSB] = __float2bfloat16_rn(xf[u * XS]);
+    } else if constexpr (SPLIT_ONCE) {  // to TF32 hi (in place) and lo
+      float* xf = x_stage(c & 1) + xci;
+      for (int u = xu; u < xr_n; u += XSTEP) {
+        unsigned hi, lo;
+        tf32_split(xf[u * XS], hi, lo);
+        xf[u * XS] = __uint_as_float(hi);
+        xf[u * XS + KC] = __uint_as_float(lo);
+      }
+    }
+    __syncthreads();
+    if (c + 1 < n_chunks) load((c + 1) * KC, (c + 1) & 1);
+    cp_async_commit();
+    const WT* ws = w_stage(c & 1);
+    // this warp's frames: rows (wn NT8 + n) 8 + g of the window, + k d a tap
+    const float* xs = x_stage(c & 1) + ((wn * NT8) * 8 + g) * XS;
+    // BF16: ldmatrix.x4 rows, lane l: frame (wn NT8 + n + l / 16) 8 + l % 8,
+    // channels 8 ((l / 8) % 2) ..: b0, b1 of n-tiles n and n + 1
+    const __nv_bfloat16* xh =
+        xb_stage(c & 1) +
+        ((wn * NT8 + ((lane >> 4) & 1)) * 8 + (lane & 7)) * XSB +
+        ((lane >> 3) & 1) * 8;
+
+    // one tap at a time: unrolled over the taps, five of the six F32
+    // instances spill 28-72 bytes, even at 255 registers (ptxas)
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const float* xk = xs + k * dil * XS;
+      if constexpr (G::BF) {
+        unsigned a[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          a_frag_bf16(a[i], ws, k * TILE_CO + (wm * MT + i) * 16, lane);
+#pragma unroll
+        for (int n = 0; n < NT8; n += 2) {
+          unsigned bq[4];
+          ldmatrix_x4(bq, xh + (k * dil + n * 8) * XSB);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_bf16_16816(acc[i][n], a[i], bq[0], bq[1]);
+            mma_bf16_16816(acc[i][n + 1], a[i], bq[2], bq[3]);
+          }
+        }
+      } else {
+        unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          a_frag_3xtf32(ah[i], al[i], ws, k * TILE_CO + (wm * MT + i) * 16,
+                        g, t);
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) {
+          // channels t and t + 4 of this lane's frame
+          const float* xr = xk + n * 8 * XS;
+          unsigned bh[2], bl[2];
+          if constexpr (SPLIT_ONCE) {  // split as staged
+            bh[0] = __float_as_uint(xr[t]);
+            bh[1] = __float_as_uint(xr[t + 4]);
+            bl[0] = __float_as_uint(xr[KC + t]);
+            bl[1] = __float_as_uint(xr[KC + t + 4]);
+          } else {
+            tf32_split(xr[t], bh[0], bl[0]);
+            tf32_split(xr[t + 4], bh[1], bl[1]);
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            mma_3xtf32_1688(acc[i][n], ah[i], al[i], bh[0], bh[1], bl[0],
+                            bl[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages
+
+  // the tile in shared memory, [TILE_CO][OS]
+  float* os = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = (wm * MT + i) * 16 + g + 8 * h;
+        const int m = (wn * NT8 + n) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(os + co * G::OS + m) =
+            make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+      }
+  __syncthreads();
+
+  // whole rows out, in the epilogue's order: + bias, + r0, + r1, + r2,
+  // x out_scale; 16-byte accesses where y's rows are 16-byte aligned
+  const int cols = min(BN, T - t0);
+  const bool vec = T % 4 == 0;
+  constexpr int V = BN / 4;
+  for (int idx = tid; idx < TILE_CO * V; idx += NT) {
+    const int row = idx / V, col = (idx - row * V) * 4;
+    const int co = co0 + row;
+    if (co >= Cout || col >= cols) continue;
+    const float bv = bias != nullptr ? bias[co] : 0.0f;
+    const long long o = (b * Cout + co) * (long long)T + t0 + col;
+    const float* src = os + row * G::OS + col;
+    if (vec) {
+      float4 v = *reinterpret_cast<const float4*>(src);
+      auto add = [&](const float* r) {
+        if (r == nullptr) return;
+        const float4 q = *reinterpret_cast<const float4*>(r + o);
+        v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
+      };
+      v.x += bv; v.y += bv; v.z += bv; v.w += bv;
+      add(r0);
+      add(r1);
+      add(r2);
+      v.x *= out_scale; v.y *= out_scale; v.z *= out_scale; v.w *= out_scale;
+      *reinterpret_cast<float4*>(y + o) = v;
+    } else {
+      for (int j = 0; j < 4 && col + j < cols; ++j) {
+        float v = src[j] + bv;
+        if (r0 != nullptr) v += r0[o + j];
+        if (r1 != nullptr) v += r1[o + j];
+        if (r2 != nullptr) v += r2[o + j];
+        y[o + j] = v * out_scale;
+      }
+    }
+  }
 }
+
+template <Dot D, int K, int WM, int MT>
+int launch_mma(const float* x, const void* w, const float* bias,
+               const float* r0, const float* r1, const float* r2, float* y,
+               int B, int Cin, int Cout, int T, int dil, float out_scale,
+               cudaStream_t stream) {
+  using G = Gemm<D, WM, MT>;
+  auto kernel = conv1d_mma_kernel<D, K, WM, MT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = G::smem(K, dil);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  dim3 grid((T + BN - 1) / BN, (Cout + G::TILE_CO - 1) / G::TILE_CO, B);
+  kernel<<<grid, NT, smem, stream>>>(
+      x, static_cast<const typename G::WT*>(w), bias, r0, r1, r2, y, Cin,
+      Cout, T, dil, out_scale);
+  return (int)cudaGetLastError();
+}
+
+// TILE_CO = 48 where 48 divides Cout and 64 does not, else 64
+template <Dot D, int K>
+int launch_mma_k(const float* x, const void* w, const float* bias,
+                 const float* r0, const float* r1, const float* r2, float* y,
+                 int B, int Cin, int Cout, int T, int dil, float out_scale,
+                 cudaStream_t s) {
+  if (Cout % 48 == 0 && Cout % 64 != 0)
+    return launch_mma<D, K, 1, 3>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
+                                  dil, out_scale, s);
+  return launch_mma<D, K, 2, 2>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
+                                dil, out_scale, s);
+}
+
+bool mma_fits(int K, int Cout, int dil, bool bf) {
+  const bool narrow = Cout % 48 == 0 && Cout % 64 != 0;
+  const int smem =
+      bf ? (narrow ? Gemm<Dot::BF16, 1, 3>::smem(K, dil)
+                   : Gemm<Dot::BF16, 2, 2>::smem(K, dil))
+         : (narrow ? Gemm<Dot::F32, 1, 3>::smem(K, dil)
+                   : Gemm<Dot::F32, 2, 2>::smem(K, dil));
+  return smem <= SMEM_MAX;
+}
+
+// --- 2. the narrow route -----------------------------------------------------------
+
+constexpr int NNT = 128;  // threads a block
+constexpr int NB = 512;   // outputs a block: 4 a thread
+constexpr int NCC = 8;    // input channels a stage
+
+// window floats a channel: NB outputs plus the taps' reach, padded to a
+// multiple of 4 on each side (16-byte copies from 16-byte-aligned sources)
+__host__ __device__ inline int narrow_halo(int K, int dil) {
+  return (dil * (K - 1) / 2 + 3) / 4 * 4;
+}
+__host__ __device__ inline int narrow_width(int K, int dil) {
+  return NB + 2 * narrow_halo(K, dil);
+}
+inline int narrow_smem(int K, int dil) {
+  return 2 * NCC * narrow_width(K, dil) * 4;
+}
+
+// vec: x's rows are 16-byte aligned (T % 4 == 0 and x 16-byte aligned)
+template <Dot D>
+__global__ void __launch_bounds__(NNT)
+conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ r0, const float* __restrict__ r1,
+                     const float* __restrict__ r2, float* __restrict__ y,
+                     int Cin, int Cout, int T, int K, int dil, float out_scale,
+                     int vec) {
+  extern __shared__ __align__(16) float xsm[];
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * NB;
+  const int co = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int pad = dil * (K - 1) / 2;
+  const int halo = narrow_halo(K, dil);
+  const int W = narrow_width(K, dil);  // window positions t0 - halo ..
+  const float* xb = x + b * (long long)Cin * T;
+  const float* wr = w + (long long)co * Cin * K;
+  const int n_chunks = (Cin + NCC - 1) / NCC;
+
+  // stage s <- channels c0 .. c0 + NCC of the window, zero outside [0, T)
+  // and beyond Cin; BF16 rounds the values this thread staged once they
+  // have landed (round_own below)
+  auto load = [&](int c0, int s) {
+    float* dst = xsm + s * NCC * W;
+    if (vec) {
+      const int w4 = W / 4;
+      for (int e = tid; e < NCC * w4; e += NNT) {
+        const int ci = e / w4, p = (e - ci * w4) * 4;
+        const int gt = t0 - halo + p;
+        const bool ok = c0 + ci < Cin && gt >= 0 && gt < T;
+        const float* src = ok ? xb + (long long)(c0 + ci) * T + gt : xb;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(dst + ci * W + p)),
+                     "l"(src), "r"(ok ? 16 : 0));
+      }
+    } else {
+      for (int e = tid; e < NCC * W; e += NNT) {
+        const int ci = e / W, p = e - ci * W;
+        const int gt = t0 - halo + p;
+        const bool ok = c0 + ci < Cin && gt >= 0 && gt < T;
+        cp_async4_zfill(dst + ci * W + p,
+                        ok ? xb + (long long)(c0 + ci) * T + gt : xb, ok);
+      }
+    }
+  };
+  auto round_own = [&](int s) {  // the same elements load(., s) gave tid
+    float* dst = xsm + s * NCC * W;
+    const int step = vec ? 4 : 1;
+    for (int e = tid * step; e < NCC * W; e += NNT * step)
+      for (int j = 0; j < step; ++j) dst[e + j] = round_bf16(dst[e + j]);
+  };
+
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();
+    if constexpr (D == Dot::BF16) round_own(c & 1);
+    __syncthreads();
+    if (c + 1 < n_chunks) load((c + 1) * NCC, (c + 1) & 1);
+    cp_async_commit();
+    const float* xs = xsm + (c & 1) * NCC * W + halo - pad + tid;
+    const int nc = min(NCC, Cin - c * NCC);
+    for (int ci = 0; ci < nc; ++ci) {
+      const float* wk = wr + (long long)(c * NCC + ci) * K;
+      const float* xc = xs + ci * W;
+      for (int k = 0; k < K; ++k) {
+        const float wv = __ldg(wk + k);
+        const float* xk = xc + k * dil;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] = fmaf(wv, xk[j * (NB / 4)], acc[j]);
+      }
+    }
+  }
+
+  const float bv = bias != nullptr ? bias[co] : 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = t0 + tid + j * (NB / 4);
+    if (t >= T) continue;
+    const long long o = (b * Cout + co) * (long long)T + t;
+    float v = acc[j] + bv;
+    if (r0 != nullptr) v += r0[o];
+    if (r1 != nullptr) v += r1[o];
+    if (r2 != nullptr) v += r2[o];
+    y[o] = v * out_scale;
+  }
+}
+
+template <Dot D>
+int launch_narrow(const float* x, const float* w, const float* bias,
+                  const float* r0, const float* r1, const float* r2, float* y,
+                  int B, int Cin, int Cout, int T, int K, int dil,
+                  float out_scale, cudaStream_t s) {
+  auto kernel = conv1d_narrow_kernel<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = narrow_smem(K, dil);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int vec = T % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
+  dim3 grid((T + NB - 1) / NB, Cout, B);
+  kernel<<<grid, NNT, smem, s>>>(x, w, bias, r0, r1, r2, y, Cin, Cout, T, K,
+                                 dil, out_scale, vec);
+  return (int)cudaGetLastError();
+}
+
+// --- 3. the int8 route -------------------------------------------------------------
 
 template <int N>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[N]) {
@@ -73,36 +553,36 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[N]) {
   }
 }
 
-constexpr int NT = 256;  // threads: 8 warps, one per row of the thread grid
 constexpr int TX = 32;   // threads along time (one warp)
 constexpr int TY = 8;    // threads along output channels
-constexpr int BN = 256;  // time samples per tile: 8 per thread, 2 x float4
+constexpr int IBN = 256;  // time samples a tile, the int8 window: 8 a thread
 
 template <int K, int CI, int TM>
 struct Tile {
   static constexpr int BM = TM * TY;           // output channels per tile
   static constexpr int R = CI * K;             // GEMM depth per chunk
   static constexpr int WS = BM + 4;            // weight row stride (floats)
-  static constexpr int STAGE = R * BN + R * WS;  // floats per stage
+  static constexpr int STAGE = R * IBN + R * WS;  // floats per stage
   static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
 };
 
-// w holds int32 values (by their bits) for I8, with sw the [Cout] scales
-template <Dot D, int K, int CI, int TM>
+// w holds int32 values (by their bits), with sw the [Cout] scales
+template <int K, int CI, int TM>
 __global__ void __launch_bounds__(NT, 2)
-conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+conv1d_int8_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ sw,
                    const float* __restrict__ bias,
                    const float* __restrict__ r0, const float* __restrict__ r1,
                    const float* __restrict__ r2, float* __restrict__ y,
                    int Cin, int Cout, int T, int dil, float out_scale) {
   using L = Tile<K, CI, TM>;
-  using A = Acc<D>;
-  extern __shared__ __align__(16) float smem[];
+  using A = Acc<Dot::I8>;
+  extern __shared__ __align__(16) float smem_i8[];
+  float* smem = smem_i8;
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  const int t0 = blockIdx.x * BN;
+  const int t0 = blockIdx.x * IBN;
   const int co0 = blockIdx.y * L::BM;
   const long long b = blockIdx.z;
   const int pad = dil * (K - 1) / 2;
@@ -114,7 +594,7 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // row) and the weights, transposed to [R][BM]
   auto load = [&](int chunk, int stage) {
     float* xs = smem + stage * L::STAGE;
-    float* ws = xs + L::R * BN;
+    float* ws = xs + L::R * IBN;
     const int c0 = chunk * CI;
     const int g0 = t0 + tid - pad;
 #pragma unroll
@@ -122,7 +602,8 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int c = c0 + r / K;
       const int g = g0 + (r % K) * dil;
       const bool ok = c < Cin && g >= 0 && g < T;
-      cp_async4(xs + r * BN + tid, ok ? xb + (long long)c * T + g : xb, ok);
+      cp_async4_zfill(xs + r * IBN + tid, ok ? xb + (long long)c * T + g : xb,
+                      ok);
     }
     const long long rmax = CK - (long long)c0 * K;
 #pragma unroll
@@ -131,8 +612,8 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int r = e - co * L::R;
       const int gco = co0 + co;
       const bool ok = gco < Cout && r < rmax;
-      cp_async4(ws + r * L::WS + co,
-                ok ? w + gco * CK + (long long)c0 * K + r : w, ok);
+      cp_async4_zfill(ws + r * L::WS + co,
+                      ok ? w + gco * CK + (long long)c0 * K + r : w, ok);
     }
     cp_async_commit();
   };
@@ -145,9 +626,9 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   load(0, 0);
   Quant q{0.0f, 0.0f};
-  if constexpr (D == Dot::I8) {  // the window's amax, while chunk 0 lands
+  {  // the window's amax, while chunk 0 lands
     __shared__ float red[32];
-    const int lo = max(t0 - pad, 0), hi = min(t0 + BN + pad, T);
+    const int lo = max(t0 - pad, 0), hi = min(t0 + IBN + pad, T);
     float m = 0.0f;
     for (int c = 0; c < Cin; ++c)
       for (int g = lo + tid; g < hi; g += NT)
@@ -161,20 +642,21 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     } else {
       cp_async_wait<0>();
     }
-    if constexpr (D != Dot::F32) {  // this thread's own staged x values
+    {  // this thread's own staged x values
       float* xo = smem + (chunk & 1) * L::STAGE + tid;
 #pragma unroll
-      for (int r = 0; r < L::R; ++r) xo[r * BN] = stage_value<D>(xo[r * BN], q.qs);
+      for (int r = 0; r < L::R; ++r)
+        xo[r * IBN] = stage_value<Dot::I8>(xo[r * IBN], q.qs);
     }
     __syncthreads();
     const float* xs = smem + (chunk & 1) * L::STAGE + 4 * tx;
-    const float* ws = smem + (chunk & 1) * L::STAGE + L::R * BN + ty * TM;
+    const float* ws = smem + (chunk & 1) * L::STAGE + L::R * IBN + ty * TM;
 #pragma unroll
     for (int r = 0; r < L::R; ++r) {
       float a[TM];
       load_row<TM>(ws + r * L::WS, a);
-      const float4 p = *reinterpret_cast<const float4*>(xs + r * BN);
-      const float4 u = *reinterpret_cast<const float4*>(xs + r * BN + BN / 2);
+      const float4 p = *reinterpret_cast<const float4*>(xs + r * IBN);
+      const float4 u = *reinterpret_cast<const float4*>(xs + r * IBN + IBN / 2);
       const float v[8] = {p.x, p.y, p.z, p.w, u.x, u.y, u.z, u.w};
 #pragma unroll
       for (int j = 0; j < TM; ++j)
@@ -191,10 +673,10 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (co >= Cout) continue;
     const long long base = (b * Cout + co) * (long long)T;
     const float bv = bias != nullptr ? bias[co] : 0.0f;
-    const float fac = D == Dot::I8 ? q.sx * sw[co] : 0.0f;
+    const float fac = q.sx * sw[co];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int t = t0 + (i / 4) * (BN / 2) + 4 * tx + (i % 4);
+      const int t = t0 + (i / 4) * (IBN / 2) + 4 * tx + (i % 4);
       if (t >= T) continue;
       float v = dequant(acc[j][i], fac) + bv;
       if (r0 != nullptr) v += r0[base + t];
@@ -205,121 +687,108 @@ conv1d_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Few output channels (conv_post): one thread per output sample, weights
-// read through the read-only cache (one address across the warp). F32 and
-// BF16 only.
-template <Dot D>
-__global__ void __launch_bounds__(NT)
-conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ r0, const float* __restrict__ r1,
-                     const float* __restrict__ r2, float* __restrict__ y,
-                     int Cin, int Cout, int T, int K, int dil,
-                     float out_scale) {
-  const int t = blockIdx.x * NT + threadIdx.x;
-  if (t >= T) return;
-  const int co = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int pad = dil * (K - 1) / 2;
-  const float* xb = x + b * (long long)Cin * T;
-  const float* wr = w + (long long)co * Cin * K;
-  float acc = 0.0f;
-  for (int ci = 0; ci < Cin; ++ci) {
-    const float* xr = xb + (long long)ci * T;
-    for (int k = 0; k < K; ++k) {
-      const int g = t + k * dil - pad;
-      if (g >= 0 && g < T)
-        acc = fmaf(__ldg(wr + ci * K + k), stage_value<D>(xr[g], 0.0f), acc);
-    }
-  }
-  const long long o = (b * Cout + co) * (long long)T + t;
-  float v = acc + (bias != nullptr ? bias[co] : 0.0f);
-  if (r0 != nullptr) v += r0[o];
-  if (r1 != nullptr) v += r1[o];
-  if (r2 != nullptr) v += r2[o];
-  y[o] = v * out_scale;
-}
-
-template <Dot D, int K, int CI, int TM>
-int launch(const float* x, const float* w, const float* sw, const float* bias,
-           const float* r0, const float* r1, const float* r2, float* y, int B,
-           int Cin, int Cout, int T, int dil, float out_scale,
-           cudaStream_t stream) {
+template <int K, int CI, int TM>
+int launch_int8(const float* x, const float* w, const float* sw,
+                const float* bias, const float* r0, const float* r1,
+                const float* r2, float* y, int B, int Cin, int Cout, int T,
+                int dil, float out_scale, cudaStream_t stream) {
   using L = Tile<K, CI, TM>;
-  auto kern = conv1d_gemm_kernel<D, K, CI, TM>;
+  auto kern = conv1d_int8_kernel<K, CI, TM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + BN - 1) / BN, (Cout + L::BM - 1) / L::BM, B);
+  dim3 grid((T + IBN - 1) / IBN, (Cout + L::BM - 1) / L::BM, B);
   kern<<<grid, NT, L::SMEM, stream>>>(x, w, sw, bias, r0, r1, r2, y, Cin,
                                       Cout, T, dil, out_scale);
   return (int)cudaGetLastError();
 }
 
 // BM = 48 for the C = 48, 96 stages (no idle rows), else 64
-template <Dot D, int K, int CI>
-int launch_k(const float* x, const float* w, const float* sw,
-             const float* bias, const float* r0, const float* r1,
-             const float* r2, float* y, int B, int Cin, int Cout, int T,
-             int dil, float out_scale, cudaStream_t s) {
+template <int K, int CI>
+int launch_int8_k(const float* x, const float* w, const float* sw,
+                  const float* bias, const float* r0, const float* r1,
+                  const float* r2, float* y, int B, int Cin, int Cout, int T,
+                  int dil, float out_scale, cudaStream_t s) {
   if (Cout % 48 == 0 && Cout % 64 != 0)
-    return launch<D, K, CI, 6>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
-                               T, dil, out_scale, s);
-  return launch<D, K, CI, 8>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout, T,
-                             dil, out_scale, s);
+    return launch_int8<K, CI, 6>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
+                                 T, dil, out_scale, s);
+  return launch_int8<K, CI, 8>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout, T,
+                               dil, out_scale, s);
 }
 
-int supported(int K, int Cout, int dot) {
+// --- dispatch ----------------------------------------------------------------------
+
+int supported(int K, int Cout, int dil, int dot) {
   const bool gemm = K == 3 || K == 7 || K == 11;
-  if (K <= 0 || K % 2 == 0) return 0;
+  if (K <= 0 || K % 2 == 0 || dil <= 0) return 0;
   if (dot == (int)Dot::I8) return Cout >= 16 && gemm;
-  return (dot == (int)Dot::F32 || dot == (int)Dot::BF16) &&
-         (Cout < 16 || gemm);
+  if (dot != (int)Dot::F32 && dot != (int)Dot::BF16) return 0;
+  if (Cout < 16) return narrow_smem(K, dil) <= SMEM_MAX;
+  return gemm && mma_fits(K, Cout, dil, dot == (int)Dot::BF16);
 }
 
 template <Dot D>
-int conv1d_same(const float* x, const float* w, const float* sw,
+int conv1d_same(const float* x, const void* w, const float* sw,
                 const float* bias, const float* r0, const float* r1,
                 const float* r2, float* y, int B, int Cin, int Cout, int T,
                 int K, int dil, float out_scale, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
-      Cout > 65535 || !supported(K, Cout, (int)D))
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535 ||
+      Cout > 65535 || !supported(K, Cout, dil, (int)D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (D != Dot::I8) {
-    if (Cout < 16) {
-      dim3 grid((T + NT - 1) / NT, Cout, B);
-      conv1d_narrow_kernel<D><<<grid, NT, 0, s>>>(x, w, bias, r0, r1, r2, y,
-                                                  Cin, Cout, T, K, dil,
-                                                  out_scale);
-      return (int)cudaGetLastError();
+  const float* wf = static_cast<const float*>(w);
+  if constexpr (D == Dot::I8) {
+    switch (K) {  // CI x K = 24, 28, 22 rows of GEMM depth per chunk
+      case 3:
+        return launch_int8_k<3, 8>(x, wf, sw, bias, r0, r1, r2, y, B, Cin,
+                                   Cout, T, dil, out_scale, s);
+      case 7:
+        return launch_int8_k<7, 4>(x, wf, sw, bias, r0, r1, r2, y, B, Cin,
+                                   Cout, T, dil, out_scale, s);
+      default:
+        return launch_int8_k<11, 2>(x, wf, sw, bias, r0, r1, r2, y, B, Cin,
+                                    Cout, T, dil, out_scale, s);
     }
-  }
-  switch (K) {  // CI x K = 24, 28, 22 rows of GEMM depth per chunk
-    case 3:
-      return launch_k<D, 3, 8>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
-                               T, dil, out_scale, s);
-    case 7:
-      return launch_k<D, 7, 4>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
-                               T, dil, out_scale, s);
-    default:
-      return launch_k<D, 11, 2>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
-                                T, dil, out_scale, s);
+  } else {
+    if (Cout < 16)
+      return launch_narrow<D>(x, wf, bias, r0, r1, r2, y, B, Cin, Cout, T, K,
+                              dil, out_scale, s);
+    switch (K) {
+      case 3:
+        return launch_mma_k<D, 3>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
+                                  dil, out_scale, s);
+      case 7:
+        return launch_mma_k<D, 7>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
+                                  dil, out_scale, s);
+      default:
+        return launch_mma_k<D, 11>(x, w, bias, r0, r1, r2, y, B, Cin, Cout,
+                                   T, dil, out_scale, s);
+    }
   }
 }
 
 }  // namespace
 
-// 1 when (K, Cout) has an instance of dot dtype ``dot`` (0 f32, 1 bf16,
-// 2 int8): f32 and bf16 any odd K for Cout < 16, else K in {3, 7, 11};
-// int8 K in {3, 7, 11} and Cout >= 16.
-extern "C" int conv1d_same_supported(int K, int Cout, int dot) {
-  return supported(K, Cout, dot);
+// 1 when (K, Cout, dilation) has an instance of dot dtype ``dot`` (0 f32,
+// 1 bf16, 2 int8): f32 and bf16 any odd K for Cout < 16 (the narrow route),
+// else K in {3, 7, 11} (the GEMM route); int8 K in {3, 7, 11} and
+// Cout >= 16; and the dilation's window fits shared memory.
+extern "C" int conv1d_same_supported(int K, int Cout, int dil, int dot) {
+  return supported(K, Cout, dil, dot);
+}
+
+// The padding of the GEMM route's prepared weights: 0 -> Cin_p's multiple,
+// 1 -> Cout_p's.
+extern "C" int conv1d_same_weight_align(int which) {
+  return which == 0 ? CIN_ALIGN : COUT_ALIGN;
 }
 
 // Each returns cudaGetLastError() after the launch (or the error that kept
-// it from launching). bias and r0..r2 may be null.
-extern "C" int conv1d_same_f32(const float* x, const float* w,
+// it from launching). bias and r0..r2 may be null. w: for Cout >= 16 the
+// prepared weights [K][Cout_p][Cin_p] (ops/conv.py:conv_weights), float32
+// for conv1d_same_f32 and bfloat16 for conv1d_same_bf16; for Cout < 16 the
+// weights [Cout][Cin][K] as float32 (rounded to bf16 values for bf16).
+extern "C" int conv1d_same_f32(const float* x, const void* w,
                                const float* bias, const float* r0,
                                const float* r1, const float* r2, float* y,
                                int B, int Cin, int Cout, int T, int K, int dil,
@@ -328,8 +797,7 @@ extern "C" int conv1d_same_f32(const float* x, const float* w,
                                Cout, T, K, dil, out_scale, stream);
 }
 
-// w: the weights rounded to bf16 (as f32)
-extern "C" int conv1d_same_bf16(const float* x, const float* w,
+extern "C" int conv1d_same_bf16(const float* x, const void* w,
                                 const float* bias, const float* r0,
                                 const float* r1, const float* r2, float* y,
                                 int B, int Cin, int Cout, int T, int K,
@@ -338,14 +806,14 @@ extern "C" int conv1d_same_bf16(const float* x, const float* w,
                                 Cout, T, K, dil, out_scale, stream);
 }
 
-// wq: int32 weights in [-127, 127], sw: [Cout] scales (ops/quant.py)
+// wq: int32 weights [Cout][Cin][K] in [-127, 127], sw: [Cout] scales
+// (ops/quant.py)
 extern "C" int conv1d_same_int8(const float* x, const int* wq,
                                 const float* sw, const float* bias,
                                 const float* r0, const float* r1,
                                 const float* r2, float* y, int B, int Cin,
                                 int Cout, int T, int K, int dil,
                                 float out_scale, void* stream) {
-  return conv1d_same<Dot::I8>(x, reinterpret_cast<const float*>(wq), sw, bias,
-                              r0, r1, r2, y, B, Cin, Cout, T, K, dil,
-                              out_scale, stream);
+  return conv1d_same<Dot::I8>(x, wq, sw, bias, r0, r1, r2, y, B, Cin, Cout,
+                              T, K, dil, out_scale, stream);
 }

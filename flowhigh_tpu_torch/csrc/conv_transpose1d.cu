@@ -148,8 +148,7 @@ conv_transpose1d_kernel(const float* __restrict__ x,
   // segments; no bank conflicts at XS = 12)
   constexpr int WROWS = THREADS / 2, NW = (K * TILE_CO + WROWS - 1) / WROWS;
   const int wseg = tid & 1, wrow = tid >> 1;
-  WT* const wdst0 =
-      w_stage(0) + wrow * KC + (wseg ^ ((wrow >> 2) & 1)) * EPS;
+  WT* const wdst0 = w_stage(0) + w_row_offset(wrow, wseg, EPS);
   const WT* const wsrc0 =
       wp + ((long long)(wrow / TILE_CO) * cout_p + co0 + wrow % TILE_CO) *
                cin_p + wseg * EPS;
@@ -230,24 +229,14 @@ conv_transpose1d_kernel(const float* __restrict__ x,
         for (int i = 0; i < MT; ++i) {
           const int row0 = j * TILE_CO + (wm * MT + i) * 16;
           if constexpr (C::BF) {
-            // rows row0 + lane % 16, half lane / 16 (swapped as stored)
-            const int row = row0 + (lane & 15);
             unsigned a[4];
-            ldmatrix_x4(a, ws + row * KC +
-                               (((lane >> 4) ^ ((row >> 2) & 1)) * EPS));
+            a_frag_bf16(a, ws, row0, lane);
 #pragma unroll
             for (int n = 0; n < NT; ++n)
               mma_bf16_16816(acc[r][i][n], a, bh[n][0], bh[n][1]);
           } else {
-            // rows row0 + g and + 8 share (row / 4) % 2 = (g / 4) % 2
-            const int sw = ((g >> 2) & 1) * 4;
-            const float* wr = reinterpret_cast<const float*>(ws) +
-                              (row0 + g) * KC;
             unsigned ah[4], al[4];
-            tf32_split(wr[t ^ sw], ah[0], al[0]);
-            tf32_split(wr[8 * KC + (t ^ sw)], ah[1], al[1]);
-            tf32_split(wr[(t + 4) ^ sw], ah[2], al[2]);
-            tf32_split(wr[8 * KC + ((t + 4) ^ sw)], ah[3], al[3]);
+            a_frag_3xtf32(ah, al, ws, row0, g, t);
 #pragma unroll
             for (int n = 0; n < NT; ++n)
               mma_3xtf32_1688(acc[r][i][n], ah, al, bh[n][0], bh[n][1],

@@ -1,6 +1,11 @@
 // Warp-level tensor-core and asynchronous-copy helpers for sm_90a (mma.sync,
 // ldmatrix, cp.async) and the 3xTF32 split, shared by the kernels that run
-// their dot products on the tensor cores (kernel C, csrc/conv_transpose1d.cu).
+// their dot products on the tensor cores: kernel B's GEMM route
+// (csrc/conv1d_same.cu) and kernel C (csrc/conv_transpose1d.cu). Both stage
+// a chunk of KC input channels at a time: the weights as rows of 32 bytes
+// (one tap and output channel, KC = 8 f32 or 16 bf16 channels), and x as
+// f32 rows [frame][XS] (the chunk's channels of one frame, padded to XS),
+// and load their weight fragments with the a_frag_* helpers below.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / m16n8k8"),
 // for lane = 4 g + t (g = lane / 4 in [0, 8), t = lane % 4):
@@ -130,6 +135,40 @@ __device__ __forceinline__ void mma_3xtf32_1688(float (&c)[4],
   mma_tf32_1688(d, ahi, bhi0, bhi1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], d[e]);
+}
+
+// --- the conv kernels' staged operands --------------------------------------------
+
+// Weight rows of 32 bytes are stored unpadded with their two 16-byte halves
+// swapped when (row / 4) is odd: the element offset of half ``half`` (of
+// ``eps`` elements) of row ``row``. Fragment loads are then free of bank
+// conflicts.
+__device__ __forceinline__ int w_row_offset(int row, int half, int eps) {
+  return row * 2 * eps + (half ^ ((row >> 2) & 1)) * eps;
+}
+
+// A fragment (m16 x k16) of bf16 weights: rows row0 .. row0 + 15 (row0 a
+// multiple of 16) of a weight stage of 16-channel rows
+__device__ __forceinline__ void a_frag_bf16(unsigned (&a)[4],
+                                            const __nv_bfloat16* ws,
+                                            int row0, int lane) {
+  // lane l gives row row0 + l % 16, half l / 16
+  ldmatrix_x4(a, ws + w_row_offset(row0 + (lane & 15), lane >> 4, 8));
+}
+
+// A fragment (m16 x k8) of f32 weights, split into TF32 hi and lo: rows
+// row0 + g and + 8 (row0 a multiple of 16, so both share (row / 4) % 2),
+// channels t and t + 4 of a weight stage of 8-channel rows
+__device__ __forceinline__ void a_frag_3xtf32(unsigned (&ah)[4],
+                                              unsigned (&al)[4],
+                                              const float* ws, int row0,
+                                              int g, int t) {
+  const int sw = ((g >> 2) & 1) * 4;
+  const float* wr = ws + (row0 + g) * 8;
+  tf32_split(wr[t ^ sw], ah[0], al[0]);
+  tf32_split(wr[64 + (t ^ sw)], ah[1], al[1]);
+  tf32_split(wr[(t + 4) ^ sw], ah[2], al[2]);
+  tf32_split(wr[64 + ((t + 4) ^ sw)], ah[3], al[3]);
 }
 
 }  // namespace

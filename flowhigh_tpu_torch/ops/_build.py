@@ -41,7 +41,8 @@ SIGNATURES = {
                  "snake_aa_firs_f32": [_P, _P, _P, _I, _I, _P]},
     "conv1d_same": {"conv1d_same_f32": _CONV, "conv1d_same_bf16": _CONV,
                     "conv1d_same_int8": [_P] + _CONV,
-                    "conv1d_same_supported": [_I, _I, _I]},
+                    "conv1d_same_supported": [_I, _I, _I, _I],
+                    "conv1d_same_weight_align": [_I]},
     "conv_transpose1d": {
         "conv_transpose1d_f32": _CONVT, "conv_transpose1d_bf16": _CONVT,
         "conv_transpose1d_supported": [_I, _I],

@@ -5,7 +5,10 @@
   a dilated "same" conv with zero padding and the epilogue
   ``out_scale * (conv + bias + sum(residuals))`` (up to three residuals);
   the kernel has instances for K in {3, 7, 11}, and any odd K when
-  Cout < 16.
+  Cout < 16. From Cout = 16 on, its float32 and bfloat16 instances run on
+  the tensor cores (bf16 ``mma.sync``, 3xTF32 for float32) and take their
+  weights in the layout ``conv_weights`` prepares once per weight tensor;
+  below (``conv_post``) they run a bytes-bound kernel on the FMA units.
 - ``conv_transpose1d`` replaces
   ``flowhigh_tpu/ops/packed.py:pallas_packed_conv_transpose1d``: a
   ConvTranspose1d with stride u, padding (K - u) / 2 and exactly u*T
@@ -34,7 +37,8 @@ from . import _build
 from .quant import (_cached, bf16_weights, check_dot_dtype, conv1d_int8,
                     int8_weights, round_bf16)
 
-CONV_TILE = 256  # kernel B's time tile: the int8 partition of conv1d
+CONV_TILE = 256  # kernel B.int8's time tile: the int8 partition of conv1d
+NARROW_COUT = 16  # below it, kernel B's narrow route (conv_post)
 # the name of each instance's C entry point, and its code for the
 # ``*_supported`` queries
 DOT_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -42,6 +46,9 @@ DOT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # kernel C's weight layout pads Cin and Cout to these multiples
 # (csrc/conv_transpose1d.cu: CIN_ALIGN, TILE_CO; conv_transpose1d_weight_align)
 CONVT_CIN_ALIGN, CONVT_COUT_ALIGN = 16, 64
+# and kernel B's GEMM route's (csrc/conv1d_same.cu: CIN_ALIGN, COUT_ALIGN;
+# conv1d_same_weight_align)
+CONV_CIN_ALIGN, CONV_COUT_ALIGN = 16, 64
 
 
 def _check(what: str, x: torch.Tensor, *tensors) -> None:
@@ -98,6 +105,49 @@ def conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y if out_scale == 1.0 else y * out_scale
 
 
+def _tap_major(w: torch.Tensor, cin_align: int, cout_align: int,
+               dot_dtype: torch.dtype) -> torch.Tensor:
+    """w as [K, Cout, Cin] -> [K, Cout_p, Cin_p], zero-padded to the
+    multiples, contiguous: float32, or bfloat16 rounded to nearest even
+    (``round_bf16``'s values) for the bf16 instances."""
+    k, cout, cin = w.shape
+    cin_p = -(-cin // cin_align) * cin_align
+    cout_p = -(-cout // cout_align) * cout_align
+    dt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
+    out = torch.zeros((k, cout_p, cin_p), dtype=dt, device=w.device)
+    out[:, :cout, :cin] = w.to(dt)
+    return out
+
+
+def conv_weight_layout(w: torch.Tensor,
+                       dot_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """Kernel B's GEMM route: w [Cout, Cin, K] -> [K, Cout_p, Cin_p]
+    (``CONV_COUT_ALIGN``, ``CONV_CIN_ALIGN``), float32 or bfloat16."""
+    return _tap_major(w.permute(2, 0, 1), CONV_CIN_ALIGN, CONV_COUT_ALIGN,
+                      dot_dtype)
+
+
+def conv_weights(w: torch.Tensor, dot_dtype: torch.dtype) -> torch.Tensor:
+    """``conv_weight_layout(w, dot_dtype)``, once per weight tensor (cached
+    by its version counter, as ``quant.bf16_weights``)."""
+    return _cached(w, f"conv_{DOT_NAME[dot_dtype]}",
+                   lambda v: conv_weight_layout(v, dot_dtype))
+
+
+@functools.cache
+def _conv_library():
+    """Kernel B's library, once its weight layout is checked against
+    ``conv_weight_layout``'s."""
+    lib = _build.library("conv1d_same")
+    if (lib.conv1d_same_weight_align(0),
+            lib.conv1d_same_weight_align(1)) != (CONV_CIN_ALIGN,
+                                                 CONV_COUT_ALIGN):
+        raise RuntimeError("conv1d: the kernel's weight layout differs from "
+                           "conv_weight_layout's")
+    return lib
+
+
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
            dilation: int = 1, residuals: Sequence[torch.Tensor] = (),
            out_scale: float = 1.0,
@@ -120,14 +170,18 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     if any(r.shape != (bsz, cout, t) for r in residuals):
         raise ValueError("conv1d: residuals must have the output's shape")
     _check("conv1d", x, w, b, *residuals)
-    lib = _build.library("conv1d_same")
-    if not lib.conv1d_same_supported(k, cout, DOT_CODE[dot_dtype]):
+    lib = _conv_library()
+    if not lib.conv1d_same_supported(k, cout, dilation, DOT_CODE[dot_dtype]):
         raise ValueError(f"conv1d: no kernel instance for K={k}, Cout={cout}, "
-                         f"dot_dtype={dot_dtype}")
+                         f"dilation={dilation}, dot_dtype={dot_dtype}")
+    if dot_dtype == torch.int8 or cout < NARROW_COUT:
+        wp = weight_ptrs(w, dot_dtype)
+    else:  # the GEMM route's layout
+        wp = (conv_weights(w, dot_dtype).data_ptr(),)
     y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
     err = getattr(lib, f"conv1d_same_{DOT_NAME[dot_dtype]}")(
-        x.data_ptr(), *weight_ptrs(w, dot_dtype),
+        x.data_ptr(), *wp,
         b.data_ptr() if b is not None else None, rp[0], rp[1], rp[2],
         y.data_ptr(), bsz, cin, cout, t, k, dilation, float(out_scale),
         _stream(x))
@@ -166,13 +220,8 @@ def convt_weight_layout(w: torch.Tensor,
     ``CONVT_COUT_ALIGN`` and ``CONVT_CIN_ALIGN``, contiguous: float32, or
     bfloat16 rounded to nearest even (``round_bf16``'s values) for the
     bf16 instance."""
-    cin, cout, k = w.shape
-    cin_p = -(-cin // CONVT_CIN_ALIGN) * CONVT_CIN_ALIGN
-    cout_p = -(-cout // CONVT_COUT_ALIGN) * CONVT_COUT_ALIGN
-    dt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
-    out = torch.zeros((k, cout_p, cin_p), dtype=dt, device=w.device)
-    out[:, :cout, :cin] = w.permute(2, 1, 0).to(dt)
-    return out
+    return _tap_major(w.permute(2, 1, 0), CONVT_CIN_ALIGN, CONVT_COUT_ALIGN,
+                      dot_dtype)
 
 
 def convt_weights(w: torch.Tensor, dot_dtype: torch.dtype) -> torch.Tensor:

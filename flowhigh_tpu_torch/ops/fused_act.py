@@ -40,6 +40,47 @@ def snake_activation1d_plain(x: torch.Tensor, alpha: torch.Tensor,
     return downsample1d(s, 2, 12)
 
 
+def snake_activation1d_ordered(x: torch.Tensor, alpha: torch.Tensor,
+                               beta: Optional[torch.Tensor],
+                               logscale: bool = True) -> torch.Tensor:
+    """``snake_activation1d_plain``'s function computed as the int8
+    instances of kernels D and E compute their activation
+    (``csrc/act_conv_core.cuh``, ``Pass::activate`` with ``ORDERED``):
+    every product and sum a separate f32 operation in the kernel's order
+    (the 12-tap resamplers as running sums from 0, tap by tap), the same
+    ``sin`` and ``exp``, and ``1 / (b + 1e-9)`` as an IEEE division. On the
+    card the two agree bit for bit, so an int8 activation and its plain
+    version quantise to the same integers; the resamplers of the plain
+    version (cuDNN) round differently and flipped a quantum now and then.
+    [B, C, T] -> [B, C, T]."""
+    bsz, c, t = x.shape
+    h = _filter(x.device)
+    a = alpha[None, :, None]
+    b = (beta if beta is not None else alpha)[None, :, None]
+    if logscale:
+        a, b = torch.exp(a), torch.exp(b)
+    inv_b = torch.ones_like(b) / (b + 1e-9)
+    # 2x rate: s[2m] = sum_k 2 h[2k] x[m - 3 + k], s[2m + 1] = sum_k
+    # 2 h[2k + 1] x[m - 2 + k], x replicate-padded
+    xp = torch.nn.functional.pad(x, (3, 3), mode="replicate")
+    se, so = torch.zeros_like(x), torch.zeros_like(x)
+    for k in range(6):
+        se = se + (2.0 * h[2 * k]) * xp[..., k:k + t]
+        so = so + (2.0 * h[2 * k + 1]) * xp[..., k + 1:k + 1 + t]
+
+    def snake_fn(u):
+        p = torch.sin(u * a)
+        return u + inv_b * (p * p)
+
+    s = torch.stack((snake_fn(se), snake_fn(so)), dim=-1).reshape(bsz, c, 2 * t)
+    # down: y[n] = sum_q h[q] s[2n - 5 + q], the 2x-rate index clamped
+    sp = torch.nn.functional.pad(s, (5, 5), mode="replicate")
+    y = torch.zeros_like(x)
+    for q in range(12):
+        y = y + h[q] * sp[..., q:q + 2 * t - 1:2]
+    return y
+
+
 def snake_activation1d(x: torch.Tensor, alpha: torch.Tensor,
                        beta: Optional[torch.Tensor],
                        logscale: bool = True) -> torch.Tensor:

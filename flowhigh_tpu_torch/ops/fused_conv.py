@@ -37,7 +37,8 @@ import torch
 from . import _build
 from .conv import (DOT_NAME, _check, _stream, conv1d_plain, count_launch,
                    weight_ptrs)
-from .fused_act import _filter, snake_activation1d_plain
+from .fused_act import (_filter, snake_activation1d_ordered,
+                        snake_activation1d_plain)
 from .quant import check_dot_dtype, int8_conv_windows, untile, windows
 
 SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
@@ -160,8 +161,11 @@ def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
                      tile: int = PAIR_TILE) -> torch.Tensor:
     """x [B, Cin, T], w [Cout, Cin, K] -> [B, Cout, T]:
     conv1d_plain(snake_activation1d_plain(x)) with the epilogue; ``tile``
-    is the int8 partition (``ops/quant.py``)."""
-    return conv1d_plain(snake_activation1d_plain(x, alpha, beta, logscale),
+    is the int8 partition (``ops/quant.py``). int8 takes the activation in
+    the kernel's order (``snake_activation1d_ordered``)."""
+    act = (snake_activation1d_ordered if check_dot_dtype(dot_dtype)
+           == torch.int8 else snake_activation1d_plain)
+    return conv1d_plain(act(x, alpha, beta, logscale),
                         w, b, dilation=dilation, residuals=residuals,
                         out_scale=out_scale, dot_dtype=dot_dtype, tile=tile)
 
@@ -196,21 +200,22 @@ def _amp_unit_int8(x, a1, b1, a2, b2, logscale, w1, bias1, w2, bias2,
     """The int8 unit tile by tile, as kernel E computes it: each tile runs
     conv1 over its outputs plus a halo H on each side with its own act1
     scale, then act2 over that conv1 output and conv2 with its own act2
-    scale."""
+    scale. Both activations in the kernel's order
+    (``snake_activation1d_ordered``)."""
     bsz, c, t = x.shape
     k = w1.shape[-1]
     h = unit_halo(k)
     tile = tile or UNIT_PASS - 2 * h
     pad1, pad2 = dilation * (k - 1) // 2, (k - 1) // 2
     n, span = -(-t // tile), tile + 2 * h
-    act1 = snake_activation1d_plain(x, a1, b1, logscale)
+    act1 = snake_activation1d_ordered(x, a1, b1, logscale)
     t1 = int8_conv_windows(windows(act1, -h - pad1, span + 2 * pad1, tile, n),
                            w1, dilation)                     # [B, n, C, span]
     if bias1 is not None:
         t1 = t1 + bias1[:, None]
 
     def act2(seg):
-        return snake_activation1d_plain(seg, a2, b2, logscale)
+        return snake_activation1d_ordered(seg, a2, b2, logscale)
 
     # act2 of each tile's conv1 output; its values within 6 samples of a
     # span's end are wrong and unused (act2 reads +-6 samples), except

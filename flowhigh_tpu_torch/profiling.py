@@ -35,8 +35,9 @@ GROUPS = (
     ("snake_aa", "kernel A: snake_aa"),
     ("act_conv1d_kernel", "kernel D: act_conv1d"),
     ("amp_unit_kernel", "kernel E: amp_unit"),
-    ("conv1d_gemm", "kernel B: conv1d_same"),
+    ("conv1d_mma", "kernel B: conv1d_same"),
     ("conv1d_narrow", "kernel B: conv1d_same"),
+    ("conv1d_int8", "kernel B: conv1d_same"),
     ("conv_transpose1d_kernel", "kernel C: conv_transpose1d"),
     ("fft", "cuFFT (STFT/iSTFT)"),
     ("fprop", "cuDNN conv (resample, conv_pre, pos-embed)"),

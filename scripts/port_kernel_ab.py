@@ -12,8 +12,13 @@ of kernel D (``act_conv1d``) and kernel E (``amp_unit``) at main-path shapes
 of a 10 s clip (C, T, k, d), and, for the yardstick, of kernels A and B at
 the D shapes; and of kernel C (``conv_transpose1d``), float32 and bfloat16
 instances, at the five upsampler shapes of a 10 s clip (Cin, Cout, T_in, u,
-K), with their per-clip sums (``C sum``, ``C.bf16 sum``). Inputs are seeded
-random tensors. Needs a CUDA card.
+K), with their per-clip sums (``C sum``, ``C.bf16 sum``); and of kernel B
+(``conv1d``), float32 and bfloat16 instances, at every conv of the unfused
+path of a 10 s clip (91 launches: the resblock convs of each stage, Cin =
+Cout = C, T, K, d, residuals; and conv_post), each shape timed once and
+weighted by its launches: per (C, K, d) (``B 768 3 1``), per stage
+(``B 768 sum``), conv_post (``B post``) and per clip (``B sum``), the same
+for ``B.bf16``. Inputs are seeded random tensors. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,6 +37,28 @@ UNITS = [(192, 80000, 3, 1), (192, 80000, 11, 1), (48, 480000, 7, 3)]
 UPSAMPLERS = [(1536, 768, 1000, 5, 11), (768, 384, 5000, 4, 8),
               (384, 192, 20000, 4, 8), (192, 96, 80000, 3, 7),
               (96, 48, 240000, 2, 4)]
+# the resblocks' stages on a 10 s clip (C, T), and BigVGAN's (K, dilations)
+STAGES = [(768, 5000), (384, 20000), (192, 80000), (96, 240000),
+          (48, 480000)]
+RESBLOCKS = [(3, (1, 3, 5)), (7, (1, 3, 5)), (11, (1, 3, 5))]
+
+
+def unfused_convs() -> dict:
+    """Kernel B's launches on the unfused path of a 10 s clip:
+    {(C, T, K, d, residuals, out_scale): launches}; conv_post is (48, T,
+    7, 1, 0, 1.0) with one output channel. Per AMPBlock1 unit: conv1 (K, d)
+    and conv2 (K, 1) with the unit's input as residual; the last unit of a
+    stage also takes the other two blocks' outputs and the 1/3 average."""
+    out: dict = {}
+    for c, t in STAGES:
+        for j, (k, dils) in enumerate(RESBLOCKS):
+            for m, d in enumerate(dils):
+                last = j == len(RESBLOCKS) - 1 and m == len(dils) - 1
+                for key in ((c, t, k, d, 0, 1.0),
+                            (c, t, k, 1, 3 if last else 1,
+                             1.0 / 3 if last else 1.0)):
+                    out[key] = out.get(key, 0) + 1
+    return out
 
 
 def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -94,6 +121,26 @@ def main() -> int:
             res[f"{name} {cin} {u} {k}"] = ms
             total += ms
         res[f"{name} sum"] = total
+    for name, dt in (("B", torch.float32), ("B.bf16", torch.bfloat16)):
+        sums: dict = {}
+        for (c, t, k, d, n_res, scale), n in unfused_convs().items():
+            x = randn(1, c, t)
+            w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(
+                c, scale=0.1)
+            rs = tuple(randn(1, c, t) for _ in range(n_res))
+            ms = n * time_ms(lambda: ops.conv1d(
+                x, w, bias, dilation=d, residuals=rs, out_scale=scale,
+                dot_dtype=dt))
+            for grp in (f"{name} {c} {k} {d}", f"{name} {c} sum",
+                        f"{name} sum"):
+                sums[grp] = sums.get(grp, 0.0) + ms
+            del x, w, rs
+        x = randn(1, 48, 480000)
+        w, bias = randn(1, 48, 7, scale=(48 * 7) ** -0.5), randn(1)
+        sums[f"{name} post"] = time_ms(lambda: ops.conv1d(x, w, bias,
+                                                          dot_dtype=dt))
+        sums[f"{name} sum"] += sums[f"{name} post"]
+        res.update(sums)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Compare the port's default-path output across two trees on one CUDA card.
+"""Compare the port's output across two trees on one CUDA card.
 
-    python3 scripts/port_output_ab.py TREE OUT.npy [REF.npy]
+    python3 scripts/port_output_ab.py [--unfused] TREE OUT.npy [REF.npy]
 
 Imports ``flowhigh_tpu_torch`` from TREE, runs ``FlowHighSR.generate`` at
 full width (``FlowHighConfig()``, seeded weights ``init_params(0)``,
-``independent_cfm_adaptive``, euler, 1 step, the default vocoder) on the
+``independent_cfm_adaptive``, euler, 1 step, the default vocoder, or with
+``--unfused`` ``fuse_act_conv=False``: kernels A, B, C) on the
 10 s, 16 kHz test signal of ``profiling.clip_signal``, saves the 48 kHz
 output to OUT.npy and prints one JSON line: the tree, the card, the
 output's shape, and with REF.npy the max abs difference against it. Run it
@@ -25,9 +26,12 @@ import numpy as np
 
 
 def main() -> int:
-    if len(sys.argv) not in (3, 4):
+    args = sys.argv[1:]
+    unfused = args[:1] == ["--unfused"]
+    args = args[1:] if unfused else args
+    if len(args) not in (2, 3):
         raise SystemExit(__doc__)
-    tree = Path(sys.argv[1]).resolve()
+    tree = Path(args[0]).resolve()
     sys.path.insert(0, str(tree))
     import torch
 
@@ -42,17 +46,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     sr = FlowHighSR(FlowHighConfig(), cfm_method="independent_cfm_adaptive",
-                    ode_method="euler", device="cuda")
+                    ode_method="euler", fuse_act_conv=not unfused,
+                    device="cuda")
     sr.init_params(0)
     out = sr.generate(clip_signal(10.0, 16000), 16000, timestep=1)
-    np.save(sys.argv[2], out)
+    np.save(args[1], out)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    res = {"tree": str(tree), "card": card, "shape": list(out.shape),
+    res = {"tree": str(tree), "card": card, "unfused": unfused,
+           "shape": list(out.shape),
            "finite": bool(np.isfinite(out).all())}
-    if len(sys.argv) == 4:
-        ref = np.load(sys.argv[3])
+    if len(args) == 3:
+        ref = np.load(args[2])
         res["max_abs_diff_vs_ref"] = (float(np.abs(out - ref).max())
                                       if ref.shape == out.shape else None)
     print(json.dumps(res))

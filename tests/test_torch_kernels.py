@@ -80,6 +80,60 @@ def test_conv1d_kernel_matches_plain(cuda, gen, cin, cout, k, d, n_res):
     assert ops.conv1d.launches == n0 + 1
 
 
+# kernel B's GEMM route at its edges: (B, Cin, Cout, T, K, d, residuals):
+# Cout 48 and 96 (48-channel tiles), 64, 128 and 70 (a ragged 64-channel
+# tile), Cin off the 8 / 16-channel chunk, T off the 256-frame tile, T a
+# multiple of 4 (16-byte epilogue) and not, T below the taps' reach,
+# batch up to 4
+CONV_GEMM_SHAPES = [(1, 48, 48, 1000, 11, 5, 3), (2, 96, 96, 777, 3, 3, 1),
+                    (4, 64, 64, 260, 7, 1, 0), (1, 40, 70, 3, 11, 3, 2),
+                    (2, 20, 128, 513, 7, 5, 1), (1, 192, 96, 2048, 3, 1, 0)]
+
+
+@pytest.mark.parametrize("b,cin,cout,t,k,d,n_res", CONV_GEMM_SHAPES)
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_gemm_route_matches_plain(cuda, gen, dot_dtype, b, cin, cout,
+                                         t, k, d, n_res):
+    x = _randn(gen, cuda, b, cin, t)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = tuple(_randn(gen, cuda, b, cout, t) for _ in range(n_res))
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3,
+              dot_dtype=dot_dtype)
+    _close(ops.conv1d(x, w, bias, **kw), ops.conv1d_plain(x, w, bias, **kw))
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_stage1_full_width(cuda, gen, dot_dtype):
+    # the 10 s clip's first resblock stage: 768 channels, T = 5,000, the
+    # deepest sums (Cin K = 8,448) and the widest reach (K 11, d 5), and the
+    # last unit's conv2 with its three residuals and the 1/3 average
+    x = _randn(gen, cuda, 1, 768, 5000)
+    w = _randn(gen, cuda, 768, 768, 11, scale=(768 * 11) ** -0.5)
+    bias = _randn(gen, cuda, 768, scale=0.1)
+    res = tuple(_randn(gen, cuda, 1, 768, 5000) for _ in range(3))
+    for kw in (dict(dilation=5), dict(dilation=1, residuals=res,
+                                      out_scale=1.0 / 3)):
+        _close(ops.conv1d(x, w, bias, dot_dtype=dot_dtype, **kw),
+               ops.conv1d_plain(x, w, bias, dot_dtype=dot_dtype, **kw))
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_narrow_route_matches_plain(cuda, gen, dot_dtype):
+    # conv_post at a 10 s clip's width (16-byte staging), then x with rows
+    # off 16-byte alignment (4-byte staging) and a wide reach
+    x = _randn(gen, cuda, 1, 48, 480000)
+    w = _randn(gen, cuda, 1, 48, 7, scale=(48 * 7) ** -0.5)
+    bias = _randn(gen, cuda, 1, scale=0.1)
+    kw = dict(dot_dtype=dot_dtype)
+    _close(ops.conv1d(x, w, bias, **kw), ops.conv1d_plain(x, w, bias, **kw))
+    xs = _randn(gen, cuda, 2, 21, 1001)[1:]  # a contiguous view, offset
+    w = _randn(gen, cuda, 2, 21, 9, scale=(21 * 9) ** -0.5)
+    kw = dict(dilation=7, residuals=(_randn(gen, cuda, 1, 2, 1001),),
+              dot_dtype=dot_dtype)
+    _close(ops.conv1d(xs, w, None, **kw), ops.conv1d_plain(xs, w, None, **kw))
+
+
 # kernel C's edges, at every (u, K) instance: (B, Cin, Cout, T) with a
 # ragged Cin chunk (40, 17), Cout 24, 48 and 70 (a ragged 64-channel tile),
 # T off every time tile, T below the tap halo, and u*T both a multiple of 4
@@ -151,9 +205,17 @@ def test_act_conv1d_kernel_matches_plain(cuda, gen, k, d):
     got = ops.act_conv1d(*args, **kw)
     _close(got, ops.act_conv1d_plain(*args, **kw))
     assert ops.act_conv1d.launches == n0 + 1
-    # kernel A then kernel B, summed in the same order
+    # kernel D's activation is kernel A's: D with an identity conv (channel
+    # co's centre tap on channel co) returns A's output. Kernel B sums on the
+    # tensor cores, in another order than D's FMA loop, so the A + B chain
+    # is held to D at the kernels' tolerance
+    eye = torch.zeros_like(w)
+    eye[torch.arange(c), torch.arange(c), (k - 1) // 2] = 1.0
+    torch.testing.assert_close(
+        ops.act_conv1d(*args[:4], eye, None, dilation=d),
+        ops.snake_activation1d(*args[:4]), atol=1e-6, rtol=0)
     chain = ops.conv1d(ops.snake_activation1d(*args[:4]), w, args[5], **kw)
-    torch.testing.assert_close(got, chain, atol=1e-6, rtol=0)
+    _close(got, chain)
 
 
 @pytest.mark.parametrize("k,d", FUSED)
