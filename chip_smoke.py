@@ -31,10 +31,11 @@ Phases (any failure raises and the script exits non-zero):
    the PyTorch conv on bf16 tensors as the bf16 library call (int8 has
    none) and the A + B chain at the same dtype for D and E; bounds at the
    data-sheet tensor-core peak of their dtype. The float32 instances of
-   kernel C and of kernel B's GEMM route run 3xTF32 on the tensor cores,
-   so their bounds count three TF32 products per f32 product at the TF32
-   peak (``DOT_UNITS``); B's narrow route (``conv_post``) runs on the FMA
-   units. C's rows per upsampler of the 10 s clip (f32 and bf16) are
+   kernel C, of kernel B's GEMM route and of kernels D and E run 3xTF32 on
+   the tensor cores, so their bounds count three TF32 products per f32
+   product at the TF32 peak (``DOT_UNITS``); B's narrow route
+   (``conv_post``) runs on the FMA units. Phase 0 prints each kernel instance's registers and spills
+   (ptxas) and fails if a float32 or bfloat16 instance of D or E spills. C's rows per upsampler of the 10 s clip (f32 and bf16) are
    printed, and B's per resblock shape of the unfused 10 s clip (stage x K
    x d, f32 and bf16) and its ``conv_post`` row;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
@@ -135,10 +136,12 @@ PEAKS = {"sxm": (67e12, 3.35e12, 989e12, 1979e12, 495e12),
          "pcie": (51e12, 2.0e12, 756e12, 1513e12, 378e12),
          "nvl": (60e12, 3.9e12, 835e12, 1671e12, 417e12)}
 # instances whose dot products run on another unit than their dtype's:
-# kernel C's float32 instance and kernel B's (its GEMM route) run each f32
+# the float32 instances of kernel C, of kernel B's GEMM route and of
+# kernels D and E (their act->conv core's tensor-core route) run each f32
 # product as three TF32 products on the tensor cores (3xTF32):
 # {instance: (products per dot product, peak)}
-DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4)}
+DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4),
+             "act_conv1d": (3, 4), "amp_unit": (3, 4)}
 # kernel B's narrow route (conv_post) below this Cout: f32 FMA at any dtype
 # (flowhigh_tpu_torch/ops/conv.py: NARROW_COUT)
 NARROW_COUT = 16
@@ -154,6 +157,29 @@ def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
         return dots / peaks[0]
     n, peak = DOT_UNITS.get(kernel, (1, {"": 0, "bf16": 2, "int8": 3}[sfx]))
     return n * dots / peaks[peak]
+
+
+def ptxas_entries(log: str) -> list:
+    """(kernel, template arguments, registers, (spill store, spill load
+    bytes)) of each entry function in an ``nvcc -Xptxas -v`` log; the
+    arguments as ptxas mangles them (``Dot`` as its number, then the
+    integers), e.g. ``1,11,128,4``."""
+    import re
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        fn = chunk.split("'")[0]
+        # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 hex><n><kernel>I<args>EEv
+        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)I(.*?)EEv",
+                      fn)
+        kern, targs = (m.group(1), m.group(2)) if m else (fn, "")
+        args = ",".join(re.findall(r"(?:DotE|Li)(\d+)E", targs + "E"))
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        out.append((kern, args, int(regs.group(1)) if regs else -1,
+                    (int(spill.group(1)), int(spill.group(2))) if spill
+                    else (0, 0)))
+    return out
 
 
 def card_peaks(name: str) -> tuple:
@@ -1379,11 +1405,18 @@ def main() -> int:
     libs = _build.build_all()
     print(f"phase 0: built {len(libs)} kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    spilled = []
     for lib_name, path in libs.items():
         log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"  {lib_name}: {line.strip()}")
+        for kern, args, regs, spill in ptxas_entries(
+                log.read_text() if log.exists() else ""):
+            print(f"  {lib_name}: {kern}<{args}> {regs} registers, spill "
+                  f"{spill[0]} / {spill[1]} bytes")
+            if kern in ("act_conv1d_mma_kernel", "amp_unit_mma_kernel") \
+                    and spill != (0, 0):
+                spilled.append(f"{kern}<{args}>")
+    if spilled:  # the tensor-core instances of D and E must not spill
+        raise AssertionError(f"ptxas spills in {spilled}")
 
     config = FlowHighConfig()
     frames = int(SECONDS * 48000) // config.mel.hop_length

@@ -16,40 +16,177 @@
 // alpha, beta [Cin], all float32 and contiguous; filt the 12 Kaiser-sinc
 // taps of kernel A.
 //
-// Bound: f32 arithmetic, as kernel B: T*Cin*Cout*K multiply-adds per pair
-// against one read of x and one write of y. The fusion saves the snake's
-// write and read of a [Cin, T] map (8 bytes per element), the pair's only
-// device-memory traffic beyond x, y and the residuals.
+// Bound (a 10 s clip, 36 launches at C = 768 and 384): operations. F32
+// runs each product as three TF32 products on the tensor cores (3xTF32:
+// 4.47 TFLOP of TF32 products, 9.0 ms at 495 TFLOP/s), BF16 one bf16
+// product (1.7 ms); the snake adds ~56 f32 operations per input sample and
+// the epilogue a few per output. Against kernel A + kernel B the fusion
+// saves the snake's write and read of a [Cin, T] map (8 bytes an element).
 //
-// Design: act_conv_core.cuh, with a BM x 256 output tile per block and Cin
-// chunks of 8 / 4 / 2 channels at K = 3 / 7 / 11. BM is 128 (16 warps,
-// 512 threads) where 128 divides Cout (the C = 768 and 384 stages, where
-// the vocoder routes its pairs), 48 at C = 48 and 96, else 64 (8 warps).
-// The cost of the fusion is recompute: every output-channel block computes
-// the snake of its whole Cin window, (256 + 2 pad) / 256 of the samples,
-// so the snake runs Cout / BM times per sample (6x at C = 768, 1x at
-// C = 48) against once in kernel A. Each snake sample costs ~56 operations
-// and two sinf; the conv does 2 K operations per input sample per output
-// channel, so the recompute adds 56 / (2 BM K) of the conv's operations at
-// any C: 7% at K = 3, 2% at K = 11 with BM = 128 (counting each sinf as one
-// operation). Measured, the snake cost more than that count says: with
-// BM = 64 it took 40% of the kernel's time at C = 768, K = 3 (PERF.md).
-//
-// dot_dtype (dot_dtype.cuh, act_conv_core.cuh): the BF16 and I8 instances
-// round or quantise the activation in shared memory and take rounded or
-// quantised weights from the host. I8 first runs act_amax, the snake over
-// the whole window [t0 - pad, t0 + 256 + pad) of all Cin channels, for the
-// window's scale: the snake runs twice per block (the simple way; a
-// pre-pass shared by the Cout / BM blocks of a tile is the faster one).
+// Design: act_conv_core.cuh, two routes:
+// - F32, BF16 (act_conv_mma): a BM x BN output tile per block of 8 warps
+//   (dispatch_mma): 256 x 64 at C = 768, 128 x 128 at C = 384 (the stages
+//   the vocoder routes here), else 64 x 128. At most 128 registers a
+//   thread, so two blocks share an SM: one block's snake (FMA units, sinf)
+//   runs while the other's GEMM runs on the tensor cores (one block an SM
+//   ran 1.25x slower). The snake of a chunk is computed once per block,
+//   Cout / BM times per sample (3x at C = 768 and 384) over (BN + 2 pad) /
+//   BN of the samples: wide, short tiles trade the snake's recompute for
+//   more weight traffic from L2 (each block reads its BM rows of all K Cin
+//   weights); 256 x 64 won at C = 768, 128 x 128 at 384 (PERF.md).
+//   Weights: kernel B's prepared layout
+//   [K][Cout_p][Cin_p] (ops/conv.py:conv_weights), f32 or bf16.
+// - I8 (act_conv_tile, the FMA route): a BM x 256 output tile and Cin
+//   chunks of 8 / 4 / 2 channels at K = 3 / 7 / 11; BM is 128 (16 warps,
+//   512 threads) where 128 divides Cout, 48 at C = 48 and 96, else 64
+//   (8 warps). The activation is computed without FMAs (ORDERED in
+//   act_conv_core.cuh), so that it equals its plain version's bits and
+//   int8 quanta. It first runs act_amax, the snake over the whole window
+//   [t0 - pad, t0 + 256 + pad) of all Cin channels, for the window's
+//   scale: the snake runs twice per block. Weights: [Cout][Cin][K] int32
+//   values with [Cout] scales.
 
 #include "act_conv_core.cuh"
 
 namespace {
 
+// --- F32, BF16: the tensor-core route -------------------------------------------
+
+template <Dot D, int K, int BM, int BN, int WM, bool CLUSTER>
+__global__ void __launch_bounds__(MMA_NT, 2)
+act_conv1d_mma_kernel(const float* __restrict__ x,
+                      const float* __restrict__ alpha,
+                      const float* __restrict__ beta,
+                      const typename MmaOps<D>::WT* __restrict__ wp,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ r0,
+                      const float* __restrict__ r1,
+                      const float* __restrict__ r2, float* __restrict__ y,
+                      int Cin, int Cout, int cin_p, int cout_p, int T,
+                      int dil, int logscale, float out_scale) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int t0 = blockIdx.x * BN;
+  const int co0 = blockIdx.y * BM;
+  const long long b = blockIdx.z;
+  const long long ob = b * Cout * T;
+  auto epi = [&](int co, int l, float acc) {
+    const int t = t0 + l;
+    if (t >= T) return;
+    const long long o = ob + (long long)co * T + t;
+    float v = acc + (bias != nullptr ? bias[co] : 0.0f);
+    if (r0 != nullptr) v += r0[o];
+    if (r1 != nullptr) v += r1[o];
+    if (r2 != nullptr) v += r2[o];
+    y[o] = v * out_scale;
+  };
+  act_conv_mma<D, K, BM, BN, WM, D == Dot::F32, 2, CLUSTER>(
+      GlobalSrc{x + b * Cin * T, T}, epi, smem_mma, alpha, beta, logscale, wp,
+      Cin, Cout, cin_p, cout_p, co0, T, t0, dil);
+}
+
+// The tile (BM, BN, warps along channels, cluster) of Cout for BF16 (BF)
+// or F32: 256 x 64 (8 x 1 warps, each 32 x 64) where 256 divides Cout
+// (C = 768), 128 x 128 (4 x 2, each 32 x 64) where 128 does (C = 384),
+// for BF16 in clusters of the output-channel blocks of a time tile
+// (cluster_size: 10% faster; F32 ran 3% slower); else 64 x 128 (2 x 4,
+// each 32 x 32), no cluster; -1 without an instance
+template <bool BF, class F>
+long long dispatch_mma(int K, int Cout, const F& f) {
+  const int kind = Cout % 256 == 0 ? 0 : Cout % 128 == 0 ? 1 : 2;
+#define FHT_CASE(K_)                                                       \
+  case K_:                                                                 \
+    return kind == 0   ? f.template run<K_, 256, 64, 8, BF>()              \
+           : kind == 1 ? f.template run<K_, 128, 128, 4, BF>()             \
+                       : f.template run<K_, 64, 128, 2, false>();
+  switch (K) {
+    FHT_CASE(3)
+    FHT_CASE(7)
+    FHT_CASE(11)
+    default: return -1;
+  }
+#undef FHT_CASE
+}
+
+// blocks a cluster: the largest divisor of the Cout / BM output-channel
+// blocks of a time tile that is at most 8 (the portable cluster size)
+inline int cluster_size(int Cout, int BM) {
+  const int m = (Cout + BM - 1) / BM;
+  int n = m < 8 ? m : 8;
+  while (m % n != 0) --n;
+  return n;
+}
+
+struct MmaSmemQuery {
+  int dil;
+  bool bf;
+  template <int K, int BM, int BN, int WM, bool CLUSTER>
+  long long run() const {
+    return mma_core_bytes(BM, BN, dil * (K - 1) / 2, bf, CLUSTER);
+  }
+};
+
+template <Dot D>
+struct MmaLauncher {
+  const float *x, *alpha, *beta, *filt;
+  const void* w;
+  const float *bias, *r0, *r1, *r2;
+  float* y;
+  int B, Cin, Cout, cin_p, cout_p, T, dil, logscale;
+  float out_scale;
+  cudaStream_t s;
+  template <int K, int BM, int BN, int WM, bool CLUSTER>
+  long long run() const {
+    auto kern = act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER>;
+    const long long smem = mma_core_bytes(BM, BN, dil * (K - 1) / 2,
+                                          MmaOps<D>::BF, CLUSTER);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess) e = set_taps(filt, s);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((T + BN - 1) / BN, (Cout + BM - 1) / BM, B);
+    cfg.blockDim = dim3(MMA_NT);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = CLUSTER ? cluster_size(Cout, BM) : 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(
+        &cfg, kern, x, alpha, beta,
+        static_cast<const typename MmaOps<D>::WT*>(w), bias, r0, r1, r2, y,
+        Cin, Cout, cin_p, cout_p, T, dil, logscale, out_scale);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
+};
+
+template <Dot D>
+int act_conv1d_mma(const float* x, const float* alpha, const float* beta,
+                   const float* filt, const void* w, const float* bias,
+                   const float* r0, const float* r1, const float* r2, float* y,
+                   int B, int Cin, int Cout, int cin_p, int cout_p, int T,
+                   int K, int dil, int logscale, float out_scale,
+                   void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
+      Cout > 65535 || cin_p < Cin || cin_p % 16 != 0 || cout_p < Cout)
+    return (int)cudaErrorInvalidValue;
+  const MmaLauncher<D> f{x, alpha, beta, filt, w, bias, r0, r1, r2, y,
+                         B, Cin, Cout, cin_p, cout_p, T, dil, logscale,
+                         out_scale, (cudaStream_t)stream};
+  const long long err = dispatch_mma<MmaOps<D>::BF>(K, Cout, f);
+  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+}
+
+// --- I8: the FMA route ---------------------------------------------------------------
+
 constexpr int NI = 8;   // samples per thread: a 256-sample tile
 constexpr int BN = TX * NI;
 
-// w holds int32 values (by their bits) for I8, with sw the [Cout] scales
+// w holds int32 values (by their bits), with sw the [Cout] scales
 template <Dot D, int K, int CI, int TM, int TYB>
 __global__ void __launch_bounds__(TX * TYB, 512 / (TX * TYB))
 act_conv1d_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
@@ -175,37 +312,45 @@ int act_conv1d(const float* x, const float* alpha, const float* beta,
 
 }  // namespace
 
-// Shared memory one block takes (bytes), -1 without an instance; mirrored
-// by flowhigh_tpu_torch/ops/fused_conv.py:act_conv_smem_bytes.
-extern "C" long long act_conv1d_smem_bytes(int K, int dil, int Cout) {
-  return dispatch(K, Cout, SmemQuery{dil});
+// Shared memory one block of instance ``dot`` (0 f32, 1 bf16, 2 int8) takes
+// (bytes), -1 without an instance; mirrored by
+// flowhigh_tpu_torch/ops/fused_conv.py:act_conv_smem_bytes.
+extern "C" long long act_conv1d_smem_bytes(int K, int dil, int Cout, int dot) {
+  if (dot == (int)Dot::I8) return dispatch(K, Cout, SmemQuery{dil});
+  return dot == (int)Dot::BF16
+             ? dispatch_mma<true>(K, Cout, MmaSmemQuery{dil, true})
+             : dispatch_mma<false>(K, Cout, MmaSmemQuery{dil, false});
 }
 
 // Each returns cudaGetLastError() after the launch (or the error that kept
-// it from launching). beta, bias and r0..r2 may be null.
+// it from launching). beta, bias and r0..r2 may be null. w: kernel B's
+// prepared weights [K][cout_p][cin_p] (ops/conv.py:conv_weights), float32
+// for act_conv1d_f32 and bfloat16 (rounded to nearest even) for
+// act_conv1d_bf16; cin_p a multiple of 16.
 extern "C" int act_conv1d_f32(const float* x, const float* alpha,
                               const float* beta, const float* filt,
-                              const float* w, const float* bias,
+                              const void* w, const float* bias,
                               const float* r0, const float* r1,
                               const float* r2, float* y, int B, int Cin,
                               int Cout, int T, int K, int dil, int logscale,
-                              float out_scale, void* stream) {
-  return act_conv1d<Dot::F32>(x, alpha, beta, filt, w, nullptr, bias, r0, r1,
-                              r2, y, B, Cin, Cout, T, K, dil, logscale,
-                              out_scale, stream);
+                              int cin_p, int cout_p, float out_scale,
+                              void* stream) {
+  return act_conv1d_mma<Dot::F32>(x, alpha, beta, filt, w, bias, r0, r1, r2,
+                                  y, B, Cin, Cout, cin_p, cout_p, T, K, dil,
+                                  logscale, out_scale, stream);
 }
 
-// w: the weights rounded to bf16 (as f32)
 extern "C" int act_conv1d_bf16(const float* x, const float* alpha,
                                const float* beta, const float* filt,
-                               const float* w, const float* bias,
+                               const void* w, const float* bias,
                                const float* r0, const float* r1,
                                const float* r2, float* y, int B, int Cin,
                                int Cout, int T, int K, int dil, int logscale,
-                               float out_scale, void* stream) {
-  return act_conv1d<Dot::BF16>(x, alpha, beta, filt, w, nullptr, bias, r0, r1,
-                               r2, y, B, Cin, Cout, T, K, dil, logscale,
-                               out_scale, stream);
+                               int cin_p, int cout_p, float out_scale,
+                               void* stream) {
+  return act_conv1d_mma<Dot::BF16>(x, alpha, beta, filt, w, bias, r0, r1, r2,
+                                   y, B, Cin, Cout, cin_p, cout_p, T, K, dil,
+                                   logscale, out_scale, stream);
 }
 
 // wq: int32 weights in [-127, 127], sw: [Cout] scales (ops/quant.py)

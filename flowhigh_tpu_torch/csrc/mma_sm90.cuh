@@ -1,7 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy helpers for sm_90a (mma.sync,
 // ldmatrix, cp.async) and the 3xTF32 split, shared by the kernels that run
 // their dot products on the tensor cores: kernel B's GEMM route
-// (csrc/conv1d_same.cu) and kernel C (csrc/conv_transpose1d.cu). Both stage
+// (csrc/conv1d_same.cu), kernel C (csrc/conv_transpose1d.cu) and the
+// act->conv core of kernels D and E (csrc/act_conv_core.cuh). B and C stage
 // a chunk of KC input channels at a time: the weights as rows of 32 bytes
 // (one tap and output channel, KC = 8 f32 or 16 bf16 channels), and x as
 // f32 rows [frame][XS] (the chunk's channels of one frame, padded to XS),
@@ -37,6 +38,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
+}
+
+// 16 bytes, as cp_async16; writes zeros (and reads nothing) when !valid;
+// ``src`` must be a valid address all the same
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
 // 4 bytes; writes 0.0f (and reads nothing) when !valid; ``src`` must be a

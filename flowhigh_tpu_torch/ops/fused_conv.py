@@ -19,7 +19,11 @@ raises (no fallback: a shape no kernel instance takes is an error).
 ``dot_dtype`` (``ops/quant.py``) picks the instance: float32 (the default),
 bfloat16 or int8. Rounding or quantisation applies to each activation
 after its edge mask, as in the JAX kernels (``packed.py:829``, ``:1188``,
-``:1199``); conv1's output inside a unit stays f32.
+``:1199``); conv1's output inside a unit stays f32. The float32 and
+bfloat16 instances run their convolutions on the tensor cores (3xTF32 and
+bf16 ``mma.sync``, as kernel B) and take kernel B's prepared weights
+(``conv.conv_weights``); the int8 ones run int32 multiply-adds on the FMA
+units.
 
 The plans decide, from shapes alone, where the vocoder routes a unit or a
 pair (``models/bigvgan.py:AMPBlock1``). They are capacity rules for one
@@ -35,17 +39,22 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .conv import (DOT_NAME, _check, _stream, conv1d_plain, count_launch,
-                   weight_ptrs)
+from .conv import (DOT_NAME, _check, _stream, conv1d_plain, conv_weights,
+                   count_launch, weight_ptrs)
 from .fused_act import (_filter, snake_activation1d_ordered,
                         snake_activation1d_plain)
-from .quant import check_dot_dtype, int8_conv_windows, untile, windows
+from .quant import (DOT_DTYPES, check_dot_dtype, int8_conv_windows,
+                    untile, windows)
 
 SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
-PAIR_TILE = 256          # kernel D's time tile: 32 lanes x 8 samples
-UNIT_PASS = 256          # kernel E's conv1 time extent per block
 TAPS = (3, 7, 11)        # kernel instances (BigVGAN's resblock kernels)
-# input channels per staged chunk (GEMM depth CI x K per chunk)
+# the tensor-core route (float32, bfloat16; act_conv_core.cuh: act_conv_mma)
+MMA_RING = 3             # weight stages, one tap of [BM][32 bytes] each
+MMA_SUB = 8              # channels a snake sub-pass
+# the FMA route (int8; act_conv_tile): kernel D's time tile and kernel E's
+# pass (32 lanes x 8 samples), the int8 windows of ops/quant.py; input
+# channels per staged chunk (GEMM depth CI x K per chunk)
+INT8_TILE = 256
 PAIR_CHUNK = {3: 8, 7: 4, 11: 2}
 UNIT_CHUNK = {3: 4, 7: 2, 11: 2}
 
@@ -55,40 +64,95 @@ def _narrow(c: int) -> bool:
     return c % 48 == 0 and c % 64 != 0
 
 
-def _pair_bm(c: int) -> int:
-    """Output channels per block of kernel D: 128 (16 warps) where 128
-    divides C, else 48 (C = 48, 96) or 64 (8 warps, as kernel B)."""
-    return 128 if c % 128 == 0 else 48 if _narrow(c) else 64
+def _is_int8(dot_dtype: torch.dtype) -> bool:
+    return check_dot_dtype(dot_dtype) == torch.int8
 
 
-def _unit_bm(c: int) -> int:
-    """Output channels per pass of kernel E: 96 (16 warps) where 96 divides
-    C (the C = 192, 96 stages), else 48 (C = 48) or 64 (8 warps)."""
-    return 96 if c % 96 == 0 else 48 if _narrow(c) else 64
+def _pair_tile(c: int, dot_dtype: torch.dtype = torch.float32
+               ) -> tuple[int, int]:
+    """(output channels BM, samples BN) a block of kernel D. float32 and
+    bfloat16 (8 warps, two blocks an SM): 256 x 64 where 256 divides C
+    (C = 768), 128 x 128 where 128 does (C = 384), for bfloat16 in
+    clusters of the C / BM blocks of a time tile, which share the
+    activation; else 64 x 128. int8 (the
+    FMA route): BM = 128 (16 warps) where 128 divides C, else 48 (C = 48,
+    96) or 64 (8 warps); BN = 256."""
+    if _is_int8(dot_dtype):
+        return (128 if c % 128 == 0 else 48 if _narrow(c) else 64), INT8_TILE
+    return (256, 64) if c % 256 == 0 else (128, 128) if c % 128 == 0 \
+        else (64, 128)
+
+
+def _unit_tile(c: int, dot_dtype: torch.dtype = torch.float32
+               ) -> tuple[int, int]:
+    """(output channels per pass BM, samples per pass BN) of kernel E.
+    float32 and bfloat16 (8 warps): (192, 192) where 192 divides C; BM = 96
+    where 96 divides C, 48 where 48 does, over BN = 128 for bfloat16 (two
+    blocks an SM) and 256 for float32; else (64, 192). int8 (16 or 8
+    warps): BM = 96 where 96 divides C, else 48 (C = 48) or 64; BN = 256."""
+    if _is_int8(dot_dtype):
+        return (96 if c % 96 == 0 else 48 if _narrow(c) else 64), INT8_TILE
+    if c % 192 == 0:
+        return 192, 192
+    bn = 128 if dot_dtype == torch.bfloat16 else 256
+    return (96, bn) if c % 96 == 0 else (48, bn) if c % 48 == 0 \
+        else (64, 192)
 
 
 def core_smem_floats(k: int, pad: int, bn: int, bm: int, ci: int) -> int:
-    """Floats of shared memory that one act->conv pass over ``bn`` output
-    samples takes (the layout of ``act_conv_tile`` in the sources): two
-    stages of raw input (ci x (bn + 2 pad + 12)), of weights (ci*k x
-    (bm + 4)) and of snake parameters (2 x ci); the 2x-rate snake signal
-    (ci x 2 (bn + 2 pad + 6)); the activation (ci x (bn + 2 pad)); and the
-    12 filter taps."""
+    """Floats of shared memory that one FMA-route (int8) act->conv pass over
+    ``bn`` output samples takes (the layout of ``act_conv_tile`` in the
+    sources): two stages of raw input (ci x (bn + 2 pad + 12)), of weights
+    (ci*k x (bm + 4)) and of snake parameters (2 x ci); the 2x-rate snake
+    signal (ci x 2 (bn + 2 pad + 6)); the activation (ci x (bn + 2 pad));
+    and the 12 filter taps."""
     aw = bn + 2 * pad
     return (2 * ci * (aw + 12) + 2 * ci * k * (bm + 4) + 2 * 2 * ci
             + ci * 2 * (aw + 6) + ci * aw + 12)
 
 
-def act_conv_smem_bytes(k: int, dilation: int, c: int) -> int:
-    return 4 * core_smem_floats(k, dilation * (k - 1) // 2, PAIR_TILE,
-                                _pair_bm(c), PAIR_CHUNK[k])
+def mma_core_smem_bytes(pad: int, bn: int, bm: int, bf16: bool,
+                        cluster: bool = False) -> int:
+    """Bytes of shared memory that one tensor-core (float32, bfloat16)
+    act->conv pass over ``bn`` output samples takes (the layout of
+    ``act_conv_mma`` in the sources), with aw = bn + 2 pad frames and
+    chunks of kc = 8 (float32) or 16 (bfloat16) input channels: a ring of
+    3 weight stages (bm rows of 32 bytes: one tap of a chunk); the
+    activation as [frame][ci] rows (80 bytes: TF32 hi and lo of 8 channels
+    at a stride of 20 floats; 48 bytes: 16 bf16 channels at a stride of
+    24); two stages of raw input (kc x (aw + 12) floats); the 2x-rate snake
+    signal of an 8-channel sub-pass (8 x 2 (aw + 6)); two stages of snake
+    parameters (2 x kc); the 12 filter taps are in constant memory. A
+    ``cluster`` pass (kernel D's, whose blocks share the activation) keeps
+    two activation buffers."""
+    aw, kc = bn + 2 * pad, 16 if bf16 else 8
+    return (MMA_RING * bm * 32 + (2 if cluster else 1) * aw * (48 if bf16
+                                                               else 80)
+            + 4 * (2 * kc * (aw + 12) + MMA_SUB * 2 * (aw + 6) + 2 * 2 * kc))
 
 
-def amp_unit_smem_bytes(k: int, dilation: int, c: int) -> int:
-    """conv1's output for all C channels over the pass (C x 256), plus the
-    working set of the wider of the two act->conv passes (conv1's)."""
-    return 4 * (c * UNIT_PASS + core_smem_floats(
-        k, dilation * (k - 1) // 2, UNIT_PASS, _unit_bm(c), UNIT_CHUNK[k]))
+def act_conv_smem_bytes(k: int, dilation: int, c: int,
+                        dot_dtype: torch.dtype = torch.float32) -> int:
+    pad = dilation * (k - 1) // 2
+    bm, bn = _pair_tile(c, dot_dtype)
+    if _is_int8(dot_dtype):
+        return 4 * core_smem_floats(k, pad, bn, bm, PAIR_CHUNK[k])
+    bf16 = dot_dtype == torch.bfloat16
+    return mma_core_smem_bytes(pad, bn, bm, bf16, cluster=bf16
+                               and c % 128 == 0)
+
+
+def amp_unit_smem_bytes(k: int, dilation: int, c: int,
+                        dot_dtype: torch.dtype = torch.float32) -> int:
+    """conv1's output for all C channels over the pass (C x BN floats),
+    plus the working set of the wider of the two act->conv passes
+    (conv1's)."""
+    bm, bn = _unit_tile(c, dot_dtype)
+    pad = dilation * (k - 1) // 2
+    if _is_int8(dot_dtype):
+        return 4 * (c * bn + core_smem_floats(k, pad, bn, bm, UNIT_CHUNK[k]))
+    return 4 * c * bn + mma_core_smem_bytes(pad, bn, bm,
+                                            dot_dtype == torch.bfloat16)
 
 
 def unit_halo(k: int) -> int:
@@ -98,56 +162,73 @@ def unit_halo(k: int) -> int:
     return (k - 1) // 2 + 6
 
 
-def act_conv_plan(k: int, dilation: int, c: int, t: int) -> int:
-    """Time tile of kernel D for this pair, 0 = not fusable.
+def act_conv_plan(k: int, dilation: int, c: int, t: int,
+                  dot_dtype: torch.dtype = torch.float32) -> int:
+    """Time tile of kernel D's ``dot_dtype`` instance for this pair, 0 = not
+    fusable. A pair is fusable where every instance (float32, bfloat16,
+    int8) fits one block's shared memory, so that the vocoder routes it the
+    same way at every dtype.
 
-    A block owns BM = 128 (where 128 divides C: the C = 768 and 384 stages
-    the vocoder routes here), 48 (C = 48, 96) or 64 output channels x 256
-    samples and walks Cin in chunks of CI = 8 / 4 / 2 channels
-    (k = 3 / 7 / 11). Per chunk it stages x over the conv window plus the
-    snake's reach, 256 + 2 pad + 12 samples (pad = d (k - 1) / 2), twice
-    (double-buffered), the 2x-rate snake signal and the activation over
-    256 + 2 pad samples, and two stages of the chunk's weights,
-    CI k x (BM + 4) floats. At k = 11, d = 5, BM = 128: 2*2*318 +
-    2*22*132 + 8 + 2*624 + 2*306 + 12 = 8960 floats = 35.8 KB; the largest
-    BigVGAN pair (k = 3, d = 5, CI = 8) takes 69.2 KB, so every pair fits
-    in 227 KB. Only the dilation bounds it: the window outgrows 227 KB near
-    d = 500 at k = 3. The tile does not depend on T; the activation of a
-    chunk is recomputed by each of the C / BM output-channel blocks (6x at
-    C = 768, 1x at C = 48)."""
-    del t  # every T tiles into 256-sample blocks
-    if k not in TAPS:
+    float32 and bfloat16 (the tensor-core route): a block owns BM x BN
+    (``_pair_tile``: 256 x 64 at C = 768, 128 x 128 at C = 384, else
+    64 x 128) and walks Cin in chunks of 8 (float32) or 16 (bfloat16)
+    channels, one 32-byte weight row. Per chunk it stages x over the conv
+    window plus the snake's reach, BN + 2 pad + 12 samples (pad = d (k -
+    1) / 2), twice (double-buffered); the snake signal of 8 channels over
+    BN + 2 pad + 6 positions; the activation as [frame][ci] rows over BN +
+    2 pad frames; and a ring of 3 taps' weights, BM x 32 bytes each
+    (``mma_core_smem_bytes``; bfloat16 at C = 768 and 384 keeps two
+    activation buffers, which the blocks of a cluster fill together). At
+    k = 11, d = 5, C = 768, bfloat16: 24,576 + 2 x 5,472 + 16,128 + 7,680 +
+    256 = 59,584 bytes, so two blocks share an SM. int8 (the FMA route): a BM x 256 tile
+    (``core_smem_floats``; the largest BigVGAN pair, k = 3, d = 5, CI = 8,
+    takes 69.2 KB). Only the dilation bounds either: the window outgrows
+    227 KB near d = 500 at k = 3. The tile does not depend on T; the
+    activation of a chunk is recomputed by each of the C / BM
+    output-channel blocks (float32: 3x at C = 768 and 384; bfloat16: once,
+    shared by the cluster; int8: 6x and 3x)."""
+    del t  # every T tiles into blocks
+    if k not in TAPS or any(act_conv_smem_bytes(k, dilation, c, dt)
+                            > SMEM_PER_BLOCK for dt in DOT_DTYPES):
         return 0
-    return PAIR_TILE if act_conv_smem_bytes(k, dilation, c) <= SMEM_PER_BLOCK \
-        else 0
+    return _pair_tile(c, dot_dtype)[1]
 
 
-def amp_unit_plan(k: int, dilation: int, c: int, t: int) -> int:
-    """Time tile (outputs per block) of kernel E for this unit, 0 = not
-    fusable.
+def amp_unit_plan(k: int, dilation: int, c: int, t: int,
+                  dot_dtype: torch.dtype = torch.float32) -> int:
+    """Time tile (outputs per block) of kernel E's ``dot_dtype`` instance
+    for this unit, 0 = not fusable. A unit is fusable where every instance
+    (float32, bfloat16, int8) fits one block's shared memory.
 
     conv2 mixes every channel, so a block that owns a tile of outputs needs
     conv1's output for ALL C channels over the tile plus a halo of
-    (k - 1) / 2 + 6 samples each side, resident in shared memory while act2
-    and conv2 run from it. The block computes conv1 over a pass of 256
-    samples (8 per thread, kernel B's register tile), so the tile is the
-    pass less both halos: 256 - 2 * 11 = 234 outputs at k = 11 (both convs
-    do 256 / 234 = 1.09x the pair's work). Capacity: C x 256 x 4 bytes of
-    conv1 output plus conv1's act->conv working set (as in kernel D, with
-    chunks of CI = 4 / 2 / 2 channels) must fit 227 KB.
+    H = (k - 1) / 2 + 6 samples each side, resident in shared memory while
+    act2 and conv2 run from it. The block computes conv1 over a pass of BN
+    samples (``_unit_tile``), so the tile is the pass less both halos.
+    Capacity: C x BN x 4 bytes of conv1 output plus conv1's act->conv
+    working set must fit 227 KB.
 
-    - C = 48, 96, 192 fit (C = 192, k = 11, d = 5, 96-channel passes:
-      196,608 + 30,208 = 226,816 bytes; the largest, k = 3, d = 5:
-      228,176);
-    - C = 384 needs 393 KB of conv1 output alone, C = 768 786 KB: those
-      units are not fused and their two pairs go to kernel D. (A narrower
-      pass would fit C = 384 at 128 samples, but with 4 samples per thread
-      and 1.21x halo work it ran 2.9-5x slower than the A + B chain of the
-      same unit: PERF.md.)"""
-    del t  # every T tiles into blocks of 256 - 2 halo outputs
-    if k not in TAPS or amp_unit_smem_bytes(k, dilation, c) > SMEM_PER_BLOCK:
+    - float32 and bfloat16 at C = 192: BN = 192 (147,456 bytes of conv1
+      output) and one 192-channel pass, so each activation runs once per
+      sample; the largest working set (bfloat16, k = 11, d = 5) is 78,688
+      bytes, 226,144 in all. BN = 256 (196,608 bytes) would leave 35,840,
+      less than one tensor-core working set. Tiles of 178 / 174 / 170
+      outputs at k = 3 / 7 / 11: both convs do BN / tile = 1.08-1.13x the
+      pair's work. C = 96 and 48: BN = 256 for float32 (tiles 242 / 238
+      / 234, 1.06-1.09x), 128 for bfloat16 (114 / 110 / 106, 1.12-1.21x),
+      so that two blocks share an SM;
+    - int8: BN = 256 and 96-channel passes at C = 192 (196,608 + 30,208 =
+      226,816 bytes at k = 11, d = 5; the largest, k = 3, d = 5: 228,176);
+    - C = 384 needs 295 KB of conv1 output alone at BN = 192, C = 768
+      590 KB: those units are not fused and their two pairs go to kernel
+      D. (A narrower pass would fit C = 384 at 128 samples, but with 4
+      samples per thread and 1.21x halo work the FMA kernel ran 2.9-5x
+      slower than the A + B chain of the same unit: PERF.md.)"""
+    del t  # every T tiles into blocks of BN - 2 halo outputs
+    if k not in TAPS or any(amp_unit_smem_bytes(k, dilation, c, dt)
+                            > SMEM_PER_BLOCK for dt in DOT_DTYPES):
         return 0
-    return UNIT_PASS - 2 * unit_halo(k)
+    return _unit_tile(c, dot_dtype)[1] - 2 * unit_halo(k)
 
 
 # --- plain versions ------------------------------------------------------------
@@ -158,7 +239,7 @@ def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
                      dilation: int, residuals: Sequence[torch.Tensor] = (),
                      out_scale: float = 1.0,
                      dot_dtype: torch.dtype = torch.float32,
-                     tile: int = PAIR_TILE) -> torch.Tensor:
+                     tile: int = INT8_TILE) -> torch.Tensor:
     """x [B, Cin, T], w [Cout, Cin, K] -> [B, Cout, T]:
     conv1d_plain(snake_activation1d_plain(x)) with the epilogue; ``tile``
     is the int8 partition (``ops/quant.py``). int8 takes the activation in
@@ -205,7 +286,7 @@ def _amp_unit_int8(x, a1, b1, a2, b2, logscale, w1, bias1, w2, bias2,
     bsz, c, t = x.shape
     k = w1.shape[-1]
     h = unit_halo(k)
-    tile = tile or UNIT_PASS - 2 * h
+    tile = tile or INT8_TILE - 2 * h
     pad1, pad2 = dilation * (k - 1) // 2, (k - 1) // 2
     n, span = -(-t // tile), tile + 2 * h
     act1 = snake_activation1d_ordered(x, a1, b1, logscale)
@@ -248,6 +329,17 @@ def _ptr(v: Optional[torch.Tensor]):
     return v.data_ptr() if v is not None else None
 
 
+def _weights(w: torch.Tensor, dot_dtype: torch.dtype) -> tuple:
+    """(pointers, padded sizes) a kernel instance takes for one weight
+    tensor [Cout, Cin, K]: float32 and bfloat16, kernel B's prepared layout
+    [K, Cout_p, Cin_p] (``conv_weights``, once per weight tensor) and
+    (Cin_p, Cout_p); int8, (wq, s_w) and no sizes."""
+    if dot_dtype == torch.int8:
+        return weight_ptrs(w, dot_dtype), ()
+    wl = conv_weights(w, dot_dtype)
+    return (wl.data_ptr(),), (wl.shape[2], wl.shape[1])
+
+
 def _check_act(what: str, x: torch.Tensor, c: int, alpha, beta) -> None:
     if alpha.shape != (c,) or (beta is not None and beta.shape != (c,)):
         raise ValueError(f"{what}: alpha/beta must have shape [C] = [{c}]")
@@ -287,11 +379,12 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
     lib = _build.library("act_conv1d")
     y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
+    wp, pads = _weights(w, dot_dtype)
     err = getattr(lib, f"act_conv1d_{DOT_NAME[dot_dtype]}")(
         x.data_ptr(), alpha.data_ptr(), _ptr(beta), _filter(x.device).data_ptr(),
-        *weight_ptrs(w, dot_dtype), _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(),
-        bsz, cin, cout, t, k, dilation, int(logscale), float(out_scale),
-        _stream(x))
+        *wp, _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(),
+        bsz, cin, cout, t, k, dilation, int(logscale), *pads,
+        float(out_scale), _stream(x))
     _build.check(err, "act_conv1d")
     count_launch(act_conv1d, dot_dtype)
     return y
@@ -339,11 +432,13 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
     lib = _build.library("amp_unit")
     y = torch.empty_like(x)
     ep = [r.data_ptr() for r in extras] + [None] * (2 - len(extras))
+    wp1, pads = _weights(w1, dot_dtype)
+    wp2, _ = _weights(w2, dot_dtype)
     err = getattr(lib, f"amp_unit_{DOT_NAME[dot_dtype]}")(
         x.data_ptr(), a1.data_ptr(), _ptr(b1), a2.data_ptr(), _ptr(b2),
-        _filter(x.device).data_ptr(), *weight_ptrs(w1, dot_dtype), _ptr(bias1),
-        *weight_ptrs(w2, dot_dtype), _ptr(bias2), ep[0], ep[1], y.data_ptr(),
-        bsz, c, t, k, dilation, int(logscale), float(out_scale), _stream(x))
+        _filter(x.device).data_ptr(), *wp1, _ptr(bias1), *wp2, _ptr(bias2),
+        ep[0], ep[1], y.data_ptr(), bsz, c, t, k, dilation, int(logscale),
+        *pads, float(out_scale), _stream(x))
     _build.check(err, "amp_unit")
     count_launch(amp_unit, dot_dtype)
     return y

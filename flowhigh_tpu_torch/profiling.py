@@ -33,8 +33,8 @@ SECONDS, REPS = 10.0, 3
 GROUPS = (
     ("flash_attn", "kernel F: flash_attn"),
     ("snake_aa", "kernel A: snake_aa"),
-    ("act_conv1d_kernel", "kernel D: act_conv1d"),
-    ("amp_unit_kernel", "kernel E: amp_unit"),
+    ("act_conv1d", "kernel D: act_conv1d"),  # before conv1d_mma (B)
+    ("amp_unit", "kernel E: amp_unit"),
     ("conv1d_mma", "kernel B: conv1d_same"),
     ("conv1d_narrow", "kernel B: conv1d_same"),
     ("conv1d_int8", "kernel B: conv1d_same"),

@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
-    python3 scripts/port_kernel_ab.py [TREE]
+    python3 scripts/port_kernel_ab.py [TREE] [--fused]
 
-Imports ``flowhigh_tpu_torch`` from TREE (default: this checkout), so two
-versions of a kernel compare in one call on one card: copy the other
-version's tree into a directory that .gitignore lists (``build/...``) and
-run the script for each tree in turn, A B B A. Prints one JSON line: the
-mean ms of one launch (15 launches after 3 warm-up launches, CUDA events)
-of kernel D (``act_conv1d``) and kernel E (``amp_unit``) at main-path shapes
-of a 10 s clip (C, T, k, d), and, for the yardstick, of kernels A and B at
-the D shapes; and of kernel C (``conv_transpose1d``), float32 and bfloat16
-instances, at the five upsampler shapes of a 10 s clip (Cin, Cout, T_in, u,
-K), with their per-clip sums (``C sum``, ``C.bf16 sum``); and of kernel B
-(``conv1d``), float32 and bfloat16 instances, at every conv of the unfused
-path of a 10 s clip (91 launches: the resblock convs of each stage, Cin =
-Cout = C, T, K, d, residuals; and conv_post), each shape timed once and
-weighted by its launches: per (C, K, d) (``B 768 3 1``), per stage
-(``B 768 sum``), conv_post (``B post``) and per clip (``B sum``), the same
-for ``B.bf16``. Inputs are seeded random tensors. Needs a CUDA card.
+Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
+TREE (default: this checkout), so two versions of a kernel compare in one
+call on one card: copy the other version's tree into a directory that
+.gitignore lists (``build/...``) and run the script for each tree in turn,
+A B B A. Prints one JSON line of mean ms (15 launches after 3 warm-up
+launches, CUDA events; a shape timed once and weighted by its launches):
+
+- kernel D (``act_conv1d``) and kernel E (``amp_unit``), float32 and
+  bfloat16 instances, at every shape of the default (fused) path of a 10 s
+  clip (``chip_smoke.main_path_calls``: 36 pairs at C = 768 and 384, 27
+  units at C = 192, 96 and 48), with the unfused chain of kernels A and B
+  that does the same work at the same dtype: per (C, K, d) (``D 768 3 1``,
+  ``D chain 768 3 1``), per stage (``D 768 sum``) and per clip (``D sum``,
+  ``D chain sum``; ``E ...`` and ``D.bf16 ...`` alike);
+- kernel C (``conv_transpose1d``), float32 and bfloat16 instances, at the
+  five upsampler shapes of a 10 s clip (Cin, Cout, T_in, u, K), with their
+  per-clip sums (``C sum``, ``C.bf16 sum``);
+- kernel B (``conv1d``), float32 and bfloat16 instances, at every conv of
+  the unfused path of a 10 s clip (91 launches: the resblock convs of each
+  stage, Cin = Cout = C, T, K, d, residuals; and conv_post): per (C, K, d)
+  (``B 768 3 1``), per stage (``B 768 sum``), conv_post (``B post``) and
+  per clip (``B sum``), the same for ``B.bf16``.
+
+``--fused`` times D and E alone. Inputs are seeded random tensors. Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,9 +39,6 @@ from pathlib import Path
 
 import numpy as np
 
-PAIRS = [(768, 5000, 3, 1), (768, 5000, 11, 1), (384, 20000, 7, 3),
-         (48, 480000, 3, 1)]
-UNITS = [(192, 80000, 3, 1), (192, 80000, 11, 1), (48, 480000, 7, 3)]
 # BigVGAN's upsamplers on a 10 s clip (1,000 frames): Cin, Cout, T_in, u, K
 UPSAMPLERS = [(1536, 768, 1000, 5, 11), (768, 384, 5000, 4, 8),
               (384, 192, 20000, 4, 8), (192, 96, 80000, 3, 7),
@@ -75,8 +81,67 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def fused_per_clip(tree: Path, randn) -> dict:
+    """Kernels D and E (float32, bfloat16) and their A + B chains at every
+    shape of the default path of a 10 s clip, weighted by launches."""
+    import torch
+
+    from flowhigh_tpu_torch import FlowHighConfig, ops
+    import chip_smoke  # the tree's (main puts TREE first on the path)
+    if not Path(chip_smoke.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"imported {chip_smoke.__file__}, not {tree}")
+    cfg = FlowHighConfig().vocoder
+    out: dict = {}
+    for sfx, dt in (("", torch.float32), (".bf16", torch.bfloat16)):
+        calls = chip_smoke.main_path_calls(
+            cfg, 1000, True, None if dt == torch.float32 else dt)
+        for key, n in calls["act_conv1d" + sfx].items():
+            _, c, t, k, d, n_res, scale = key
+            x = randn(1, c, t)
+            a, b = randn(c, scale=0.3), randn(c, scale=0.3)
+            w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(
+                c, scale=0.1)
+            rs = tuple(randn(1, c, t) for _ in range(n_res))
+            kw = dict(dilation=d, residuals=rs, out_scale=scale, dot_dtype=dt)
+            ms = n * time_ms(lambda: ops.act_conv1d(x, a, b, True, w, bias,
+                                                    **kw))
+            chain = n * time_ms(lambda: ops.conv1d(
+                ops.snake_activation1d(x, a, b, True), w, bias, **kw))
+            _add(out, f"D{sfx}", c, k, d, ms, chain)
+            del x, rs
+        for key, n in calls["amp_unit" + sfx].items():
+            c, t, k, d, n_extra, scale = key
+            x = randn(1, c, t, scale=0.5)
+            a1, b1, a2, b2 = (randn(c, scale=0.3) for _ in range(4))
+            w1, w2 = (randn(c, c, k, scale=(c * k) ** -0.5) for _ in range(2))
+            bias1, bias2 = randn(c, scale=0.1), randn(c, scale=0.1)
+            ex = tuple(randn(1, c, t) for _ in range(n_extra))
+
+            def chain():
+                h = ops.conv1d(ops.snake_activation1d(x, a1, b1, True), w1,
+                               bias1, dilation=d, dot_dtype=dt)
+                return ops.conv1d(ops.snake_activation1d(h, a2, b2, True), w2,
+                                  bias2, residuals=(x,) + ex, out_scale=scale,
+                                  dot_dtype=dt)
+            ms = n * time_ms(lambda: ops.amp_unit(
+                x, a1, b1, a2, b2, True, w1, bias1, w2, bias2, dilation=d,
+                extra_residuals=ex, out_scale=scale, dot_dtype=dt))
+            _add(out, f"E{sfx}", c, k, d, ms, n * time_ms(chain))
+            del x, ex
+    return out
+
+
+def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
+         chain: float) -> None:
+    for grp in (f"{c} {k} {d}", f"{c} sum", "sum"):
+        for key, v in ((f"{name} {grp}", ms), (f"{name} chain {grp}", chain)):
+            out[key] = out.get(key, 0.0) + v
+
+
 def main() -> int:
-    tree = Path(sys.argv[1] if len(sys.argv) > 1
+    args = [a for a in sys.argv[1:] if a != "--fused"]
+    fused_only = "--fused" in sys.argv[1:]
+    tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
     import torch
@@ -95,21 +160,9 @@ def main() -> int:
                                 * np.float32(scale)).cuda()
 
     res = {}
-    for c, t, k, d in PAIRS:
-        x = randn(1, c, t)
-        a, b = randn(c, scale=0.3), randn(c, scale=0.3)
-        w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(c, scale=0.1)
-        res[f"D {c} {k} {d}"] = time_ms(
-            lambda: ops.act_conv1d(x, a, b, True, w, bias, dilation=d))
-        res[f"B {c} {k} {d}"] = time_ms(
-            lambda: ops.conv1d(x, w, bias, dilation=d))
-        res[f"A {c}"] = time_ms(lambda: ops.snake_activation1d(x, a, b, True))
-    for c, t, k, d in UNITS:
-        x = randn(1, c, t, scale=0.5)
-        a, b = randn(c, scale=0.3), randn(c, scale=0.3)
-        w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(c, scale=0.1)
-        res[f"E {c} {k} {d}"] = time_ms(lambda: ops.amp_unit(
-            x, a, b, a, b, True, w, bias, w, bias, dilation=d))
+    res.update(fused_per_clip(tree, randn))
+    if fused_only:
+        return report(tree, res)
     for name, dt in (("C", torch.float32), ("C.bf16", torch.bfloat16)):
         total = 0.0
         for cin, cout, t, u, k in UPSAMPLERS:
@@ -141,13 +194,16 @@ def main() -> int:
                                                           dot_dtype=dt))
         sums[f"{name} sum"] += sums[f"{name} post"]
         res.update(sums)
+    return report(tree, res)
+
+
+def report(tree: Path, res: dict) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"tree": str(tree), "card": card,
                       "ms": {k: round(v, 3) for k, v in res.items()}}))
     return 0
-
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -185,7 +185,10 @@ def test_chip_smoke_bounds_kernel_c_by_its_instruction(instance, bound_ms,
     assert byt == pytest.approx(562e6, rel=2e-3)
     assert total == pytest.approx(bound_ms, abs=0.01)
     # the other instances keep their dtype's unit (kernel B's float32 GEMM
-    # route runs 3xTF32 too: tests/test_torch_conv_plan.py)
-    assert cs.dot_seconds(peaks, "act_conv1d", 67e12) == pytest.approx(1.0)
+    # route and kernels D and E run 3xTF32 too: tests/test_torch_conv_plan.py,
+    # tests/test_torch_act_conv_plan.py)
+    assert cs.dot_seconds(peaks, "act_conv1d", 495e12) == pytest.approx(3.0)
+    assert cs.dot_seconds(peaks, "act_conv1d.int8", 1979e12) == \
+        pytest.approx(1.0)
     assert cs.dot_seconds(peaks, "conv1d_same.bf16", 989e12) == \
         pytest.approx(1.0)

@@ -151,15 +151,25 @@ FULL_WIDTH = [(768, 5000), (384, 20000), (192, 80000), (96, 240000),
 @pytest.mark.parametrize("c,t", FULL_WIDTH)
 def test_plans_at_full_width(c, t):
     for k in (3, 7, 11):
+        h = (k - 1) // 2 + 6
         for d in (1, 3, 5):
-            assert ops.act_conv_plan(k, d, c, t) == 256
-            assert fused_conv.act_conv_smem_bytes(k, d, c) <= 232448
-            tile = ops.amp_unit_plan(k, d, c, t)
-            fits = fused_conv.amp_unit_smem_bytes(k, d, c) <= 232448
-            # conv1's output for all C channels over 256 samples fits up to
-            # C = 192; at 384 and 768 the unit runs as two kernel-D pairs
-            assert fits == (c <= 192)
-            assert tile == (256 - 2 * ((k - 1) // 2 + 6) if fits else 0)
+            for dt in (torch.float32, torch.bfloat16, torch.int8):
+                int8 = dt == torch.int8
+                # D: 64-sample tiles on the tensor cores where 256 divides
+                # C (256-channel blocks), 128 elsewhere, 256 for int8
+                assert ops.act_conv_plan(k, d, c, t, dt) == (
+                    256 if int8 else 64 if c % 256 == 0 else 128)
+                assert fused_conv.act_conv_smem_bytes(k, d, c, dt) <= 232448
+                tile = ops.amp_unit_plan(k, d, c, t, dt)
+                fits = fused_conv.amp_unit_smem_bytes(k, d, c, dt) <= 232448
+                # conv1's output for all C channels over a pass fits up to
+                # C = 192 (on the tensor cores a 192-sample pass there;
+                # at C = 96 and 48 128 for bf16, 256 for f32 and int8); at
+                # 384 and 768 the unit runs as two kernel-D pairs
+                assert fits == (c <= 192)
+                bn = 192 if c == 192 and not int8 else \
+                    128 if dt == torch.bfloat16 else 256
+                assert tile == (bn - 2 * h if fits else 0)
 
 
 def test_plans_refuse_what_no_kernel_takes():
@@ -167,7 +177,8 @@ def test_plans_refuse_what_no_kernel_takes():
     assert ops.amp_unit_plan(5, 1, 64, 100) == 0
     assert ops.act_conv_plan(3, 1000, 64, 100) == 0   # window outgrows 227 KB
     assert ops.amp_unit_plan(3, 1, 200, 100) == 0     # conv1 buffer too wide
-    assert ops.amp_unit_plan(3, 1, 160, 5) == 242     # any T, any C <= 192
+    assert ops.amp_unit_plan(3, 1, 160, 5) == 178     # any T, any C <= 192
+    assert ops.amp_unit_plan(3, 1, 160, 5, torch.int8) == 242
 
 
 def test_cpu_tensors_take_the_plain_versions(rng):

@@ -237,15 +237,79 @@ def test_amp_unit_kernel_matches_plain(cuda, gen, k, d):
     assert ops.amp_unit.launches == n0 + 1
 
 
+# the tensor-core route of D and E (act_conv_mma) at its tile boundaries:
+# D's 128-sample tile and 128- or 64-channel blocks, E's passes (192 x 192
+# at C = 192, 96 / 48 x 256, else 64 x 192); T off the tile and below one
+# tile, Cin off the 8 / 16-channel chunk (D), every stage width
+# (Cin, Cout, T, K, d) of kernel D
+MMA_PAIRS = [(768, 768, 293, 11, 5), (384, 384, 100, 7, 3),
+             (196, 192, 293, 3, 5), (100, 96, 129, 11, 1),
+             (52, 48, 1, 3, 3), (40, 130, 257, 7, 1)]
+# (C, T, K, d) of kernel E
+MMA_UNITS = [(192, 293, 11, 5), (192, 100, 3, 1), (96, 500, 7, 3),
+             (48, 1000, 11, 1), (160, 171, 3, 3), (48, 3, 7, 5)]
+
+
+def _launches(fn, dot_dtype):
+    return fn.launches if dot_dtype == torch.float32 \
+        else fn.variant_launches[dot_dtype]
+
+
+def _close_dtype(name, key, got, want, dot_dtype):
+    if dot_dtype == torch.float32:
+        _close(got, want)
+    else:  # chip_smoke.py's tolerance of the variants
+        cs = _chip_smoke()
+        cs._compare(name + cs.suffix(dot_dtype), key, got, want)
+
+
+@pytest.mark.parametrize("cin,cout,t,k,d", MMA_PAIRS)
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+def test_act_conv1d_tensor_core_tiles(cuda, gen, dot_dtype, cin, cout, t, k,
+                                      d):
+    x = _randn(gen, cuda, 1, cin, t)
+    a, be = _randn(gen, cuda, cin, scale=0.3), _randn(gen, cuda, cin, scale=0.3)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = (_randn(gen, cuda, 1, cout, t),)
+    args = (x, a, be, True, w, bias)
+    kw = dict(dilation=d, residuals=res, out_scale=0.5, dot_dtype=dot_dtype)
+    n0 = _launches(ops.act_conv1d, dot_dtype)
+    got = ops.act_conv1d(*args, **kw)
+    assert _launches(ops.act_conv1d, dot_dtype) == n0 + 1
+    _close_dtype("act_conv1d", (cin, cout, t), got,
+                 ops.act_conv1d_plain(*args, **kw), dot_dtype)
+
+
+@pytest.mark.parametrize("c,t,k,d", MMA_UNITS)
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+def test_amp_unit_tensor_core_tiles(cuda, gen, dot_dtype, c, t, k, d):
+    x = _randn(gen, cuda, 1, c, t, scale=0.5)
+    acts = [_randn(gen, cuda, c, scale=0.3) for _ in range(4)]
+    w1 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    w2 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    b1, b2 = _randn(gen, cuda, c, scale=0.1), _randn(gen, cuda, c, scale=0.1)
+    ex = (_randn(gen, cuda, 1, c, t),)
+    args = (x, *acts[:4], True, w1, b1, w2, b2)
+    kw = dict(dilation=d, extra_residuals=ex, out_scale=1.0 / 3,
+              dot_dtype=dot_dtype)
+    n0 = _launches(ops.amp_unit, dot_dtype)
+    got = ops.amp_unit(*args, **kw)
+    assert _launches(ops.amp_unit, dot_dtype) == n0 + 1
+    _close_dtype("amp_unit", (c, t), got, ops.amp_unit_plain(*args, **kw),
+                 dot_dtype)
+
+
 def test_fused_smem_arithmetic_matches_the_kernels(cuda):
     lib_d, lib_e = _build.library("act_conv1d"), _build.library("amp_unit")
-    for c in (768, 384, 192, 96, 48):
-        for k in (3, 7, 11):
-            for d in (1, 3, 5):
-                assert lib_d.act_conv1d_smem_bytes(k, d, c) == \
-                    fused_conv.act_conv_smem_bytes(k, d, c)
-                assert lib_e.amp_unit_smem_bytes(k, d, c) == \
-                    fused_conv.amp_unit_smem_bytes(k, d, c)
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1), (torch.int8, 2)):
+        for c in (768, 384, 200, 192, 160, 96, 64, 48):
+            for k in (3, 7, 11):
+                for d in (1, 3, 5):
+                    assert lib_d.act_conv1d_smem_bytes(k, d, c, code) == \
+                        fused_conv.act_conv_smem_bytes(k, d, c, dt)
+                    assert lib_e.amp_unit_smem_bytes(k, d, c, code) == \
+                        fused_conv.amp_unit_smem_bytes(k, d, c, dt)
 
 
 def test_fused_wrappers_raise_without_an_instance(cuda, gen):
