@@ -34,8 +34,13 @@ Phases (any failure raises and the script exits non-zero):
    kernel C, of kernel B's GEMM route and of kernels D and E run 3xTF32 on
    the tensor cores, so their bounds count three TF32 products per f32
    product at the TF32 peak (``DOT_UNITS``); B's narrow route
-   (``conv_post``) runs on the FMA units. Phase 0 prints each kernel instance's registers and spills
-   (ptxas) and fails if a float32 or bfloat16 instance of D or E spills. C's rows per upsampler of the 10 s clip (f32 and bf16) are
+   (``conv_post``) runs on the FMA units. D.int8 and E.int8 run s8
+   ``mma.sync`` after a pre-pass launch for their window scales (both in
+   their ms); they equal their plain versions exactly (max abs 0.0, held
+   at ``STAT_TOL`` like the other variants). Phase 0 prints each kernel
+   instance's registers and spills (ptxas) and fails if a tensor-core
+   instance of D or E (float32, bfloat16, int8) or the int8 pre-pass
+   spills. C's rows per upsampler of the 10 s clip (f32 and bf16) are
    printed, and B's per resblock shape of the unfused 10 s clip (stage x K
    x d, f32 and bf16) and its ``conv_post`` row;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
@@ -145,6 +150,11 @@ DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4),
 # kernel B's narrow route (conv_post) below this Cout: f32 FMA at any dtype
 # (flowhigh_tpu_torch/ops/conv.py: NARROW_COUT)
 NARROW_COUT = 16
+# the entry functions that phase 0 fails on if ptxas reports a spill: the
+# tensor-core instances of D and E (float32, bfloat16; int8) and the int8
+# instances' pre-pass
+NO_SPILL = ("act_conv1d_mma_kernel", "act_conv1d_s8_kernel",
+            "amp_unit_mma_kernel", "amp_unit_s8_kernel", "act_amax_kernel")
 
 
 def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
@@ -169,9 +179,9 @@ def ptxas_entries(log: str) -> list:
     for chunk in log.split("Compiling entry function '")[1:]:
         fn = chunk.split("'")[0]
         # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 hex><n><kernel>I<args>EEv
-        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)I(.*?)EEv",
-                      fn)
-        kern, targs = (m.group(1), m.group(2)) if m else (fn, "")
+        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)(?:I(.*?)EEv|"
+                      r"E)", fn)
+        kern, targs = (m.group(1), m.group(2) or "") if m else (fn, "")
         args = ",".join(re.findall(r"(?:DotE|Li)(\d+)E", targs + "E"))
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1412,8 +1422,7 @@ def main() -> int:
                 log.read_text() if log.exists() else ""):
             print(f"  {lib_name}: {kern}<{args}> {regs} registers, spill "
                   f"{spill[0]} / {spill[1]} bytes")
-            if kern in ("act_conv1d_mma_kernel", "amp_unit_mma_kernel") \
-                    and spill != (0, 0):
+            if kern in NO_SPILL and spill != (0, 0):
                 spilled.append(f"{kern}<{args}>")
     if spilled:  # the tensor-core instances of D and E must not spill
         raise AssertionError(f"ptxas spills in {spilled}")

@@ -19,38 +19,40 @@
 // Bound (a 10 s clip, 36 launches at C = 768 and 384): operations. F32
 // runs each product as three TF32 products on the tensor cores (3xTF32:
 // 4.47 TFLOP of TF32 products, 9.0 ms at 495 TFLOP/s), BF16 one bf16
-// product (1.7 ms); the snake adds ~56 f32 operations per input sample and
-// the epilogue a few per output. Against kernel A + kernel B the fusion
-// saves the snake's write and read of a [Cin, T] map (8 bytes an element).
+// product (1.7 ms), I8 one s8 product (0.75 ms at 1,979 TOP/s); the snake
+// adds ~56 f32 operations per input sample and the epilogue a few per
+// output. Against kernel A + kernel B the fusion saves the snake's write
+// and read of a [Cin, T] map (8 bytes an element).
 //
-// Design: act_conv_core.cuh, two routes:
-// - F32, BF16 (act_conv_mma): a BM x BN output tile per block of 8 warps
-//   (dispatch_mma): 256 x 64 at C = 768, 128 x 128 at C = 384 (the stages
-//   the vocoder routes here), else 64 x 128. At most 128 registers a
-//   thread, so two blocks share an SM: one block's snake (FMA units, sinf)
-//   runs while the other's GEMM runs on the tensor cores (one block an SM
-//   ran 1.25x slower). The snake of a chunk is computed once per block,
-//   Cout / BM times per sample (3x at C = 768 and 384) over (BN + 2 pad) /
-//   BN of the samples: wide, short tiles trade the snake's recompute for
-//   more weight traffic from L2 (each block reads its BM rows of all K Cin
-//   weights); 256 x 64 won at C = 768, 128 x 128 at 384 (PERF.md).
-//   Weights: kernel B's prepared layout
-//   [K][Cout_p][Cin_p] (ops/conv.py:conv_weights), f32 or bf16.
-// - I8 (act_conv_tile, the FMA route): a BM x 256 output tile and Cin
-//   chunks of 8 / 4 / 2 channels at K = 3 / 7 / 11; BM is 128 (16 warps,
-//   512 threads) where 128 divides Cout, 48 at C = 48 and 96, else 64
-//   (8 warps). The activation is computed without FMAs (ORDERED in
-//   act_conv_core.cuh), so that it equals its plain version's bits and
-//   int8 quanta. It first runs act_amax, the snake over the whole window
-//   [t0 - pad, t0 + 256 + pad) of all Cin channels, for the window's
-//   scale: the snake runs twice per block. Weights: [Cout][Cin][K] int32
-//   values with [Cout] scales.
+// Design: act_conv_core.cuh's tensor-core pass (act_conv_mma), a BM x BN
+// output tile per block of 8 warps (dispatch_mma): 256 x 64 at C = 768,
+// 128 x 128 at C = 384 (the stages the vocoder routes here), else 64 x
+// 128. At most 128 registers a thread, so two blocks share an SM: one
+// block's snake (FMA units, sinf) runs while the other's GEMM runs on the
+// tensor cores (one block an SM ran 1.25x slower). F32 computes the snake
+// of a chunk once per block, Cout / BM times per sample (3x at C = 768 and
+// 384) over (BN + 2 pad) / BN of the samples: wide, short tiles trade the
+// snake's recompute for more weight traffic from L2 (each block reads its
+// BM rows of all K Cin weights); 256 x 64 won at C = 768, 128 x 128 at 384
+// (PERF.md). BF16 and I8 run the Cout / BM blocks of a time tile (C = 768,
+// 384) as a thread-block cluster that shares each chunk's activation, so
+// their snake runs once per sample. Weights: kernel B's prepared layout
+// [K][Cout_p][Cin_p] (ops/conv.py:conv_weights), f32, bf16 or int8 (with
+// the [Cout] scales; Cin_p a multiple of 32).
+// I8: the activation is quantised with one scale per window of 256 outputs
+// (ops/quant.py), from the pre-pass act_amax_kernel (act_conv_core.cuh):
+// one launch before the kernel over every window [t0 - pad, t0 + 256 +
+// pad) of all Cin channels, which writes 8-channel partial maxima to the
+// caller's scratch ``part`` [B][ceil(T / 256)][ceil(Cin / 8)]. A tile
+// (BN = 64 or 128) reads its window's. Both compute the activation
+// without FMAs (snake_ordered), so that it equals its plain version's bits
+// and int8 quanta.
 
 #include "act_conv_core.cuh"
 
 namespace {
 
-// --- F32, BF16: the tensor-core route -------------------------------------------
+// --- the tensor-core pass, every dtype -----------------------------------------
 
 template <Dot D, int K, int BM, int BN, int WM, bool CLUSTER>
 __global__ void __launch_bounds__(MMA_NT, 2)
@@ -84,19 +86,60 @@ act_conv1d_mma_kernel(const float* __restrict__ x,
       Cin, Cout, cin_p, cout_p, co0, T, t0, dil);
 }
 
-// The tile (BM, BN, warps along channels, cluster) of Cout for BF16 (BF)
-// or F32: 256 x 64 (8 x 1 warps, each 32 x 64) where 256 divides Cout
-// (C = 768), 128 x 128 (4 x 2, each 32 x 64) where 128 does (C = 384),
-// for BF16 in clusters of the output-channel blocks of a time tile
-// (cluster_size: 10% faster; F32 ran 3% slower); else 64 x 128 (2 x 4,
-// each 32 x 32), no cluster; -1 without an instance
-template <bool BF, class F>
+// I8: as above, with sw, the [Cout] weight scales, and part, the
+// pre-pass's partial maxima (n_groups a window)
+template <int K, int BM, int BN, int WM, bool CLUSTER>
+__global__ void __launch_bounds__(MMA_NT, 2)
+act_conv1d_s8_kernel(const float* __restrict__ x,
+                     const float* __restrict__ alpha,
+                     const float* __restrict__ beta,
+                     const signed char* __restrict__ wp,
+                     const float* __restrict__ sw,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ r0,
+                     const float* __restrict__ r1,
+                     const float* __restrict__ r2, float* __restrict__ y,
+                     const float* __restrict__ part, int n_groups, int Cin,
+                     int Cout, int cin_p, int cout_p, int T, int dil,
+                     int logscale, float out_scale) {
+  static_assert(I8_WINDOW % BN == 0, "I8 tiles tile the windows");
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __shared__ float red[32];
+  const int t0 = blockIdx.x * BN;
+  const int co0 = blockIdx.y * BM;
+  const long long b = blockIdx.z;
+  const long long n_win = (T + I8_WINDOW - 1) / I8_WINDOW;
+  const Quant q = window_quant(
+      part + (b * n_win + t0 / I8_WINDOW) * n_groups, n_groups, red);
+  const long long ob = b * Cout * T;
+  auto epi = [&](int co, int l, float acc) {
+    const int t = t0 + l;
+    if (t >= T) return;
+    const long long o = ob + (long long)co * T + t;
+    float v = acc + (bias != nullptr ? bias[co] : 0.0f);
+    if (r0 != nullptr) v += r0[o];
+    if (r1 != nullptr) v += r1[o];
+    if (r2 != nullptr) v += r2[o];
+    y[o] = v * out_scale;
+  };
+  act_conv_mma<Dot::I8, K, BM, BN, WM, false, 2, CLUSTER>(
+      GlobalSrc{x + b * Cin * T, T}, epi, smem_mma, alpha, beta, logscale, wp,
+      Cin, Cout, cin_p, cout_p, co0, T, t0, dil, q, sw);
+}
+
+// The tile (BM, BN, warps along channels, cluster) of Cout for BF16 and I8
+// (SHARE) or F32: 256 x 64 (8 x 1 warps, each 32 x 64) where 256 divides
+// Cout (C = 768), 128 x 128 (4 x 2, each 32 x 64) where 128 does (C =
+// 384), for BF16 and I8 in clusters of the output-channel blocks of a time
+// tile (cluster_size: BF16 10% faster; F32 ran 3% slower); else 64 x 128
+// (2 x 4, each 32 x 32), no cluster; -1 without an instance
+template <bool SHARE, class F>
 long long dispatch_mma(int K, int Cout, const F& f) {
   const int kind = Cout % 256 == 0 ? 0 : Cout % 128 == 0 ? 1 : 2;
 #define FHT_CASE(K_)                                                       \
   case K_:                                                                 \
-    return kind == 0   ? f.template run<K_, 256, 64, 8, BF>()              \
-           : kind == 1 ? f.template run<K_, 128, 128, 4, BF>()             \
+    return kind == 0   ? f.template run<K_, 256, 64, 8, SHARE>()           \
+           : kind == 1 ? f.template run<K_, 128, 128, 4, SHARE>()          \
                        : f.template run<K_, 64, 128, 2, false>();
   switch (K) {
     FHT_CASE(3)
@@ -118,10 +161,10 @@ inline int cluster_size(int Cout, int BM) {
 
 struct MmaSmemQuery {
   int dil;
-  bool bf;
+  Dot d;
   template <int K, int BM, int BN, int WM, bool CLUSTER>
   long long run() const {
-    return mma_core_bytes(BM, BN, dil * (K - 1) / 2, bf, CLUSTER);
+    return mma_core_bytes(BM, BN, dil * (K - 1) / 2, d, CLUSTER);
   }
 };
 
@@ -129,20 +172,31 @@ template <Dot D>
 struct MmaLauncher {
   const float *x, *alpha, *beta, *filt;
   const void* w;
-  const float *bias, *r0, *r1, *r2;
-  float* y;
+  const float *sw, *bias, *r0, *r1, *r2;
+  float *y, *part;
   int B, Cin, Cout, cin_p, cout_p, T, dil, logscale;
   float out_scale;
   cudaStream_t s;
   template <int K, int BM, int BN, int WM, bool CLUSTER>
   long long run() const {
-    auto kern = act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER>;
-    const long long smem = mma_core_bytes(BM, BN, dil * (K - 1) / 2,
-                                          MmaOps<D>::BF, CLUSTER);
+    const int pad = dil * (K - 1) / 2;
+    const long long smem = mma_core_bytes(BM, BN, pad, D, CLUSTER);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e;
+    if constexpr (D == Dot::I8)
+      e = cudaFuncSetAttribute(act_conv1d_s8_kernel<K, BM, BN, WM, CLUSTER>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    else
+      e = cudaFuncSetAttribute(
+          act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess) e = set_taps(filt, s);
+    const int n_groups = (Cin + AMAX_CH - 1) / AMAX_CH;
+    if (e == cudaSuccess && D == Dot::I8)  // the windows' scales first
+      e = launch_act_amax(x, alpha, beta, logscale, part, B, Cin, T,
+                          (T + I8_WINDOW - 1) / I8_WINDOW, I8_WINDOW, -pad,
+                          I8_WINDOW + 2 * pad, s);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((T + BN - 1) / BN, (Cout + BM - 1) / BM, B);
@@ -156,157 +210,38 @@ struct MmaLauncher {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(
-        &cfg, kern, x, alpha, beta,
-        static_cast<const typename MmaOps<D>::WT*>(w), bias, r0, r1, r2, y,
-        Cin, Cout, cin_p, cout_p, T, dil, logscale, out_scale);
+    if constexpr (D == Dot::I8)
+      e = cudaLaunchKernelEx(
+          &cfg, act_conv1d_s8_kernel<K, BM, BN, WM, CLUSTER>, x, alpha, beta,
+          static_cast<const signed char*>(w), sw, bias, r0, r1, r2, y,
+          static_cast<const float*>(part), n_groups, Cin, Cout, cin_p,
+          cout_p, T, dil, logscale, out_scale);
+    else
+      e = cudaLaunchKernelEx(
+          &cfg, act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER>, x, alpha,
+          beta, static_cast<const typename MmaOps<D>::WT*>(w), bias, r0, r1,
+          r2, y, Cin, Cout, cin_p, cout_p, T, dil, logscale, out_scale);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
 };
 
 template <Dot D>
 int act_conv1d_mma(const float* x, const float* alpha, const float* beta,
-                   const float* filt, const void* w, const float* bias,
-                   const float* r0, const float* r1, const float* r2, float* y,
-                   int B, int Cin, int Cout, int cin_p, int cout_p, int T,
-                   int K, int dil, int logscale, float out_scale,
-                   void* stream) {
+                   const float* filt, const void* w, const float* sw,
+                   const float* bias, const float* r0, const float* r1,
+                   const float* r2, float* y, float* part, int B, int Cin,
+                   int Cout, int cin_p, int cout_p, int T, int K, int dil,
+                   int logscale, float out_scale, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
-      Cout > 65535 || cin_p < Cin || cin_p % 16 != 0 || cout_p < Cout)
+      Cout > 65535 || cin_p < Cin || cin_p % MmaOps<D>::KC != 0 ||
+      cin_p % 16 != 0 || cout_p < Cout ||
+      (D == Dot::I8 && (sw == nullptr || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const MmaLauncher<D> f{x, alpha, beta, filt, w, bias, r0, r1, r2, y,
-                         B, Cin, Cout, cin_p, cout_p, T, dil, logscale,
-                         out_scale, (cudaStream_t)stream};
-  const long long err = dispatch_mma<MmaOps<D>::BF>(K, Cout, f);
-  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
-}
-
-// --- I8: the FMA route ---------------------------------------------------------------
-
-constexpr int NI = 8;   // samples per thread: a 256-sample tile
-constexpr int BN = TX * NI;
-
-// w holds int32 values (by their bits), with sw the [Cout] scales
-template <Dot D, int K, int CI, int TM, int TYB>
-__global__ void __launch_bounds__(TX * TYB, 512 / (TX * TYB))
-act_conv1d_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
-                  const float* __restrict__ beta, const float* filt,
-                  const float* __restrict__ w, const float* __restrict__ sw,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ r0, const float* __restrict__ r1,
-                  const float* __restrict__ r2, float* __restrict__ y,
-                  int Cin, int Cout, int T, int dil, int logscale,
-                  float out_scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int t0 = blockIdx.x * BN;
-  const int co0 = blockIdx.y * TM * TYB;
-  const long long b = blockIdx.z;
-  const GlobalSrc src{x + b * Cin * T, T};
-  const long long ob = b * Cout * T;
-  auto epi = [&](int co, int l, float acc) {
-    const int t = t0 + l;
-    if (t >= T) return;
-    const long long o = ob + (long long)co * T + t;
-    float v = acc + (bias != nullptr ? bias[co] : 0.0f);
-    if (r0 != nullptr) v += r0[o];
-    if (r1 != nullptr) v += r1[o];
-    if (r2 != nullptr) v += r2[o];
-    y[o] = v * out_scale;
-  };
-  Quant q{0.0f, 0.0f};
-  if constexpr (D == Dot::I8)
-    q = quant_of(act_amax<K, CI, TM, NI, TYB>(src, smem, filt, alpha, beta,
-                                              logscale, Cin, T, t0, BN, dil));
-  act_conv_tile<D, K, CI, TM, NI, TYB>(src, epi, smem, filt, alpha, beta,
-                                       logscale, w, Cin, Cout, co0, T, t0, dil,
-                                       q, sw);
-}
-
-template <int K, int CI, int TM, int TYB>
-long long smem_bytes(int dil) {
-  return 4 * core_floats(K, CI, TM * TYB, BN, dil * (K - 1) / 2);
-}
-
-template <Dot D, int K, int CI, int TM, int TYB>
-int launch(const float* x, const float* alpha, const float* beta,
-           const float* filt, const float* w, const float* sw,
-           const float* bias, const float* r0, const float* r1,
-           const float* r2, float* y, int B, int Cin, int Cout, int T,
-           int dil, int logscale, float out_scale, cudaStream_t stream) {
-  auto kern = act_conv1d_kernel<D, K, CI, TM, TYB>;
-  const long long smem = smem_bytes<K, CI, TM, TYB>(dil);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  constexpr int BM = TM * TYB;
-  dim3 grid((T + BN - 1) / BN, (Cout + BM - 1) / BM, B);
-  kern<<<grid, TX * TYB, smem, stream>>>(x, alpha, beta, filt, w, sw, bias,
-                                         r0, r1, r2, y, Cin, Cout, T, dil,
-                                         logscale, out_scale);
-  return (int)cudaGetLastError();
-}
-
-// the output-channel tile: 128 (16 warps) where 128 divides Cout, 48
-// where 48 divides Cout and 64 does not, else 64
-inline int tile_kind(int Cout) {
-  if (Cout % 128 == 0) return 2;
-  return Cout % 48 == 0 && Cout % 64 != 0 ? 0 : 1;
-}
-
-template <class F>
-long long dispatch(int K, int Cout, const F& f) {
-  const int kind = tile_kind(Cout);
-#define FHT_CASE(K_, CI_)                                                  \
-  case K_:                                                                 \
-    return kind == 2   ? f.template run<K_, CI_, 8, 16>()                  \
-           : kind == 0 ? f.template run<K_, CI_, 6, 8>()                   \
-                       : f.template run<K_, CI_, 8, 8>();
-  switch (K) {  // CI x K = 24, 28, 22 rows of GEMM depth per chunk
-    FHT_CASE(3, 8)
-    FHT_CASE(7, 4)
-    FHT_CASE(11, 2)
-    default: return -1;
-  }
-#undef FHT_CASE
-}
-
-struct SmemQuery {
-  int dil;
-  template <int K, int CI, int TM, int TYB>
-  long long run() const {
-    return smem_bytes<K, CI, TM, TYB>(dil);
-  }
-};
-
-template <Dot D>
-struct Launcher {
-  const float *x, *alpha, *beta, *filt, *w, *sw, *bias, *r0, *r1, *r2;
-  float* y;
-  int B, Cin, Cout, T, dil, logscale;
-  float out_scale;
-  cudaStream_t s;
-  template <int K, int CI, int TM, int TYB>
-  long long run() const {
-    return launch<D, K, CI, TM, TYB>(x, alpha, beta, filt, w, sw, bias, r0,
-                                     r1, r2, y, B, Cin, Cout, T, dil,
-                                     logscale, out_scale, s);
-  }
-};
-
-template <Dot D>
-int act_conv1d(const float* x, const float* alpha, const float* beta,
-               const float* filt, const float* w, const float* sw,
-               const float* bias, const float* r0, const float* r1,
-               const float* r2, float* y, int B, int Cin, int Cout, int T,
-               int K, int dil, int logscale, float out_scale, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
-      Cout > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Launcher<D> f{x, alpha, beta, filt, w, sw, bias, r0, r1, r2, y, B,
-                      Cin, Cout, T, dil, logscale, out_scale,
-                      (cudaStream_t)stream};
-  const long long err = dispatch(K, Cout, f);
+  const MmaLauncher<D> f{x,   alpha, beta, filt,   w,      sw,
+                         bias, r0,   r1,   r2,     y,      part,
+                         B,   Cin,   Cout, cin_p,  cout_p, T,
+                         dil, logscale, out_scale, (cudaStream_t)stream};
+  const long long err = dispatch_mma<D != Dot::F32>(K, Cout, f);
   return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
 }
 
@@ -316,10 +251,10 @@ int act_conv1d(const float* x, const float* alpha, const float* beta,
 // (bytes), -1 without an instance; mirrored by
 // flowhigh_tpu_torch/ops/fused_conv.py:act_conv_smem_bytes.
 extern "C" long long act_conv1d_smem_bytes(int K, int dil, int Cout, int dot) {
-  if (dot == (int)Dot::I8) return dispatch(K, Cout, SmemQuery{dil});
-  return dot == (int)Dot::BF16
-             ? dispatch_mma<true>(K, Cout, MmaSmemQuery{dil, true})
-             : dispatch_mma<false>(K, Cout, MmaSmemQuery{dil, false});
+  if (dot < 0 || dot > 2) return -1;
+  const MmaSmemQuery f{dil, (Dot)dot};
+  return dot == (int)Dot::F32 ? dispatch_mma<false>(K, Cout, f)
+                              : dispatch_mma<true>(K, Cout, f);
 }
 
 // Each returns cudaGetLastError() after the launch (or the error that kept
@@ -335,9 +270,10 @@ extern "C" int act_conv1d_f32(const float* x, const float* alpha,
                               int Cout, int T, int K, int dil, int logscale,
                               int cin_p, int cout_p, float out_scale,
                               void* stream) {
-  return act_conv1d_mma<Dot::F32>(x, alpha, beta, filt, w, bias, r0, r1, r2,
-                                  y, B, Cin, Cout, cin_p, cout_p, T, K, dil,
-                                  logscale, out_scale, stream);
+  return act_conv1d_mma<Dot::F32>(x, alpha, beta, filt, w, nullptr, bias, r0,
+                                  r1, r2, y, nullptr, B, Cin, Cout, cin_p,
+                                  cout_p, T, K, dil, logscale, out_scale,
+                                  stream);
 }
 
 extern "C" int act_conv1d_bf16(const float* x, const float* alpha,
@@ -348,21 +284,25 @@ extern "C" int act_conv1d_bf16(const float* x, const float* alpha,
                                int Cout, int T, int K, int dil, int logscale,
                                int cin_p, int cout_p, float out_scale,
                                void* stream) {
-  return act_conv1d_mma<Dot::BF16>(x, alpha, beta, filt, w, bias, r0, r1, r2,
-                                   y, B, Cin, Cout, cin_p, cout_p, T, K, dil,
-                                   logscale, out_scale, stream);
+  return act_conv1d_mma<Dot::BF16>(x, alpha, beta, filt, w, nullptr, bias,
+                                   r0, r1, r2, y, nullptr, B, Cin, Cout,
+                                   cin_p, cout_p, T, K, dil, logscale,
+                                   out_scale, stream);
 }
 
-// wq: int32 weights in [-127, 127], sw: [Cout] scales (ops/quant.py)
+// w: the prepared int8 weights [K][cout_p][cin_p] (ops/conv.py:conv_weights,
+// quantize_weights' values; cin_p a multiple of 32) and sw their [Cout]
+// scales; part: scratch of B x ceil(T / 256) x ceil(Cin / 8) floats for the
+// window scales' pre-pass (two launches: the pre-pass, then the kernel).
 extern "C" int act_conv1d_int8(const float* x, const float* alpha,
                                const float* beta, const float* filt,
-                               const int* wq, const float* sw,
+                               const void* w, const float* sw,
                                const float* bias, const float* r0,
                                const float* r1, const float* r2, float* y,
-                               int B, int Cin, int Cout, int T, int K, int dil,
-                               int logscale, float out_scale, void* stream) {
-  return act_conv1d<Dot::I8>(x, alpha, beta, filt,
-                             reinterpret_cast<const float*>(wq), sw, bias, r0,
-                             r1, r2, y, B, Cin, Cout, T, K, dil, logscale,
-                             out_scale, stream);
+                               float* part, int B, int Cin, int Cout, int T,
+                               int K, int dil, int logscale, int cin_p,
+                               int cout_p, float out_scale, void* stream) {
+  return act_conv1d_mma<Dot::I8>(x, alpha, beta, filt, w, sw, bias, r0, r1,
+                                 r2, y, part, B, Cin, Cout, cin_p, cout_p, T,
+                                 K, dil, logscale, out_scale, stream);
 }

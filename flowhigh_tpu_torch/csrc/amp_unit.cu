@@ -22,19 +22,21 @@
 // Bound (a 10 s clip, 27 launches at C = 192, 96 and 48): operations.
 // F32 runs each product as three TF32 products on the tensor cores
 // (3xTF32: 4.74 TFLOP of TF32 products, 9.6 ms at 495 TFLOP/s), BF16 one
-// bf16 product (2.6 ms); the two snakes add ~112 f32 operations a sample
-// and channel. Against two kernel-D pairs the unit saves conv1's output
-// write and read (8 bytes an element).
+// bf16 product (2.6 ms), I8 one s8 product (0.8 ms at 1,979 TOP/s); the
+// two snakes add ~112 f32 operations a sample and channel. Against two
+// kernel-D pairs the unit saves conv1's output write and read (8 bytes an
+// element).
 //
-// Design: a block owns TT = BN - 2 H output samples of all C channels,
-// H = (K - 1) / 2 + 6 (conv2's reach plus act2's). Phase 1 runs the
-// act->conv pass of act_conv_core.cuh over BN samples starting H before
-// the tile, for each BM-channel block of conv1's output, and keeps the
-// result, C x BN floats, in shared memory. Phase 2 runs the same pass for
-// conv2 with its src read from there. Weights (w1 and w2, 3.2 MB at
-// C = 192, K = 11) are not resident: each block streams them through L2
-// once per phase. Two routes, as the core's:
-// - F32, BF16 (act_conv_mma, 8 warps): BN = 192 and one pass of BM = 192
+// Design: a block (I8: a cluster) owns TT = BN - 2 H output samples of all
+// C channels, H = (K - 1) / 2 + 6 (conv2's reach plus act2's). Phase 1
+// computes conv1 over BN samples starting H before the tile and keeps the
+// result, C x BN floats, in shared memory. Phase 2 runs act2 and conv2
+// with src read from there. Weights (w1 and w2, 3.2 MB at C = 192, K = 11)
+// are not resident: each block streams them through L2 once per phase.
+// Two kernels, both on the tensor cores:
+// - F32, BF16 (amp_unit_mma_kernel): the act->conv pass of
+//   act_conv_core.cuh (act_conv_mma, 8 warps) for each BM-channel block of
+//   conv1's output, then for conv2. BN = 192 and one pass of BM = 192
 //   channels at C = 192 (warps 4 along channels x 2 along time, each
 //   48 x 96), so each activation runs once per sample: 147,456 bytes of
 //   conv1 output leave room for the pass's working set, up to 78,688 bytes
@@ -48,24 +50,46 @@
 //   (48 x 48 a warp at C = 192) ran slower or spilled at 128 registers,
 //   except E.bf16 at C = 192 (PERF.md). Weights: kernel B's prepared
 //   layout [K][C_p][C_p] (ops/conv.py:conv_weights), f32 or bf16.
-// - I8 (act_conv_tile, the FMA route): BN = 256; a pass covers 96 output
-//   channels with 16 warps where 96 divides C (C = 192, 96), else 48 or 64
-//   with 8 warps; each activation runs C / 96 times per sample (2x at
-//   C = 192). act1 and act2 are quantised in shared memory (conv1's output
-//   stays f32), without FMAs (ORDERED in act_conv_core.cuh). One scale per
-//   phase: conv1's over act1 on [t0 - H - pad1, t0 + TT + H + pad1), by an
-//   act_amax pass over x before phase 1, and conv2's over act2 on
-//   [t0 - pad2, t0 + TT + pad2), by an act_amax pass over conv1's output
-//   in shared memory before phase 2. Weights: [C][C][K] int32 values with
-//   [C] scales.
+// - I8 (amp_unit_s8_kernel, s8 mma.sync): the pass is the int8 window,
+//   BN = 256 (TT = 256 - 2 H outputs), because act2's scale can only come
+//   from conv1's output on chip. Two scales per tile (ops/quant.py): act1's
+//   over [t0 - H - pad1, t0 + TT + H + pad1), from the pre-pass
+//   act_amax_kernel (act_conv_core.cuh; one launch before the kernel, 8
+//   channels' partial maxima per window in the caller's scratch), and
+//   act2's over [t0 - pad2, t0 + TT + pad2), in the kernel. A tile is a
+//   cluster of n = ceil(C / BM) blocks (BM = 96 with 16 warps, one block
+//   an SM; 48 with 8 warps, two an SM, at C <= 48; n = 2 at C = 192, 1 at
+//   96 and 48), block r owning output channels [r BM, (r + 1) BM) of both
+//   convs and their conv1 output (BM x 256 floats, 98,304 bytes: all 192
+//   channels, 196,608, leave too little of 227 KB for a tensor-core
+//   pass). Every block holds the whole quantised activation,
+//   [ceil(C / 32)][256 + 2 pad1] rows of 32 bytes (i8_offset), and:
+//   1. computes act1 of its share of the 32-channel chunks (every n-th),
+//      quantised with act1's scale and written into every block's rows
+//      (DSMEM); a cluster barrier;
+//   2. runs conv1 (s8 mma.sync, weights through a RING of 32-byte rows,
+//      mma_tap_s8) for its BM channels over the 256 samples into its
+//      conv1 output;
+//   3. computes act2 of its own channels over the 244 samples of act2's
+//      window (TT + 2 pad2), in place of their conv1 output, and its
+//      largest |value|; the blocks exchange those (DSMEM, a cluster
+//      barrier) for act2's scale, so act2 runs once a sample;
+//   4. quantises its channels' act2 into every block's rows (4 channels a
+//      32-bit DSMEM store); a cluster barrier;
+//   5. runs conv2 for its BM channels, epilogue as above.
+//   Both activations are computed without FMAs (snake_ordered), so that
+//   they equal their plain version's bits and int8 quanta. Weights: the
+//   prepared int8 layout [K][C_p][C_p] (ops/conv.py:conv_weights; C_p a
+//   multiple of 32) with [C] scales.
 //
-// The unit's tile TT is mirrored by ops/fused_conv.py:amp_unit_plan.
+// The unit's tile TT is mirrored by ops/fused_conv.py:amp_unit_plan, the
+// shared memory by amp_unit_smem_bytes there.
 
 #include "act_conv_core.cuh"
 
 namespace {
 
-// --- F32, BF16: the tensor-core route -------------------------------------------
+// --- F32, BF16: passes of the act->conv core --------------------------------
 
 // blocks an SM: two where a pass has at most 96 x 128 outputs (at most 128
 // registers a thread), else one (up to 255)
@@ -129,8 +153,9 @@ amp_unit_mma_kernel(const float* __restrict__ x, const float* __restrict__ a1,
 
 template <int K, int BM, int BN, int WM>
 long long mma_smem_bytes(int C, int dil, bool bf) {
-  return (long long)C * BN * 4 +
-         mma_core_bytes(BM, BN, dil * (K - 1) / 2, bf, false);
+  return (long long)C * BN * 4 + mma_core_bytes(BM, BN, dil * (K - 1) / 2,
+                                                bf ? Dot::BF16 : Dot::F32,
+                                                false);
 }
 
 // the tile (BM, BN, warps along channels) of C for BF16 (BF) or F32; -1
@@ -213,159 +238,360 @@ int amp_unit_mma(const float* x, const float* a1, const float* be1,
   return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
 }
 
-// --- I8: the FMA route ---------------------------------------------------------------
+// --- I8: clusters sharing the quantised activation ---------------------------
 
-constexpr int NI = 8;  // samples per thread: a 256-sample pass
-constexpr int BN = TX * NI;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 
-// One block per SM at C >= 96 (its conv1 buffer alone is >= 96 KB); the
-// 48-channel instance (C = 48: 76 KB) is capped for two blocks per SM.
-// w1, w2 hold int32 values (by their bits) for I8, with sw1, sw2 the [C]
-// scales
-template <Dot D, int K, int CI, int TM, int TYB>
-__global__ void __launch_bounds__(TX * TYB, TYB == 8 && TM == 6 ? 2 : 1)
-amp_unit_kernel(const float* __restrict__ x, const float* __restrict__ a1,
-                const float* __restrict__ be1, const float* __restrict__ a2,
-                const float* __restrict__ be2, const float* filt,
-                const float* __restrict__ w1, const float* __restrict__ sw1,
-                const float* __restrict__ bias1,
-                const float* __restrict__ w2, const float* __restrict__ sw2,
-                const float* __restrict__ bias2,
-                const float* __restrict__ e0, const float* __restrict__ e1,
-                float* __restrict__ y, int C, int T, int dil, int logscale,
-                float out_scale) {
-  constexpr int BM = TM * TYB;
+// Threads a block: 16 warps for 96 output channels (one block an SM: twice
+// the 8 warps' latency hiding in the snakes, 1.12-1.14x faster at C = 192,
+// 96 on an H100, PERF.md), 8 for 48 (two blocks an SM; 16 warps at one ran
+// 1.29x slower)
+__host__ __device__ constexpr int s8_threads(int BM) {
+  return BM == 48 ? 256 : 512;
+}
+
+// Bytes of shared memory of one block (see the top of this file): conv1
+// output BM x 256 floats | activation rows ceil(C / 32) x (256 + 2 pad) x
+// 32 | weight ring RING x BM x 32 | two stages of raw input SUB x (256 +
+// 2 pad + 12) floats | snake signal SUB x 2 (256 + 2 pad + 6) floats |
+// two stages of snake parameters 2 x SUB floats | the cluster's act2
+// maxima MAX_CLUSTER floats
+__host__ __device__ constexpr long long s8_unit_bytes(int C, int BM,
+                                                      int pad) {
+  const long long aw = I8_WINDOW + 2 * pad;
+  return 4LL * BM * I8_WINDOW + (C + 31) / 32 * aw * 32 + RING * BM * 32LL +
+         4 * (2 * SUB * (aw + 12) + SUB * 2 * (aw + 6) + 2 * 2 * SUB +
+              MAX_CLUSTER);
+}
+
+// One unit tile, as a cluster (grid (n, tiles, B), cluster (n, 1, 1)). w1,
+// w2: the prepared int8 weights [K][cout_p][cin_p], sw1, sw2 their [C]
+// scales; part: act1's pre-pass maxima, n_groups a tile
+template <int K, int BM>
+__global__ void __launch_bounds__(s8_threads(BM), BM == 48 ? 2 : 1)
+amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
+                   const float* __restrict__ be1,
+                   const float* __restrict__ a2,
+                   const float* __restrict__ be2,
+                   const signed char* __restrict__ w1,
+                   const float* __restrict__ sw1,
+                   const float* __restrict__ bias1,
+                   const signed char* __restrict__ w2,
+                   const float* __restrict__ sw2,
+                   const float* __restrict__ bias2,
+                   const float* __restrict__ e0, const float* __restrict__ e1,
+                   float* __restrict__ y, const float* __restrict__ part,
+                   int n_groups, int C, int T, int cin_p, int cout_p, int dil,
+                   int logscale, float out_scale) {
+  namespace cg = cooperative_groups;
+  constexpr int BN = I8_WINDOW;
   constexpr int H = (K - 1) / 2 + 6;
   constexpr int TT = BN - 2 * H;
-  extern __shared__ __align__(16) float smem[];
-  float* t1 = smem;            // conv1's output [C][BN], positions t0 - H ..
-  float* work = smem + C * BN;
-  const int t0 = blockIdx.x * TT;
-  const long long b = blockIdx.y;
-  const float* xb = x + b * C * T;
+  constexpr int AW2 = BN - 12;  // act2's window, TT + 2 pad2
+  // warps: 48 output channels x 256 / WN samples each
+  constexpr int NT = s8_threads(BM);
+  constexpr int WM = BM / 48, WN = NT / 32 / WM;
+  constexpr int MT = BM / (16 * WM), NT8 = BN / (8 * WN);
+  static_assert(MT * 16 * WM == BM && NT8 * 8 * WN == BN, "warp tiles");
+  extern __shared__ __align__(16) unsigned char smem_s8[];
+  __shared__ float red[32];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), n_ranks = (int)cl.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, t = lane & 3;
+  const int co0 = rank * BM, own = min(BM, C - co0);
+  const int t0 = blockIdx.y * TT;
+  const long long b = blockIdx.z;
+  const int pad1 = dil * (K - 1) / 2, aw1 = BN + 2 * pad1;
+  const int xw1 = aw1 + 12, sn1 = aw1 + 6;
+  const int n_ch = (C + 31) / 32;  // 32-channel chunks of the activation
 
-  const GlobalSrc src1{xb, T};
-  auto epi1 = [&](int co, int l, float acc) {
-    t1[co * BN + l] = acc + (bias1 != nullptr ? bias1[co] : 0.0f);
+  float* t1 = reinterpret_cast<float*>(smem_s8);  // [BM][BN] from t0 - H
+  unsigned char* act = smem_s8 + 4 * BM * BN;     // [n_ch][aw1][32]
+  signed char* ring =
+      reinterpret_cast<signed char*>(act + (long long)n_ch * aw1 * 32);
+  float* xr0 = reinterpret_cast<float*>(ring + RING * BM * 32);
+  float* sig = xr0 + 2 * SUB * xw1;
+  float* ab0 = sig + SUB * 2 * sn1;
+  float* slots = ab0 + 2 * 2 * SUB;
+
+  const Quant q1 = window_quant(
+      part + (b * gridDim.y + blockIdx.y) * n_groups, n_groups, red);
+  cl.sync();  // every block of the cluster runs before any DSMEM write
+
+  // 8 channels of src from channel c (n_valid of them; zeros after) and
+  // their snake parameters (channel pc ...) into stage st, xw samples from
+  // position g0
+  auto stage = [&](const auto& src, int st, int c, int n_valid, int pc,
+                   const float* alpha, const float* beta, int g0, int xw) {
+    float* xr = xr0 + st * SUB * xw;
+    const float inv_xw = 1.0f / xw;
+    for (int e = tid; e < SUB * xw; e += NT) {
+      const int ci = split(e, inv_xw);
+      src.stage(xr + e, c + ci, g0 + e - ci * xw, ci < n_valid);
+    }
+    if (tid < SUB) {
+      float a = 1.0f, bb = 1.0f;
+      if (tid < n_valid) {
+        a = alpha[pc + tid];
+        bb = beta != nullptr ? beta[pc + tid] : a;
+        if (logscale) {
+          a = expf(a);
+          bb = expf(bb);
+        }
+      }
+      float* ab = ab0 + st * 2 * SUB;
+      ab[tid] = a;
+      ab[SUB + tid] = 1.0f / (bb + 1e-9f);
+    }
   };
-  Quant q{0.0f, 0.0f};
-  if constexpr (D == Dot::I8)
-    q = quant_of(act_amax<K, CI, TM, NI, TYB>(src1, work, filt, a1, be1,
-                                              logscale, C, T, t0 - H, BN, dil));
-  for (int co0 = 0; co0 < C; co0 += BM)
-    act_conv_tile<D, K, CI, TM, NI, TYB>(src1, epi1, work, filt, a1, be1,
-                                         logscale, w1, C, C, co0, T, t0 - H,
-                                         dil, q, sw1);
-  __syncthreads();  // all of conv1's output before phase 2 reads it
+  // n sub-passes: staging of i + 1 (stage_i) overlaps the snake of i
+  // (compute_i); ends with every thread done with the stages and sig
+  auto sub_passes = [&](int n, const auto& stage_i, const auto& compute_i) {
+    if (n > 0) stage_i(0, 0);
+    cp_async_commit();
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      if (i + 1 < n) stage_i(i + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // stage i landed ...
+      __syncthreads();     // ... for every thread; sub-pass i - 1 is done
+      compute_i(i, i & 1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  };
 
+  // 1. act1 of chunks rank, rank + n, ... (sub-pass i: chunk rank + n (i /
+  // 4), channels 8 (i % 4) ..), quantised into every block's rows
+  const int my_ch = (n_ch - rank + n_ranks - 1) / n_ranks;
+  const int n_sub1 =
+      my_ch <= 0 ? 0
+                 : 4 * (my_ch - 1) +
+                       min(4, (C - 32 * (rank + n_ranks * (my_ch - 1)) + 7) /
+                                  8);
+  const GlobalSrc src1{x + b * C * T, T};
+  sub_passes(
+      n_sub1,
+      [&](int i, int st) {
+        const int c = 32 * (rank + n_ranks * (i >> 2)) + 8 * (i & 3);
+        stage(src1, st, c, min(SUB, C - c), c, a1, be1, t0 - H - pad1 - 6,
+              xw1);
+      },
+      [&](int i, int st) {
+        const int ch = rank + n_ranks * (i >> 2), c8 = 8 * (i & 3);
+        const float* ab = ab0 + st * 2 * SUB;
+        unsigned char* rows = act + (long long)ch * aw1 * 32;
+        snake_ordered(xr0 + st * SUB * xw1, xw1, ab, ab + SUB, sig, sn1, 0,
+                      aw1, t0 - H - pad1, T, [&](int j, int c, float v) {
+                        unsigned char* dst = rows + i8_offset(j, c8 + c);
+                        const unsigned char qv =
+                            (unsigned char)__float2int_rn(v * q1.qs);
+                        for (int r = 0; r < n_ranks; ++r)
+                          *cl.map_shared_rank(dst, r) = qv;
+                      });
+      });
+  cl.sync();  // every block's share of act1 has landed
+
+  int acc[MT][NT8][4];
+  // acc = conv of the activation rows with wp (dilation dl), this block's
+  // BM output channels; weights through the ring, one barrier a tap
+  auto conv = [&](const signed char* wp, int dl) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
+    const int n_steps = n_ch * K;
+    auto issue = [&](int s) {
+      if (s < n_steps) {
+        const int c = s / K, k = s - c * K;
+        signed char* wd = ring + (s % RING) * BM * 32;
+        for (int e = tid; e < 2 * BM; e += NT) {
+          const int row = e >> 1, half = e & 1;
+          const bool ok = co0 + row < cout_p;
+          cp_async16_zfill(
+              wd + w_row_offset(row, half, 16),
+              ok ? wp + ((long long)k * cout_p + co0 + row) * cin_p + c * 32 +
+                       half * 16
+                 : wp,
+              ok);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll 1
+    for (int s = 0; s < AHEAD; ++s) issue(s);
+#pragma unroll 1
+    for (int s = 0; s < n_steps; ++s) {
+      const int c = s / K, k = s - c * K;
+      cp_async_wait<AHEAD - 1>();  // step s's weights landed ...
+      __syncthreads();             // ... for every thread; step s - 1 done
+      issue(s + AHEAD);
+      mma_tap_s8<MT, NT8>(acc, ring + (s % RING) * BM * 32,
+                          act + (long long)c * aw1 * 32,
+                          wn * NT8 * 8 + k * dl, wm, lane);
+    }
+    cp_async_wait<0>();  // only empty groups are left
+  };
+  // epi(co, l, value) for this block's outputs
+  auto drain = [&](const float* sw, const Quant& q, const auto& epi) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int co = co0 + (wm * MT + i) * 16 + g + 8 * hh;
+        if (co >= C || co - co0 >= BM) continue;
+        const float fac = q.sx * sw[co];
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) {
+          const int l = (wn * NT8 + n) * 8 + 2 * t;
+          epi(co, l, dequant(acc[i][n][2 * hh], fac));
+          epi(co, l + 1, dequant(acc[i][n][2 * hh + 1], fac));
+        }
+      }
+  };
+
+  // 2. conv1 into this block's conv1 output
+  conv(w1, dil);
+  drain(sw1, q1, [&](int co, int l, float v) {
+    t1[(co - co0) * BN + l] = v + (bias1 != nullptr ? bias1[co] : 0.0f);
+  });
+  __syncthreads();  // all of this block's conv1 output
+
+  // 3. act2 of this block's channels over [t0 - pad2, t0 + TT + pad2), in
+  // place: raw sample i is conv1 output i (position t0 - H + i)
+  const int n_sub2 = (own + SUB - 1) / SUB;
   const SmemSrc src2{t1, BN, t0 - H, T};
+  float m2 = 0.0f;
+  sub_passes(
+      n_sub2,
+      [&](int i, int st) {
+        stage(src2, st, 8 * i, min(SUB, own - 8 * i), co0 + 8 * i, a2, be2,
+              t0 - H, BN);
+      },
+      [&](int i, int st) {
+        const float* ab = ab0 + st * 2 * SUB;
+        snake_ordered(xr0 + st * SUB * BN, BN, ab, ab + SUB, sig, AW2 + 6, 0,
+                      AW2, t0 - (K - 1) / 2, T, [&](int j, int c, float v) {
+                        t1[(8 * i + c) * BN + j] = v;
+                        m2 = fmaxf(m2, fabsf(v));
+                      });
+      });
+  m2 = block_max(m2, red);
+  if (tid < n_ranks) *cl.map_shared_rank(slots + rank, tid) = m2;
+  cl.sync();  // every block's maximum has landed; every block is done
+              // reading act1
+  float amax2 = 0.0f;
+  for (int r = 0; r < n_ranks; ++r) amax2 = fmaxf(amax2, slots[r]);
+  const Quant q2 = quant_of(amax2);
+
+  // 4. act2's quanta of this block's channels (8 n_sub2 of them, the
+  // last zeros past C) into every block's rows, 4 channels a store
+  const float inv_aw2 = 1.0f / AW2;
+  for (int e = tid; e < 2 * n_sub2 * AW2; e += NT) {
+    const int c4 = 4 * split(e, inv_aw2), j = e - (c4 / 4) * AW2;
+    unsigned word = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int qv = __float2int_rn(t1[(c4 + u) * BN + j] * q2.qs);
+      word |= ((unsigned)qv & 0xffu) << (8 * u);
+    }
+    const int c = co0 + c4;
+    unsigned* dst = reinterpret_cast<unsigned*>(
+        act + (long long)(c >> 5) * aw1 * 32 + i8_offset(j, c & 31));
+    for (int r = 0; r < n_ranks; ++r) *cl.map_shared_rank(dst, r) = word;
+  }
+  cl.sync();  // the whole of act2 has landed in every block
+
+  // 5. conv2 and the epilogue
+  conv(w2, 1);
   const long long ob = b * C * T;
-  auto epi2 = [&](int co, int l, float acc) {
-    const int t = t0 + l;
-    if (l >= TT || t >= T) return;
-    const long long o = ob + (long long)co * T + t;
-    float v = acc + (bias2 != nullptr ? bias2[co] : 0.0f);
+  drain(sw2, q2, [&](int co, int l, float v) {
+    const int tt = t0 + l;
+    if (l >= TT || tt >= T) return;
+    const long long o = ob + (long long)co * T + tt;
+    v += bias2 != nullptr ? bias2[co] : 0.0f;
     v += x[o];
     if (e0 != nullptr) v += e0[o];
     if (e1 != nullptr) v += e1[o];
     y[o] = v * out_scale;
-  };
-  if constexpr (D == Dot::I8)
-    q = quant_of(act_amax<K, CI, TM, NI, TYB>(src2, work, filt, a2, be2,
-                                              logscale, C, T, t0, TT, 1));
-  for (int co0 = 0; co0 < C; co0 += BM)
-    act_conv_tile<D, K, CI, TM, NI, TYB>(src2, epi2, work, filt, a2, be2,
-                                         logscale, w2, C, C, co0, T, t0, 1, q,
-                                         sw2);
+  });
 }
 
-template <int K, int CI, int TM, int TYB>
-long long smem_bytes(int C, int dil) {
-  return 4 * ((long long)C * BN +
-              core_floats(K, CI, TM * TYB, BN, dil * (K - 1) / 2));
-}
+// BM of C: 96, or 48 where C <= 48 (one block)
+inline int s8_unit_bm(int C) { return C <= 48 ? 48 : 96; }
 
-template <Dot D, int K, int CI, int TM, int TYB>
-int launch(const float* x, const float* a1, const float* be1,
-           const float* a2, const float* be2, const float* filt,
-           const float* w1, const float* sw1, const float* bias1,
-           const float* w2, const float* sw2, const float* bias2,
-           const float* e0, const float* e1, float* y, int B, int C, int T,
-           int dil, int logscale, float out_scale, cudaStream_t stream) {
-  auto kern = amp_unit_kernel<D, K, CI, TM, TYB>;
-  const long long smem = smem_bytes<K, CI, TM, TYB>(C, dil);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  constexpr int TT = BN - 2 * ((K - 1) / 2 + 6);
-  dim3 grid((T + TT - 1) / TT, B);
-  kern<<<grid, TX * TYB, smem, stream>>>(x, a1, be1, a2, be2, filt, w1, sw1,
-                                         bias1, w2, sw2, bias2, e0, e1, y, C,
-                                         T, dil, logscale, out_scale);
-  return (int)cudaGetLastError();
-}
-
-struct SmemQuery {
-  int C, dil;
-  template <int K, int CI, int TM, int TYB>
-  long long run() const {
-    return smem_bytes<K, CI, TM, TYB>(C, dil);
-  }
-};
-
-template <Dot D>
-struct Launcher {
-  const float *x, *a1, *be1, *a2, *be2, *filt, *w1, *sw1, *bias1, *w2, *sw2,
-      *bias2, *e0, *e1;
-  float* y;
-  int B, C, T, dil, logscale;
-  float out_scale;
-  cudaStream_t s;
-  template <int K, int CI, int TM, int TYB>
-  long long run() const {
-    return launch<D, K, CI, TM, TYB>(x, a1, be1, a2, be2, filt, w1, sw1,
-                                     bias1, w2, sw2, bias2, e0, e1, y, B, C,
-                                     T, dil, logscale, out_scale, s);
-  }
-};
-
-// one instance per (K, output-channel pass): 96 channels (16 warps) where
-// 96 divides C, 48 where 48 divides C and 64 does not, else 64 (8 warps);
-// CI = 4 / 2 / 2 input channels per chunk at K = 3 / 7 / 11; -1 without an
-// instance
 template <class F>
-long long dispatch(int K, int C, const F& f) {
-  const int kind = C % 96 == 0 ? 2 : (C % 48 == 0 && C % 64 != 0) ? 0 : 1;
-#define FHT_CASE(K_, CI_)                                                  \
-  case K_:                                                                 \
-    return kind == 2   ? f.template run<K_, CI_, 6, 16>()                  \
-           : kind == 0 ? f.template run<K_, CI_, 6, 8>()                   \
-                       : f.template run<K_, CI_, 8, 8>();
+long long dispatch_s8(int K, int C, const F& f) {
+  const bool narrow = s8_unit_bm(C) == 48;
+#define FHT_CASE(K_)                                                        \
+  case K_:                                                                  \
+    return narrow ? f.template run<K_, 48>() : f.template run<K_, 96>();
   switch (K) {
-    FHT_CASE(3, 4)
-    FHT_CASE(7, 2)
-    FHT_CASE(11, 2)
+    FHT_CASE(3)
+    FHT_CASE(7)
+    FHT_CASE(11)
     default: return -1;
   }
 #undef FHT_CASE
 }
 
-template <Dot D>
-int amp_unit(const float* x, const float* a1, const float* be1,
-             const float* a2, const float* be2, const float* filt,
-             const float* w1, const float* sw1, const float* bias1,
-             const float* w2, const float* sw2, const float* bias2,
-             const float* e0, const float* e1, float* y, int B, int C, int T,
-             int K, int dil, int logscale, float out_scale, void* stream) {
-  if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Launcher<D> f{x,  a1,  be1, a2, be2, filt, w1, sw1, bias1, w2,
-                      sw2, bias2, e0, e1, y, B, C, T, dil, logscale,
-                      out_scale, (cudaStream_t)stream};
-  const long long err = dispatch(K, C, f);
-  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
-}
+struct S8SmemQuery {
+  int C, dil;
+  template <int K, int BM>
+  long long run() const {
+    return s8_unit_bytes(C, BM, dil * (K - 1) / 2);
+  }
+};
+
+struct S8Launcher {
+  const float *x, *a1, *be1, *a2, *be2, *filt;
+  const void* w1;
+  const float *sw1, *bias1;
+  const void* w2;
+  const float *sw2, *bias2, *e0, *e1;
+  float *y, *part;
+  int B, C, T, dil, logscale, cin_p, cout_p;
+  float out_scale;
+  cudaStream_t s;
+  template <int K, int BM>
+  long long run() const {
+    auto kern = amp_unit_s8_kernel<K, BM>;
+    const int pad = dil * (K - 1) / 2, n = (C + BM - 1) / BM;
+    constexpr int H = (K - 1) / 2 + 6, TT = I8_WINDOW - 2 * H;
+    const long long smem = s8_unit_bytes(C, BM, pad);
+    if (smem > 232448 || n > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess) e = set_taps(filt, s);
+    const int n_tiles = (T + TT - 1) / TT;
+    if (e == cudaSuccess)  // act1's window scales first
+      e = launch_act_amax(x, a1, be1, logscale, part, B, C, T, n_tiles, TT,
+                          -H - pad, I8_WINDOW + 2 * pad, s);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n, n_tiles, B);
+    cfg.blockDim = dim3(s8_threads(BM));
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(
+        &cfg, kern, x, a1, be1, a2, be2, static_cast<const signed char*>(w1),
+        sw1, bias1, static_cast<const signed char*>(w2), sw2, bias2, e0, e1,
+        y, static_cast<const float*>(part), (C + AMAX_CH - 1) / AMAX_CH, C, T,
+        cin_p, cout_p, dil, logscale, out_scale);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
+};
 
 }  // namespace
 
@@ -373,7 +599,7 @@ int amp_unit(const float* x, const float* a1, const float* be1,
 // (bytes), -1 without an instance; mirrored by
 // flowhigh_tpu_torch/ops/fused_conv.py:amp_unit_smem_bytes.
 extern "C" long long amp_unit_smem_bytes(int K, int dil, int C, int dot) {
-  if (dot == (int)Dot::I8) return dispatch(K, C, SmemQuery{C, dil});
+  if (dot == (int)Dot::I8) return dispatch_s8(K, C, S8SmemQuery{C, dil});
   return dot == (int)Dot::BF16
              ? dispatch_mma<true>(K, C, MmaSmemQuery{C, dil, true})
              : dispatch_mma<false>(K, C, MmaSmemQuery{C, dil, false});
@@ -411,20 +637,29 @@ extern "C" int amp_unit_bf16(const float* x, const float* a1,
                                  cin_p, cout_p, out_scale, stream);
 }
 
-// wq1, wq2: int32 weights in [-127, 127], sw1, sw2: [C] scales
-// (ops/quant.py)
+// w1, w2: the prepared int8 weights [K][cout_p][cin_p]
+// (ops/conv.py:conv_weights, quantize_weights' values; cin_p a multiple of
+// 32), sw1, sw2 their [C] scales; part: scratch of B x ceil(T / TT) x
+// ceil(C / 8) floats for act1's window scales (two launches: the pre-pass,
+// then the kernel).
 extern "C" int amp_unit_int8(const float* x, const float* a1,
                              const float* be1, const float* a2,
                              const float* be2, const float* filt,
-                             const int* wq1, const float* sw1,
-                             const float* bias1, const int* wq2,
+                             const void* w1, const float* sw1,
+                             const float* bias1, const void* w2,
                              const float* sw2, const float* bias2,
                              const float* e0, const float* e1, float* y,
-                             int B, int C, int T, int K, int dil,
-                             int logscale, float out_scale, void* stream) {
-  return amp_unit<Dot::I8>(x, a1, be1, a2, be2, filt,
-                           reinterpret_cast<const float*>(wq1), sw1, bias1,
-                           reinterpret_cast<const float*>(wq2), sw2, bias2, e0,
-                           e1, y, B, C, T, K, dil, logscale, out_scale,
-                           stream);
+                             float* part, int B, int C, int T, int K,
+                             int dil, int logscale, int cin_p, int cout_p,
+                             float out_scale, void* stream) {
+  if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535 || cin_p < C ||
+      cin_p % 32 != 0 || cout_p < C || sw1 == nullptr || sw2 == nullptr ||
+      part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const S8Launcher f{x,   a1,    be1,   a2,    be2,      filt,   w1,
+                     sw1, bias1, w2,    sw2,   bias2,    e0,     e1,
+                     y,   part,  B,     C,     T,        dil,    logscale,
+                     cin_p, cout_p, out_scale, (cudaStream_t)stream};
+  const long long err = dispatch_s8(K, C, f);
+  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
 }

@@ -6,15 +6,17 @@
 //   BF16  both operands rounded to bf16 (nearest even), f32 FMA: a bf16 x
 //         bf16 product is exact in f32, so this is the JAX kernel's bf16
 //         dot with f32 accumulation;
-//   I8    weights quantised per output channel on the host (int32 values in
+//   I8    weights quantised per output channel on the host (values in
 //         [-127, 127] and an f32 scale), the activation quantised in the
 //         kernel with one scale per window (aq = rint(a * (127 / amax))),
-//         int32 multiply-adds (exact: K Cin 127^2 < 2^31), then
-//         float(acc) * (s_x * s_w[co]).
+//         integer sums (exact in any order: K Cin 127^2 < 2^31), then
+//         float(acc) * (s_x * s_w[co]). Kernels D and E sum on the tensor
+//         cores (s8 mma.sync, int8 operands; act_conv_core.cuh), kernel
+//         B.int8 by int32 multiply-adds on the FMA units.
 //
-// Every staged operand keeps 4 bytes in shared memory (int8 values as
-// int32, bf16 values as f32), so the layouts, and the capacity plans of
-// ops/fused_conv.py, are those of F32.
+// The tensor-core kernels (B's GEMM route, C, D, E) stage bf16 and int8
+// operands in their own types; kernel B.int8 (conv1d_same.cu) stages its
+// int8 operands as int32 values (bits_as, mad below).
 
 #pragma once
 

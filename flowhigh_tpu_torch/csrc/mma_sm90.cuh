@@ -1,24 +1,29 @@
-// Warp-level tensor-core and asynchronous-copy helpers for sm_90a (mma.sync,
-// ldmatrix, cp.async) and the 3xTF32 split, shared by the kernels that run
-// their dot products on the tensor cores: kernel B's GEMM route
-// (csrc/conv1d_same.cu), kernel C (csrc/conv_transpose1d.cu) and the
-// act->conv core of kernels D and E (csrc/act_conv_core.cuh). B and C stage
+// Warp-level tensor-core and asynchronous-copy helpers for sm_90a (mma.sync
+// on bf16, tf32 and s8, ldmatrix, cp.async) and the 3xTF32 split, shared by
+// the kernels that run their dot products on the tensor cores: kernel B's
+// GEMM route (csrc/conv1d_same.cu), kernel C (csrc/conv_transpose1d.cu) and
+// the act->conv core of kernels D and E (csrc/act_conv_core.cuh). B and C stage
 // a chunk of KC input channels at a time: the weights as rows of 32 bytes
 // (one tap and output channel, KC = 8 f32 or 16 bf16 channels), and x as
 // f32 rows [frame][XS] (the chunk's channels of one frame, padded to XS),
 // and load their weight fragments with the a_frag_* helpers below.
 //
-// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / m16n8k8"),
-// for lane = 4 g + t (g = lane / 4 in [0, 8), t = lane % 4):
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / m16n8k8 /
+// m16n8k32"), for lane = 4 g + t (g = lane / 4 in [0, 8), t = lane % 4):
 //   m16n8k16 bf16   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..),
 //                   a2 (g, 2t+8..), a3 (g+8, 2t+8..), two bf16 a register
 //                   (the lower k in the low half); B (16 x 8, "col": k
 //                   contiguous for one n): b0 (k 2t..2t+1, n g), b1 (k
 //                   2t+8..2t+9, n g);
+//   m16n8k32 s8     the same bytes: A (16 x 32): a0 (g, 4t..4t+3), a1 (g+8,
+//                   4t..), a2 (g, 4t+16..), a3 (g+8, 4t+16..), four int8 a
+//                   register; B (32 x 8): b0 (k 4t..4t+3, n g), b1 (k
+//                   4t+16..4t+19, n g); so a 32-byte row of 32 int8 is
+//                   loaded as a 16-bf16 row is (ldmatrix);
 //   m16n8k8 tf32    A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
 //                   a3 (g+8, t+4); B (8 x 8): b0 (k t, n g), b1 (k t+4, n g);
 //   accumulator     c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, the same
-//                   cols), f32.
+//                   cols), f32 (s32 for s8).
 
 #pragma once
 
@@ -127,6 +132,18 @@ __device__ __forceinline__ void mma_tf32_1688(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b, m16n8k32, int8 operands, int32 accumulator: exact (no rounding,
+// any order) while the sums stay below 2^31
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // c += a b to f32 accuracy with three TF32 products (the small ones first):
 // a_lo b_hi + a_hi b_lo + a_hi b_hi; the omitted a_lo b_lo is below
 // 2^-22 |a b|. The tensor cores round their sums toward zero, which biases
@@ -164,6 +181,14 @@ __device__ __forceinline__ void a_frag_bf16(unsigned (&a)[4],
                                             int row0, int lane) {
   // lane l gives row row0 + l % 16, half l / 16
   ldmatrix_x4(a, ws + w_row_offset(row0 + (lane & 15), lane >> 4, 8));
+}
+
+// A fragment (m16 x k32) of int8 weights: rows row0 .. row0 + 15 (row0 a
+// multiple of 16) of a weight stage of 32-channel rows
+__device__ __forceinline__ void a_frag_s8(unsigned (&a)[4],
+                                          const signed char* ws, int row0,
+                                          int lane) {
+  ldmatrix_x4(a, ws + w_row_offset(row0 + (lane & 15), lane >> 4, 16));
 }
 
 // A fragment (m16 x k8) of f32 weights, split into TF32 hi and lo: rows

@@ -31,15 +31,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _CONV = [_P] * 7 + [_I] * 6 + [_F, _P]
 _CONVT = [_P] * 4 + [_I] * 6 + [_P]
-_PAIR = [_P] * 10 + [_I] * 7 + [_F, _P]
-_UNIT = [_P] * 13 + [_I] * 6 + [_F, _P]
-# the float32 and bfloat16 instances of D and E also take the prepared
-# weights' padded sizes (Cin_p, Cout_p)
+# D and E take the prepared weights' padded sizes (Cin_p, Cout_p)
 _PAIR_MMA = [_P] * 10 + [_I] * 9 + [_F, _P]
 _UNIT_MMA = [_P] * 13 + [_I] * 8 + [_F, _P]
 # argument types of each C entry point, in declaration order; every entry
 # point returns a C int (a CUDA error code or a flag) unless RESTYPES says.
-# each int8 instance takes one more pointer per weight tensor: its scales
+# each int8 instance takes one more pointer per weight tensor (its scales),
+# and those of D and E one for the pre-pass's scratch
 SIGNATURES = {
     "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                  "snake_aa_firs_f32": [_P, _P, _P, _I, _I, _P]},
@@ -53,11 +51,11 @@ SIGNATURES = {
         "conv_transpose1d_weight_align": [_I]},
     "act_conv1d": {
         "act_conv1d_f32": _PAIR_MMA, "act_conv1d_bf16": _PAIR_MMA,
-        "act_conv1d_int8": [_P] + _PAIR,
+        "act_conv1d_int8": [_P, _P] + _PAIR_MMA,
         "act_conv1d_smem_bytes": [_I] * 4},
     "amp_unit": {
         "amp_unit_f32": _UNIT_MMA, "amp_unit_bf16": _UNIT_MMA,
-        "amp_unit_int8": [_P, _P] + _UNIT,
+        "amp_unit_int8": [_P] * 3 + _UNIT_MMA,
         "amp_unit_smem_bytes": [_I] * 4},
     "flash_attn": {"flash_attn_f32": [_P] * 5 + [_I] * 5 + [_F, _P],
                    "flash_attn_supported": [_I]},

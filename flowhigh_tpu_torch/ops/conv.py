@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from ..utils import cudnn_f32
 from . import _build
 from .quant import (_cached, bf16_weights, check_dot_dtype, conv1d_int8,
-                    int8_weights, round_bf16)
+                    int8_weights, quantize_weights, round_bf16)
 
 CONV_TILE = 256  # kernel B.int8's time tile: the int8 partition of conv1d
 NARROW_COUT = 16  # below it, kernel B's narrow route (conv_post)
@@ -49,6 +49,9 @@ CONVT_CIN_ALIGN, CONVT_COUT_ALIGN = 16, 64
 # and kernel B's GEMM route's (csrc/conv1d_same.cu: CIN_ALIGN, COUT_ALIGN;
 # conv1d_same_weight_align)
 CONV_CIN_ALIGN, CONV_COUT_ALIGN = 16, 64
+# the int8 instances of kernels D and E take Cin in chunks of 32, one s8
+# mma.sync k-step (csrc/act_conv_core.cuh: MmaOps<Dot::I8>::KC)
+INT8_CIN_ALIGN = 32
 
 
 def _check(what: str, x: torch.Tensor, *tensors) -> None:
@@ -108,12 +111,14 @@ def conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 def _tap_major(w: torch.Tensor, cin_align: int, cout_align: int,
                dot_dtype: torch.dtype) -> torch.Tensor:
     """w as [K, Cout, Cin] -> [K, Cout_p, Cin_p], zero-padded to the
-    multiples, contiguous: float32, or bfloat16 rounded to nearest even
-    (``round_bf16``'s values) for the bf16 instances."""
+    multiples, contiguous: float32, bfloat16 rounded to nearest even
+    (``round_bf16``'s values) for the bf16 instances, or int8 (w holding
+    integers in [-127, 127])."""
     k, cout, cin = w.shape
     cin_p = -(-cin // cin_align) * cin_align
     cout_p = -(-cout // cout_align) * cout_align
-    dt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
+    dt = dot_dtype if dot_dtype in (torch.bfloat16, torch.int8) \
+        else torch.float32
     out = torch.zeros((k, cout_p, cin_p), dtype=dt, device=w.device)
     out[:, :cout, :cin] = w.to(dt)
     return out
@@ -122,8 +127,13 @@ def _tap_major(w: torch.Tensor, cin_align: int, cout_align: int,
 def conv_weight_layout(w: torch.Tensor,
                        dot_dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
-    """Kernel B's GEMM route: w [Cout, Cin, K] -> [K, Cout_p, Cin_p]
-    (``CONV_COUT_ALIGN``, ``CONV_CIN_ALIGN``), float32 or bfloat16."""
+    """Kernel B's GEMM route and kernels D and E: w [Cout, Cin, K] -> [K,
+    Cout_p, Cin_p] (``CONV_COUT_ALIGN``, ``CONV_CIN_ALIGN``), float32 or
+    bfloat16; int8 (D and E only): ``quantize_weights(w)``'s integers, Cin
+    padded to ``INT8_CIN_ALIGN`` (their scales are ``int8_weights(w)[1]``)."""
+    if dot_dtype == torch.int8:
+        return _tap_major(quantize_weights(w)[0].permute(2, 0, 1),
+                          INT8_CIN_ALIGN, CONV_COUT_ALIGN, dot_dtype)
     return _tap_major(w.permute(2, 0, 1), CONV_CIN_ALIGN, CONV_COUT_ALIGN,
                       dot_dtype)
 

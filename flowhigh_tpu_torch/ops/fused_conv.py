@@ -19,11 +19,13 @@ raises (no fallback: a shape no kernel instance takes is an error).
 ``dot_dtype`` (``ops/quant.py``) picks the instance: float32 (the default),
 bfloat16 or int8. Rounding or quantisation applies to each activation
 after its edge mask, as in the JAX kernels (``packed.py:829``, ``:1188``,
-``:1199``); conv1's output inside a unit stays f32. The float32 and
-bfloat16 instances run their convolutions on the tensor cores (3xTF32 and
-bf16 ``mma.sync``, as kernel B) and take kernel B's prepared weights
-(``conv.conv_weights``); the int8 ones run int32 multiply-adds on the FMA
-units.
+``:1199``); conv1's output inside a unit stays f32. Every instance runs its
+convolutions on the tensor cores (3xTF32, bf16 and s8 ``mma.sync``) and
+takes prepared weights (``conv.conv_weights``: kernel B's layout; int8
+quantised, with ``quant.int8_weights``' scales). The int8 instances launch
+a pre-pass first, the window scales' kernel (``act_amax_plain`` is its
+plain version): the largest |activation| of each int8 window, in partial
+maxima of 8 channels, into scratch that the wrapper allocates.
 
 The plans decide, from shapes alone, where the vocoder routes a unit or a
 pair (``models/bigvgan.py:AMPBlock1``). They are capacity rules for one
@@ -40,28 +42,22 @@ import torch
 
 from . import _build
 from .conv import (DOT_NAME, _check, _stream, conv1d_plain, conv_weights,
-                   count_launch, weight_ptrs)
+                   count_launch)
 from .fused_act import (_filter, snake_activation1d_ordered,
                         snake_activation1d_plain)
 from .quant import (DOT_DTYPES, check_dot_dtype, int8_conv_windows,
-                    untile, windows)
+                    int8_weights, untile, windows)
 
 SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
 TAPS = (3, 7, 11)        # kernel instances (BigVGAN's resblock kernels)
-# the tensor-core route (float32, bfloat16; act_conv_core.cuh: act_conv_mma)
+# the tensor-core pass (act_conv_core.cuh: act_conv_mma)
 MMA_RING = 3             # weight stages, one tap of [BM][32 bytes] each
 MMA_SUB = 8              # channels a snake sub-pass
-# the FMA route (int8; act_conv_tile): kernel D's time tile and kernel E's
-# pass (32 lanes x 8 samples), the int8 windows of ops/quant.py; input
-# channels per staged chunk (GEMM depth CI x K per chunk)
+# the int8 windows of ops/quant.py (act_conv_core.cuh: I8_WINDOW): kernel
+# D's outputs per window (its tiles tile them), kernel E.int8's pass
 INT8_TILE = 256
-PAIR_CHUNK = {3: 8, 7: 4, 11: 2}
-UNIT_CHUNK = {3: 4, 7: 2, 11: 2}
-
-
-def _narrow(c: int) -> bool:
-    """The C = 48, 96 stages: 48 divides C and 64 does not."""
-    return c % 48 == 0 and c % 64 != 0
+AMAX_CH = 8              # channels a partial maximum of the pre-pass
+MAX_CLUSTER = 8          # blocks a cluster of kernel E.int8 (amp_unit.cu)
 
 
 def _is_int8(dot_dtype: torch.dtype) -> bool:
@@ -70,17 +66,20 @@ def _is_int8(dot_dtype: torch.dtype) -> bool:
 
 def _pair_tile(c: int, dot_dtype: torch.dtype = torch.float32
                ) -> tuple[int, int]:
-    """(output channels BM, samples BN) a block of kernel D. float32 and
-    bfloat16 (8 warps, two blocks an SM): 256 x 64 where 256 divides C
-    (C = 768), 128 x 128 where 128 does (C = 384), for bfloat16 in
-    clusters of the C / BM blocks of a time tile, which share the
-    activation; else 64 x 128. int8 (the
-    FMA route): BM = 128 (16 warps) where 128 divides C, else 48 (C = 48,
-    96) or 64 (8 warps); BN = 256."""
-    if _is_int8(dot_dtype):
-        return (128 if c % 128 == 0 else 48 if _narrow(c) else 64), INT8_TILE
+    """(output channels BM, samples BN) a block of kernel D, every dtype
+    (8 warps, two blocks an SM): 256 x 64 where 256 divides C (C = 768),
+    128 x 128 where 128 does (C = 384), for bfloat16 and int8 in clusters
+    of the C / BM blocks of a time tile, which share the activation; else
+    64 x 128. BN divides ``INT8_TILE``, so int8 tiles tile its windows."""
+    check_dot_dtype(dot_dtype)
     return (256, 64) if c % 256 == 0 else (128, 128) if c % 128 == 0 \
         else (64, 128)
+
+
+def _cluster(c: int, dot_dtype: torch.dtype) -> bool:
+    """Kernel D's bfloat16 and int8 instances at C = 768, 384 run their
+    tiles in clusters that share the activation (two buffers)."""
+    return dot_dtype != torch.float32 and c % 128 == 0
 
 
 def _unit_tile(c: int, dot_dtype: torch.dtype = torch.float32
@@ -88,10 +87,11 @@ def _unit_tile(c: int, dot_dtype: torch.dtype = torch.float32
     """(output channels per pass BM, samples per pass BN) of kernel E.
     float32 and bfloat16 (8 warps): (192, 192) where 192 divides C; BM = 96
     where 96 divides C, 48 where 48 does, over BN = 128 for bfloat16 (two
-    blocks an SM) and 256 for float32; else (64, 192). int8 (16 or 8
-    warps): BM = 96 where 96 divides C, else 48 (C = 48) or 64; BN = 256."""
+    blocks an SM) and 256 for float32; else (64, 192). int8: BN = 256, the
+    window, and BM = 96 (48 where C <= 48) output channels a block of a
+    cluster of ceil(C / BM) blocks (two at C = 192)."""
     if _is_int8(dot_dtype):
-        return (96 if c % 96 == 0 else 48 if _narrow(c) else 64), INT8_TILE
+        return (48 if c <= 48 else 96), INT8_TILE
     if c % 192 == 0:
         return 192, 192
     bn = 128 if dot_dtype == torch.bfloat16 else 256
@@ -99,58 +99,60 @@ def _unit_tile(c: int, dot_dtype: torch.dtype = torch.float32
         else (64, 192)
 
 
-def core_smem_floats(k: int, pad: int, bn: int, bm: int, ci: int) -> int:
-    """Floats of shared memory that one FMA-route (int8) act->conv pass over
-    ``bn`` output samples takes (the layout of ``act_conv_tile`` in the
-    sources): two stages of raw input (ci x (bn + 2 pad + 12)), of weights
-    (ci*k x (bm + 4)) and of snake parameters (2 x ci); the 2x-rate snake
-    signal (ci x 2 (bn + 2 pad + 6)); the activation (ci x (bn + 2 pad));
-    and the 12 filter taps."""
-    aw = bn + 2 * pad
-    return (2 * ci * (aw + 12) + 2 * ci * k * (bm + 4) + 2 * 2 * ci
-            + ci * 2 * (aw + 6) + ci * aw + 12)
-
-
 def mma_core_smem_bytes(pad: int, bn: int, bm: int, bf16: bool,
-                        cluster: bool = False) -> int:
-    """Bytes of shared memory that one tensor-core (float32, bfloat16)
-    act->conv pass over ``bn`` output samples takes (the layout of
-    ``act_conv_mma`` in the sources), with aw = bn + 2 pad frames and
-    chunks of kc = 8 (float32) or 16 (bfloat16) input channels: a ring of
-    3 weight stages (bm rows of 32 bytes: one tap of a chunk); the
-    activation as [frame][ci] rows (80 bytes: TF32 hi and lo of 8 channels
-    at a stride of 20 floats; 48 bytes: 16 bf16 channels at a stride of
-    24); two stages of raw input (kc x (aw + 12) floats); the 2x-rate snake
-    signal of an 8-channel sub-pass (8 x 2 (aw + 6)); two stages of snake
-    parameters (2 x kc); the 12 filter taps are in constant memory. A
-    ``cluster`` pass (kernel D's, whose blocks share the activation) keeps
-    two activation buffers."""
-    aw, kc = bn + 2 * pad, 16 if bf16 else 8
-    return (MMA_RING * bm * 32 + (2 if cluster else 1) * aw * (48 if bf16
-                                                               else 80)
+                        cluster: bool = False, int8: bool = False) -> int:
+    """Bytes of shared memory that one tensor-core act->conv pass over
+    ``bn`` output samples takes (the layout of ``act_conv_mma`` in the
+    sources), with aw = bn + 2 pad frames and chunks of kc = 8 (float32),
+    16 (``bf16``) or 32 (``int8``) input channels: a ring of 3 weight
+    stages (bm rows of 32 bytes: one tap of a chunk); the activation as
+    [frame][ci] rows (80 bytes: TF32 hi and lo of 8 channels at a stride of
+    20 floats; 48 bytes: 16 bf16 channels at a stride of 24; 32 bytes: 32
+    int8 quanta); two stages of raw input (kc x (aw + 12) floats); the
+    2x-rate snake signal of an 8-channel sub-pass (8 x 2 (aw + 6)); two
+    stages of snake parameters (2 x kc); the 12 filter taps are in
+    constant memory. A ``cluster`` pass (kernel D's, whose blocks share the
+    activation) keeps two activation buffers."""
+    aw = bn + 2 * pad
+    kc, row = (32, 32) if int8 else (16, 48) if bf16 else (8, 80)
+    return (MMA_RING * bm * 32 + (2 if cluster else 1) * aw * row
             + 4 * (2 * kc * (aw + 12) + MMA_SUB * 2 * (aw + 6) + 2 * 2 * kc))
+
+
+def unit_s8_smem_bytes(c: int, pad: int, bm: int) -> int:
+    """Bytes of shared memory of one block of kernel E.int8 (the layout of
+    ``amp_unit_s8_kernel``, ``s8_unit_bytes`` in the sources), with aw =
+    256 + 2 pad1 frames: its conv1 output (bm x 256 floats), the whole
+    quantised activation (ceil(C / 32) chunks of aw rows of 32 bytes), a
+    ring of 3 weight stages (bm rows of 32 bytes), two stages of raw input
+    of an 8-channel sub-pass (8 x (aw + 12) floats), its snake signal (8 x
+    2 (aw + 6)), two stages of snake parameters (2 x 8) and the cluster's
+    act2 maxima (8 floats)."""
+    aw = INT8_TILE + 2 * pad
+    return (4 * bm * INT8_TILE + -(-c // 32) * aw * 32 + MMA_RING * bm * 32
+            + 4 * (2 * MMA_SUB * (aw + 12) + MMA_SUB * 2 * (aw + 6)
+                   + 2 * 2 * MMA_SUB + MAX_CLUSTER))
 
 
 def act_conv_smem_bytes(k: int, dilation: int, c: int,
                         dot_dtype: torch.dtype = torch.float32) -> int:
     pad = dilation * (k - 1) // 2
     bm, bn = _pair_tile(c, dot_dtype)
-    if _is_int8(dot_dtype):
-        return 4 * core_smem_floats(k, pad, bn, bm, PAIR_CHUNK[k])
-    bf16 = dot_dtype == torch.bfloat16
-    return mma_core_smem_bytes(pad, bn, bm, bf16, cluster=bf16
-                               and c % 128 == 0)
+    return mma_core_smem_bytes(pad, bn, bm, dot_dtype == torch.bfloat16,
+                               cluster=_cluster(c, dot_dtype),
+                               int8=_is_int8(dot_dtype))
 
 
 def amp_unit_smem_bytes(k: int, dilation: int, c: int,
                         dot_dtype: torch.dtype = torch.float32) -> int:
-    """conv1's output for all C channels over the pass (C x BN floats),
-    plus the working set of the wider of the two act->conv passes
-    (conv1's)."""
+    """float32, bfloat16: conv1's output for all C channels over the pass
+    (C x BN floats), plus the working set of the wider of the two act->conv
+    passes (conv1's). int8: one block of the cluster
+    (``unit_s8_smem_bytes``)."""
     bm, bn = _unit_tile(c, dot_dtype)
     pad = dilation * (k - 1) // 2
     if _is_int8(dot_dtype):
-        return 4 * (c * bn + core_smem_floats(k, pad, bn, bm, UNIT_CHUNK[k]))
+        return unit_s8_smem_bytes(c, pad, bm)
     return 4 * c * bn + mma_core_smem_bytes(pad, bn, bm,
                                             dot_dtype == torch.bfloat16)
 
@@ -169,24 +171,23 @@ def act_conv_plan(k: int, dilation: int, c: int, t: int,
     int8) fits one block's shared memory, so that the vocoder routes it the
     same way at every dtype.
 
-    float32 and bfloat16 (the tensor-core route): a block owns BM x BN
+    Every instance runs on the tensor cores: a block owns BM x BN
     (``_pair_tile``: 256 x 64 at C = 768, 128 x 128 at C = 384, else
-    64 x 128) and walks Cin in chunks of 8 (float32) or 16 (bfloat16)
-    channels, one 32-byte weight row. Per chunk it stages x over the conv
+    64 x 128) and walks Cin in chunks of 8 (float32), 16 (bfloat16) or 32
+    (int8) channels, one 32-byte weight row. Per chunk it stages x over the conv
     window plus the snake's reach, BN + 2 pad + 12 samples (pad = d (k -
     1) / 2), twice (double-buffered); the snake signal of 8 channels over
     BN + 2 pad + 6 positions; the activation as [frame][ci] rows over BN +
     2 pad frames; and a ring of 3 taps' weights, BM x 32 bytes each
-    (``mma_core_smem_bytes``; bfloat16 at C = 768 and 384 keeps two
-    activation buffers, which the blocks of a cluster fill together). At
-    k = 11, d = 5, C = 768, bfloat16: 24,576 + 2 x 5,472 + 16,128 + 7,680 +
-    256 = 59,584 bytes, so two blocks share an SM. int8 (the FMA route): a BM x 256 tile
-    (``core_smem_floats``; the largest BigVGAN pair, k = 3, d = 5, CI = 8,
-    takes 69.2 KB). Only the dilation bounds either: the window outgrows
-    227 KB near d = 500 at k = 3. The tile does not depend on T; the
-    activation of a chunk is recomputed by each of the C / BM
-    output-channel blocks (float32: 3x at C = 768 and 384; bfloat16: once,
-    shared by the cluster; int8: 6x and 3x)."""
+    (``mma_core_smem_bytes``; bfloat16 and int8 at C = 768 and 384 keep
+    two activation buffers, which the blocks of a cluster fill together).
+    At k = 11, d = 5, C = 768, bfloat16: 24,576 + 2 x 5,472 + 16,128 +
+    7,680 + 256 = 59,584 bytes, int8: 24,576 + 2 x 3,648 + 32,256 + 7,680
+    + 512 = 72,320, so two blocks share an SM. Only the dilation bounds
+    them: the window outgrows 227 KB near d = 500 at k = 3. The tile does
+    not depend on T; the activation of a chunk is recomputed by each of the
+    C / BM output-channel blocks (float32: 3x at C = 768 and 384; bfloat16,
+    int8: once, shared by the cluster; int8 adds the pre-pass's snake)."""
     del t  # every T tiles into blocks
     if k not in TAPS or any(act_conv_smem_bytes(k, dilation, c, dt)
                             > SMEM_PER_BLOCK for dt in DOT_DTYPES):
@@ -217,8 +218,10 @@ def amp_unit_plan(k: int, dilation: int, c: int, t: int,
       pair's work. C = 96 and 48: BN = 256 for float32 (tiles 242 / 238
       / 234, 1.06-1.09x), 128 for bfloat16 (114 / 110 / 106, 1.12-1.21x),
       so that two blocks share an SM;
-    - int8: BN = 256 and 96-channel passes at C = 192 (196,608 + 30,208 =
-      226,816 bytes at k = 11, d = 5; the largest, k = 3, d = 5: 228,176);
+    - int8: BN = 256, the window, in clusters of 96-channel blocks (two at
+      C = 192), each holding its half of conv1's output and the whole
+      quantised activation (``unit_s8_smem_bytes``: 206,752 bytes at
+      C = 192, k = 11, d = 5);
     - C = 384 needs 295 KB of conv1 output alone at BN = 192, C = 768
       590 KB: those units are not fused and their two pairs go to kernel
       D. (A narrower pass would fit C = 384 at 128 samples, but with 4
@@ -323,6 +326,26 @@ def _amp_unit_int8(x, a1, b1, a2, b2, logscale, w1, bias1, w2, bias2,
     return y if out_scale == 1.0 else y * out_scale
 
 
+def act_amax_plain(x: torch.Tensor, alpha: torch.Tensor,
+                   beta: Optional[torch.Tensor], logscale: bool, *,
+                   stride: int, lo: int, width: int,
+                   n_win: int) -> torch.Tensor:
+    """The plain version of the int8 instances' pre-pass (the window
+    scales' kernel, ``act_amax_kernel`` in csrc/act_conv_core.cuh): x [B,
+    C, T] -> [B, n_win, ceil(C / 8)], the largest |a| of the ordered
+    activation a = ``snake_activation1d_ordered(x)`` over each window
+    [w stride + lo, w stride + lo + width) ∩ [0, T) and each 8 channels
+    (zero where a window or a group holds no sample). Kernel D's windows:
+    stride 256, lo = -pad, width 256 + 2 pad; kernel E's (act1): stride
+    256 - 2 H, lo = -H - pad1, width 256 + 2 pad1."""
+    bsz, c, _ = x.shape
+    a = windows(snake_activation1d_ordered(x, alpha, beta, logscale), lo,
+                width, stride, n_win).abs()                # [B, n, C, W]
+    groups = -(-c // AMAX_CH)
+    a = torch.nn.functional.pad(a, (0, 0, 0, groups * AMAX_CH - c))
+    return a.reshape(bsz, n_win, groups, AMAX_CH * width).amax(dim=-1)
+
+
 # --- kernel wrappers -------------------------------------------------------------
 
 def _ptr(v: Optional[torch.Tensor]):
@@ -331,13 +354,23 @@ def _ptr(v: Optional[torch.Tensor]):
 
 def _weights(w: torch.Tensor, dot_dtype: torch.dtype) -> tuple:
     """(pointers, padded sizes) a kernel instance takes for one weight
-    tensor [Cout, Cin, K]: float32 and bfloat16, kernel B's prepared layout
-    [K, Cout_p, Cin_p] (``conv_weights``, once per weight tensor) and
-    (Cin_p, Cout_p); int8, (wq, s_w) and no sizes."""
-    if dot_dtype == torch.int8:
-        return weight_ptrs(w, dot_dtype), ()
+    tensor [Cout, Cin, K]: the prepared layout [K, Cout_p, Cin_p]
+    (``conv_weights``, once per weight tensor; int8 with its [Cout] scales)
+    and (Cin_p, Cout_p)."""
     wl = conv_weights(w, dot_dtype)
-    return (wl.data_ptr(),), (wl.shape[2], wl.shape[1])
+    ptrs = (wl.data_ptr(),)
+    if dot_dtype == torch.int8:
+        ptrs += (int8_weights(w)[1].data_ptr(),)
+    return ptrs, (wl.shape[2], wl.shape[1])
+
+
+def _scratch(x: torch.Tensor, n_win: int, dot_dtype: torch.dtype) -> list:
+    """The int8 pre-pass's partial maxima, [B, n_win, ceil(C / 8)] floats,
+    for an int8 instance; none for the others."""
+    if dot_dtype != torch.int8:
+        return []
+    return [torch.empty((x.shape[0], n_win, -(-x.shape[1] // AMAX_CH)),
+                        device=x.device, dtype=torch.float32)]
 
 
 def _check_act(what: str, x: torch.Tensor, c: int, alpha, beta) -> None:
@@ -380,9 +413,11 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
     y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
     wp, pads = _weights(w, dot_dtype)
+    part = _scratch(x, -(-t // INT8_TILE), dot_dtype)
     err = getattr(lib, f"act_conv1d_{DOT_NAME[dot_dtype]}")(
         x.data_ptr(), alpha.data_ptr(), _ptr(beta), _filter(x.device).data_ptr(),
         *wp, _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(),
+        *(v.data_ptr() for v in part),
         bsz, cin, cout, t, k, dilation, int(logscale), *pads,
         float(out_scale), _stream(x))
     _build.check(err, "act_conv1d")
@@ -434,11 +469,14 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
     ep = [r.data_ptr() for r in extras] + [None] * (2 - len(extras))
     wp1, pads = _weights(w1, dot_dtype)
     wp2, _ = _weights(w2, dot_dtype)
+    part = _scratch(x, -(-t // amp_unit_plan(k, dilation, c, t, dot_dtype)),
+                    dot_dtype)
     err = getattr(lib, f"amp_unit_{DOT_NAME[dot_dtype]}")(
         x.data_ptr(), a1.data_ptr(), _ptr(b1), a2.data_ptr(), _ptr(b2),
         _filter(x.device).data_ptr(), *wp1, _ptr(bias1), *wp2, _ptr(bias2),
-        ep[0], ep[1], y.data_ptr(), bsz, c, t, k, dilation, int(logscale),
-        *pads, float(out_scale), _stream(x))
+        ep[0], ep[1], y.data_ptr(), *(v.data_ptr() for v in part),
+        bsz, c, t, k, dilation, int(logscale), *pads, float(out_scale),
+        _stream(x))
     _build.check(err, "amp_unit")
     count_launch(amp_unit, dot_dtype)
     return y

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
-    python3 scripts/port_kernel_ab.py [TREE] [--fused]
+    python3 scripts/port_kernel_ab.py [TREE] [--fused | --int8]
 
 Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
 TREE (default: this checkout), so two versions of a kernel compare in one
@@ -10,13 +10,14 @@ call on one card: copy the other version's tree into a directory that
 A B B A. Prints one JSON line of mean ms (15 launches after 3 warm-up
 launches, CUDA events; a shape timed once and weighted by its launches):
 
-- kernel D (``act_conv1d``) and kernel E (``amp_unit``), float32 and
-  bfloat16 instances, at every shape of the default (fused) path of a 10 s
-  clip (``chip_smoke.main_path_calls``: 36 pairs at C = 768 and 384, 27
-  units at C = 192, 96 and 48), with the unfused chain of kernels A and B
-  that does the same work at the same dtype: per (C, K, d) (``D 768 3 1``,
-  ``D chain 768 3 1``), per stage (``D 768 sum``) and per clip (``D sum``,
-  ``D chain sum``; ``E ...`` and ``D.bf16 ...`` alike);
+- kernel D (``act_conv1d``) and kernel E (``amp_unit``), float32,
+  bfloat16 and int8 instances, at every shape of the fused path of a 10 s
+  clip at that dtype (``chip_smoke.main_path_calls``: 36 pairs at C = 768
+  and 384, 27 units at C = 192, 96 and 48), with the unfused chain of
+  kernels A and B that does the same work at the same dtype (for int8:
+  A + B.int8): per (C, K, d) (``D 768 3 1``, ``D chain 768 3 1``), per
+  stage (``D 768 sum``) and per clip (``D sum``, ``D chain sum``; ``E
+  ...``, ``D.bf16 ...`` and ``D.int8 ...`` alike);
 - kernel C (``conv_transpose1d``), float32 and bfloat16 instances, at the
   five upsampler shapes of a 10 s clip (Cin, Cout, T_in, u, K), with their
   per-clip sums (``C sum``, ``C.bf16 sum``);
@@ -26,7 +27,8 @@ launches, CUDA events; a shape timed once and weighted by its launches):
   (``B 768 3 1``), per stage (``B 768 sum``), conv_post (``B post``) and
   per clip (``B sum``), the same for ``B.bf16``.
 
-``--fused`` times D and E alone. Inputs are seeded random tensors. Needs
+``--fused`` times D and E alone, ``--int8`` their int8 instances alone
+(with their A + B.int8 chains). Inputs are seeded random tensors. Needs
 a CUDA card.
 """
 
@@ -81,9 +83,13 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def fused_per_clip(tree: Path, randn) -> dict:
-    """Kernels D and E (float32, bfloat16) and their A + B chains at every
-    shape of the default path of a 10 s clip, weighted by launches."""
+DOTS = {"": "float32", ".bf16": "bfloat16", ".int8": "int8"}
+
+
+def fused_per_clip(tree: Path, randn, sfxs=tuple(DOTS)) -> dict:
+    """Kernels D and E (the instances of ``sfxs``: "" float32, ".bf16",
+    ".int8") and their A + B chains at every shape of the fused path of a
+    10 s clip at that dtype, weighted by launches."""
     import torch
 
     from flowhigh_tpu_torch import FlowHighConfig, ops
@@ -92,7 +98,8 @@ def fused_per_clip(tree: Path, randn) -> dict:
         raise SystemExit(f"imported {chip_smoke.__file__}, not {tree}")
     cfg = FlowHighConfig().vocoder
     out: dict = {}
-    for sfx, dt in (("", torch.float32), (".bf16", torch.bfloat16)):
+    for sfx in sfxs:
+        dt = getattr(torch, DOTS[sfx])
         calls = chip_smoke.main_path_calls(
             cfg, 1000, True, None if dt == torch.float32 else dt)
         for key, n in calls["act_conv1d" + sfx].items():
@@ -139,8 +146,9 @@ def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
 
 
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--fused"]
-    fused_only = "--fused" in sys.argv[1:]
+    args = [a for a in sys.argv[1:] if a not in ("--fused", "--int8")]
+    int8_only = "--int8" in sys.argv[1:]
+    fused_only = int8_only or "--fused" in sys.argv[1:]
     tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
@@ -160,7 +168,8 @@ def main() -> int:
                                 * np.float32(scale)).cuda()
 
     res = {}
-    res.update(fused_per_clip(tree, randn))
+    res.update(fused_per_clip(tree, randn,
+                              (".int8",) if int8_only else tuple(DOTS)))
     if fused_only:
         return report(tree, res)
     for name, dt in (("C", torch.float32), ("C.bf16", torch.bfloat16)):

@@ -156,9 +156,10 @@ def test_plans_at_full_width(c, t):
             for dt in (torch.float32, torch.bfloat16, torch.int8):
                 int8 = dt == torch.int8
                 # D: 64-sample tiles on the tensor cores where 256 divides
-                # C (256-channel blocks), 128 elsewhere, 256 for int8
+                # C (256-channel blocks), 128 elsewhere, at every dtype
+                # (int8's tile the 256-sample windows)
                 assert ops.act_conv_plan(k, d, c, t, dt) == (
-                    256 if int8 else 64 if c % 256 == 0 else 128)
+                    64 if c % 256 == 0 else 128)
                 assert fused_conv.act_conv_smem_bytes(k, d, c, dt) <= 232448
                 tile = ops.amp_unit_plan(k, d, c, t, dt)
                 fits = fused_conv.amp_unit_smem_bytes(k, d, c, dt) <= 232448
@@ -176,7 +177,9 @@ def test_plans_refuse_what_no_kernel_takes():
     assert ops.act_conv_plan(5, 1, 64, 100) == 0      # no K = 5 instance
     assert ops.amp_unit_plan(5, 1, 64, 100) == 0
     assert ops.act_conv_plan(3, 1000, 64, 100) == 0   # window outgrows 227 KB
-    assert ops.amp_unit_plan(3, 1, 200, 100) == 0     # conv1 buffer too wide
+    assert ops.amp_unit_plan(3, 1, 256, 100) == 0     # conv1 buffer too wide
+    # int8 in a cluster of three 96-channel blocks: C = 200 fits every dtype
+    assert ops.amp_unit_plan(3, 1, 200, 100, torch.int8) == 242
     assert ops.amp_unit_plan(3, 1, 160, 5) == 178     # any T, any C <= 192
     assert ops.amp_unit_plan(3, 1, 160, 5, torch.int8) == 242
 

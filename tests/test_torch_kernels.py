@@ -505,6 +505,54 @@ def test_amp_unit_variant_matches_plain(cuda, gen, dot_dtype, k, d, b, c, t):
     assert ops.amp_unit.variant_launches[dot_dtype] == v0 + 1
 
 
+# The int8 instances of D and E on the s8 tensor cores compute the same
+# integers as their plain versions (the activation in the plain version's
+# order, the same windows and quanta, exact int32 sums) and the same f32
+# epilogue, so they give the same bits: T off the 256-sample window, Cin
+# off the 32-channel chunk, C = 48, a cluster of two (C = 192) and of a
+# partial block (C = 160), and full-width stage shapes. (Cin, Cout, T, K,
+# d, B) for D, (C, T, K, d, B) for E
+INT8_PAIRS = [(45, 64, 777, 7, 3, 1), (48, 48, 300, 11, 5, 2),
+              (384, 384, 600, 3, 1, 1), (768, 768, 5000, 11, 5, 1)]
+INT8_UNITS = [(45, 777, 7, 3, 1), (48, 300, 11, 5, 2), (160, 777, 3, 1, 1),
+              (192, 1000, 7, 3, 2), (192, 80000, 11, 5, 1)]
+
+
+@pytest.mark.parametrize("cin,cout,t,k,d,b", INT8_PAIRS)
+def test_act_conv1d_int8_equals_plain(cuda, gen, cin, cout, t, k, d, b):
+    x = _randn(gen, cuda, b, cin, t)
+    a, be = _randn(gen, cuda, cin, scale=0.3), _randn(gen, cuda, cin, scale=0.3)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = (_randn(gen, cuda, b, cout, t),)
+    args = (x, a, be, True, w, bias)
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3,
+              dot_dtype=torch.int8)
+    v0 = ops.act_conv1d.variant_launches[torch.int8]
+    got = ops.act_conv1d(*args, **kw)
+    assert ops.act_conv1d.variant_launches[torch.int8] == v0 + 1
+    want = ops.act_conv1d_plain(*args, **kw)
+    assert float((got - want).abs().max()) == 0.0 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c,t,k,d,b", INT8_UNITS)
+def test_amp_unit_int8_equals_plain(cuda, gen, c, t, k, d, b):
+    x = _randn(gen, cuda, b, c, t, scale=0.5)
+    acts = [_randn(gen, cuda, c, scale=0.3) for _ in range(4)]
+    w1 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    w2 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    b1, b2 = _randn(gen, cuda, c, scale=0.1), _randn(gen, cuda, c, scale=0.1)
+    ex = (_randn(gen, cuda, b, c, t),)
+    args = (x, *acts, True, w1, b1, w2, b2)
+    kw = dict(dilation=d, extra_residuals=ex, out_scale=1.0 / 3,
+              dot_dtype=torch.int8)
+    v0 = ops.amp_unit.variant_launches[torch.int8]
+    got = ops.amp_unit(*args, **kw)
+    assert ops.amp_unit.variant_launches[torch.int8] == v0 + 1
+    want = ops.amp_unit_plain(*args, **kw)
+    assert float((got - want).abs().max()) == 0.0 and torch.equal(got, want)
+
+
 def test_variant_wrappers_raise_without_an_instance(cuda, gen):
     x = _randn(gen, cuda, 1, 48, 64)
     with pytest.raises(ValueError, match="no kernel instance"):  # int8, Cout < 16
