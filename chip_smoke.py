@@ -34,15 +34,17 @@ Phases (any failure raises and the script exits non-zero):
    kernel C, of kernel B's GEMM route and of kernels D and E run 3xTF32 on
    the tensor cores, so their bounds count three TF32 products per f32
    product at the TF32 peak (``DOT_UNITS``); B's narrow route
-   (``conv_post``) runs on the FMA units. D.int8 and E.int8 run s8
-   ``mma.sync`` after a pre-pass launch for their window scales (both in
-   their ms); they equal their plain versions exactly (max abs 0.0, held
-   at ``STAT_TOL`` like the other variants). Phase 0 prints each kernel
-   instance's registers and spills (ptxas) and fails if a tensor-core
-   instance of D or E (float32, bfloat16, int8) or the int8 pre-pass
-   spills. C's rows per upsampler of the 10 s clip (f32 and bf16) are
-   printed, and B's per resblock shape of the unfused 10 s clip (stage x K
-   x d, f32 and bf16) and its ``conv_post`` row;
+   (``conv_post``) runs on the FMA units. B.int8, D.int8 and E.int8 run
+   s8 ``mma.sync`` after a pre-pass launch for their window scales (both
+   in their ms); they equal their plain versions exactly (max abs 0.0; D
+   and E held at ``STAT_TOL`` like the other variants, B.int8 at ATOL /
+   RTOL, and phase 1 fails if B.int8 differs at all). Phase 0 prints each
+   kernel instance's registers and spills (ptxas) and fails if an int8
+   instance of B, a tensor-core instance of D or E (float32, bfloat16,
+   int8) or an int8 pre-pass spills. C's rows per upsampler of the 10 s
+   clip (f32 and bf16) are printed, and B's per resblock shape of the
+   unfused 10 s clip (stage x K x d, f32, bf16 and int8) and its
+   ``conv_post`` row;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
    random weights) on a 10 s, 16 kHz clip, first on the default path, then
    on the unfused path: launch counts of every kernel on each run (zeroed
@@ -151,10 +153,11 @@ DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4),
 # (flowhigh_tpu_torch/ops/conv.py: NARROW_COUT)
 NARROW_COUT = 16
 # the entry functions that phase 0 fails on if ptxas reports a spill: the
-# tensor-core instances of D and E (float32, bfloat16; int8) and the int8
-# instances' pre-pass
+# tensor-core instances of D and E (float32, bfloat16; int8), B.int8 and
+# the int8 instances' pre-passes
 NO_SPILL = ("act_conv1d_mma_kernel", "act_conv1d_s8_kernel",
-            "amp_unit_mma_kernel", "amp_unit_s8_kernel", "act_amax_kernel")
+            "amp_unit_mma_kernel", "amp_unit_s8_kernel", "act_amax_kernel",
+            "conv1d_s8_kernel", "conv1d_amax_kernel")
 
 
 def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
@@ -564,17 +567,20 @@ def conv_groups(total: dict) -> dict:
 
 
 def print_conv_rows(kernel: str, total: dict) -> None:
-    """Phase 1: kernel B's rows per resblock shape of one path, per clip."""
+    """Phase 1: kernel B's rows per resblock shape of one path, per clip
+    (int8 has no cuDNN call)."""
+    lib = total["library_ms"] is not None
     for grp, g in sorted(conv_groups(total).items(),
                          key=lambda kv: (-kv[0][0], kv[0][1:])):
         what = ("(C, T, K, d) " if len(grp) == 4 else "conv_post ") + str(grp)
+        cudnn = f"cuDNN {g['library_ms']:.3f}, " if lib else ""
         print(f"  {kernel} {what}: {g['launches']} launches, per clip "
-              f"{g['ms']:.3f} ms (cuDNN {g['library_ms']:.3f}, bound "
-              f"{g['bound_ms']:.3f}), max abs err {g['max_abs_err']:.2e}",
-              flush=True)
+              f"{g['ms']:.3f} ms ({cudnn}bound {g['bound_ms']:.3f}), max "
+              f"abs err {g['max_abs_err']:.2e}", flush=True)
+    cudnn = f"cuDNN {total['library_ms']:.2f}, " if lib else ""
     print(f"  {kernel}: {total['launches']} launches, per clip "
-          f"{total['ms']:.2f} ms (cuDNN {total['library_ms']:.2f}, bound "
-          f"{total['bound_ms']:.2f} {total['bound_by']})", flush=True)
+          f"{total['ms']:.2f} ms ({cudnn}bound {total['bound_ms']:.2f} "
+          f"{total['bound_by']})", flush=True)
 
 
 # --- kernel F ------------------------------------------------------------------
@@ -1424,7 +1430,7 @@ def main() -> int:
                   f"{spill[0]} / {spill[1]} bytes")
             if kern in NO_SPILL and spill != (0, 0):
                 spilled.append(f"{kern}<{args}>")
-    if spilled:  # the tensor-core instances of D and E must not spill
+    if spilled:  # the s8 instances and D and E's tensor-core ones must not
         raise AssertionError(f"ptxas spills in {spilled}")
 
     config = FlowHighConfig()
@@ -1479,8 +1485,16 @@ def main() -> int:
                   f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'}), "
                   f"max abs err {r['max_abs_err']:.2e}", flush=True)
     for k, tot in (("conv1d_same", unfused_tot),
-                   ("conv1d_same.bf16", red_tot["bfloat16"][1])):
+                   ("conv1d_same.bf16", red_tot["bfloat16"][1]),
+                   ("conv1d_same.int8", red_tot["int8"][1])):
         print_conv_rows(k, tot[k])
+    b8 = max(r["max_abs_err"] for r in rows["conv1d_same.int8"].values())
+    print(f"  conv1d_same.int8: max abs against its plain version {b8:.3e} "
+          f"over {len(rows['conv1d_same.int8'])} shapes (expected 0.0)",
+          flush=True)
+    if b8 != 0.0:  # exact int32 sums, the plain version's quanta and order
+        raise AssertionError(f"conv1d_same.int8 differs from its plain "
+                             f"version: max abs {b8}")
     t0 = time.perf_counter()
     flash_rows = check_flash(peaks, long_frames)
     print(f"phase 1: flash_attn checked and timed at {len(flash_rows)} shapes "

@@ -64,13 +64,14 @@
 // int8 launch of D and E, computes the ordered activation over each
 // window of 8 channels a block and writes its largest |value| (one float
 // per window and 8 channels; the activation itself is never written); the
-// act->conv kernel takes the max of its window's partials
-// (window_quant). So the snake runs once per sample in the pre-pass and
+// act->conv kernel takes the max of its window's partials (window_quant,
+// dot_dtype.cuh). So the snake runs once per sample in the pre-pass and
 // once per block or cluster in the kernel, and D's tiles need only tile
 // the windows (BN divides I8_WINDOW) rather than be them. Kernel E.int8
 // (amp_unit.cu) takes the pre-pass for its first activation and builds
-// its own passes from the I8 pieces here (snake_ordered, i8_offset,
-// mma_tap_s8), computing its second activation's scale itself.
+// its own passes from the I8 pieces (snake_ordered here; i8_offset and
+// mma_tap_s8 in mma_sm90.cuh, which kernel B.int8 shares), computing its
+// second activation's scale itself.
 //
 // The activation is written as the dot of D stages it, after the zero
 // mask (packed.py:829, :1188, :1199): f32 (split into TF32 parts), rounded
@@ -164,14 +165,6 @@ __host__ __device__ constexpr long long mma_core_bytes(int BM, int BN, int pad,
          2 * kc * (aw + 12) * 4 + SUB * 2 * (aw + 6) * 4 + 2 * 2 * kc * 4;
 }
 
-// Byte offset of channel ci (< 32) of frame j in I8 activation rows: 32
-// bytes a frame, the two 16-byte halves swapped where (j / 4) is odd. The
-// 8 rows an ldmatrix reads, frames f .. f + 7 at one half, then fall in 8
-// distinct 4-bank groups for any f.
-__device__ __forceinline__ int i8_offset(int j, int ci) {
-  return j * 32 + ((((ci >> 4) ^ (j >> 2)) & 1) << 4) + (ci & 15);
-}
-
 // The ordered snake of SUB channels (the I8 activation; see the top of this
 // file). xr: SUB rows of xw raw samples, sample i at position p0 - 6 + i;
 // a_, ib_: the channels' a and 1 / (b + 1e-9). Fills sig (SUB rows of 2 sn
@@ -247,37 +240,6 @@ __device__ __forceinline__ void snake_ordered(const float* xr, int xw,
     }
 #pragma unroll
     for (int r = 0; r < NP; ++r) out(j + r, cl, v[r]);
-  }
-}
-
-// One tap of an I8 GEMM (s8 mma.sync): acc[i][n] += W[rows (wm MT + i) 16
-// ..][32 channels] x A[frames f0 + 8 n ..][32 channels], with ws a weight
-// stage of 32-byte rows (w_row_offset) and act I8 activation rows
-// (i8_offset) of one 32-channel chunk; f0 = the warp's first frame plus
-// the tap's offset.
-template <int MT, int NT8>
-__device__ __forceinline__ void mma_tap_s8(int (&acc)[MT][NT8][4],
-                                           const signed char* ws,
-                                           const unsigned char* act, int f0,
-                                           int wm, int lane) {
-  static_assert(NT8 % 2 == 0, "x for two n-tiles a load");
-  unsigned a[MT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) a_frag_s8(a[i], ws, (wm * MT + i) * 16, lane);
-  // ldmatrix.x4 rows, lane l: frame f0 + (n + l / 16) 8 + l % 8, half
-  // (l / 8) % 2: b0, b1 of n-tiles n, n + 1
-  const int h = (lane >> 3) & 1;
-  const int f1 = f0 + ((lane >> 4) & 1) * 8 + (lane & 7);
-#pragma unroll
-  for (int n = 0; n < NT8; n += 2) {
-    const int f = f1 + n * 8;
-    unsigned bq[4];
-    ldmatrix_x4(bq, act + f * 32 + (((h ^ (f >> 2)) & 1) << 4));
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      mma_s8_16832(acc[i][n], a[i], bq[0], bq[1]);
-      mma_s8_16832(acc[i][n + 1], a[i], bq[2], bq[3]);
-    }
   }
 }
 
@@ -709,16 +671,6 @@ inline cudaError_t launch_act_amax(const float* x, const float* alpha,
   act_amax_kernel<<<grid, MMA_NT, smem, s>>>(x, alpha, beta, logscale, part,
                                              Cin, T, stride, lo, width);
   return cudaGetLastError();
-}
-
-// The int8 scale of one window: the largest of its n_groups pre-pass
-// partials at part[0 .. n_groups). Every thread of the block gets it.
-__device__ __forceinline__ Quant window_quant(const float* __restrict__ part,
-                                              int n_groups, float* red) {
-  float m = 0.0f;
-  for (int i = threadIdx.x; i < n_groups; i += blockDim.x)
-    m = fmaxf(m, part[i]);
-  return quant_of(block_max(m, red));
 }
 
 }  // namespace

@@ -11,14 +11,14 @@
 // Layout: x [B, Cin, T], residuals and y [B, Cout, T], float32, contiguous.
 // The weights come in the layout of their route (below).
 //
-// Three routes:
+// Two routes:
 //
-// 1. The GEMM route (F32, BF16; Cout >= 16, K in {3, 7, 11}): an implicit
-//    GEMM on the tensor cores, Y[co, t] = sum_k W_k[co, :] x[:, t + k*d - pad].
-//    Bound (a 10 s clip, 91 launches): F32 by operations (3.07 TFLOP of
-//    products, run as 3xTF32: three TF32 products per f32 product), BF16 by
-//    bytes. Design, as kernel C (conv_transpose1d.cu), whose helpers it
-//    shares (mma_sm90.cuh):
+// 1. The GEMM route (F32, BF16, I8; Cout >= 16, K in {3, 7, 11}): an
+//    implicit GEMM on the tensor cores, Y[co, t] = sum_k W_k[co, :] x[:, t +
+//    k*d - pad]. Bound (a 10 s clip, 91 launches; I8 90): F32 by operations
+//    (3.07 TFLOP of products, run as 3xTF32: three TF32 products per f32
+//    product), BF16 and I8 by bytes. Design, as kernel C
+//    (conv_transpose1d.cu), whose helpers it shares (mma_sm90.cuh):
 //    - BF16: mma.sync m16n8k16 bf16 -> f32 (a bf16 x bf16 product is exact,
 //      so this is the JAX kernel's bf16 dot with f32 accumulation); F32:
 //      3xTF32 on m16n8k8 (the weights split into TF32 hi and lo in
@@ -27,25 +27,36 @@
 //      with round to nearest (the tensor cores' own sums round toward zero,
 //      which drifts over the 8,448-deep sums of stage 1). BF16 keeps the
 //      tensor cores' sums (tests/test_torch_conv_plan.py emulates both);
+//    - I8 (the JAX kernel's int8 dot, dot_dtype.cuh): mma.sync m16n8k32 s8
+//      -> s32 on int8 quanta of x and of the weights, integer sums (exact
+//      in any order), then float(acc) * (s_x * s_w[co]). The block's 256
+//      frames are the int8 window of ops/quant.py (outputs [t0, t0 + 256),
+//      x over [t0 - pad, t0 + 256 + pad) ∩ [0, T), one scale s_x), so a
+//      pre-pass launch (conv1d_amax_kernel) first writes each window's
+//      largest |x| as partial maxima of 8 channels, and each block reduces
+//      its window's (window_quant): the window is read once for its scale,
+//      not once per block of output channels;
 //    - a block owns TILE_CO output channels x BN = 256 frames: TILE_CO = 64
 //      (8 warps as 2 along channels x 4 along time, a warp 32 x 64), or 48
 //      where 48 divides Cout and 64 does not (the C = 48, 96 stages: 8 warps
 //      along time, a warp 48 x 32), so no tile row idles there;
-//    - per chunk of KC input channels (8 f32, 16 bf16: 32 bytes) the block
-//      stages the chunk's weights [K][TILE_CO][KC] (16-byte cp.async) and x
-//      over the tile plus the taps' reach, BN + 2 pad frames, transposed to
-//      [frame][ci] (4-byte cp.async, zero-filled at the sequence's edges and
-//      beyond Cin): tap k is then the row offset k*d, so one staged window
-//      serves every tap and every x value is staged once (the int8 route's
-//      im2col stages it K times). Each thread then splits (F32, see
-//      split_x_once) or rounds to bf16 rows read by ldmatrix (BF16) the
-//      values it staged. Two
-//      stages: the next chunk loads while this one multiplies, one barrier
-//      a chunk;
-//    - the accumulators pass through shared memory, and the epilogue (bias,
-//      residuals, scale) leaves as 16-byte row stores.
+//    - per chunk of KC input channels (8 f32, 16 bf16, 32 int8: 32 bytes)
+//      the block stages the chunk's weights [K][TILE_CO][KC] (16-byte
+//      cp.async) and x over the tile plus the taps' reach, BN + 2 pad
+//      frames, transposed to [frame][ci] (4-byte cp.async, zero-filled at
+//      the sequence's edges and beyond Cin): tap k is then the row offset
+//      k*d, so one staged window serves every tap and every x value is
+//      staged once. Each thread then splits (F32, see split_x_once), rounds
+//      to bf16 rows read by ldmatrix (BF16) or quantises to int8 rows read
+//      by ldmatrix (I8: rint(x * 127 / amax), four channels a 32-bit
+//      store, i8_offset) the values it staged. Two stages: the next chunk
+//      loads while this one multiplies, one barrier a chunk;
+//    - the accumulators pass through shared memory (I8 dequantised), and
+//      the epilogue (bias, residuals, scale, in the plain version's order)
+//      leaves as 16-byte row stores.
 //    Weights: [K][Cout_p][Cin_p] (Cout_p a multiple of COUT_ALIGN, Cin_p of
-//    CIN_ALIGN, zero-padded), f32, or bf16 rounded to nearest even for BF16
+//    CIN_ALIGN, CIN_ALIGN_I8 for I8, zero-padded), f32, bf16 rounded to
+//    nearest even for BF16, or int8 quanta for I8 with [Cout] scales
 //    (ops/conv.py:conv_weights, prepared once per weight tensor).
 //
 // 2. The narrow route (F32, BF16; Cout < 16, any odd K: conv_post, Cin 48,
@@ -57,28 +68,21 @@
 //    are in flight while this one computes; each thread computes 4 outputs
 //    (t0 + tid + 128 j, so a warp's shared-memory reads are consecutive) on
 //    the FMA units. Weights: [Cout][Cin][K] f32 (bf16 values for BF16).
-//
-// 3. The int8 route (I8; Cout >= 16, K in {3, 7, 11}): the JAX kernel's
-//    int8 dot (dot_dtype.cuh) over the card's 256-sample windows
-//    (ops/quant.py), on the FMA units: a BM x 256 output tile (BM 48 or 64),
-//    each chunk's im2col rows [CI*K][256] and weights [CI*K][BM] staged by
-//    cp.async, double-buffered; a thread keeps a TM x 8 register tile of
-//    int32 sums. The block first takes its window's amax: one pass over
-//    x[all Cin, t0 - pad .. t0 + 256 + pad). Weights: [Cout][Cin][K] int32
-//    values in [-127, 127] with [Cout] scales.
+//    int8 has no narrow route: the vocoder keeps conv_post float32.
 
 #include "dot_dtype.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads a block of the GEMM and int8 routes
+constexpr int NT = 256;  // threads a block of the GEMM route and its pre-pass
 constexpr int SMEM_MAX = 232448;  // bytes a block may use on the H100
 
 // --- 1. the GEMM route -------------------------------------------------------------
 
-constexpr int BN = 256;  // frames a block
-constexpr int CIN_ALIGN = 16;  // Cin_p is a multiple of it (both KC divide it)
+constexpr int BN = 256;  // frames a block; for I8 the int8 window
+constexpr int CIN_ALIGN = 16;  // Cin_p's multiple for F32, BF16 (KC divides it)
+constexpr int CIN_ALIGN_I8 = 32;  // and for I8: one s8 k-step (KC)
 constexpr int COUT_ALIGN = 64;  // Cout_p is a multiple of it (TILE_CO <= it)
 
 // WM warps along channels (MT m16 tiles each), 8 / WM along time (NT8 n8
@@ -86,22 +90,29 @@ constexpr int COUT_ALIGN = 64;  // Cout_p is a multiple of it (TILE_CO <= it)
 template <Dot D, int WM, int MT>
 struct Gemm {
   static constexpr bool BF = D == Dot::BF16;
-  using WT = typename std::conditional<BF, __nv_bfloat16, float>::type;
+  static constexpr bool I8 = D == Dot::I8;
+  using WT = typename std::conditional<
+      I8, signed char,
+      typename std::conditional<BF, __nv_bfloat16, float>::type>::type;
   static constexpr int WN = 8 / WM;
   static constexpr int TILE_CO = WM * MT * 16;
   static constexpr int NT8 = BN / (WN * 8);
-  static constexpr int KC = BF ? 16 : 8;              // channels a chunk
+  static constexpr int KC = 32 / (int)sizeof(WT);     // channels a chunk
   static constexpr int EPS = 16 / (int)sizeof(WT);    // elements a 16-byte copy
+  static constexpr int ALIGN = I8 ? CIN_ALIGN_I8 : CIN_ALIGN;  // of Cin_p
   // x staged f32 [frame][XS] by 4-byte cp.async (XS = 20: conflict-free
   // writes and fragment loads). F32 splits each value in place into TF32
   // hi (columns 0-7) and lo (8-15); BF16 converts each chunk to bf16 rows
-  // of XSB elements (48 bytes: conflict-free ldmatrix at any row offset)
-  static constexpr int XS = 20;
+  // of XSB elements (48 bytes: conflict-free ldmatrix at any row offset);
+  // I8 (XS = 33: a warp stages 32 consecutive frames of a channel, an odd
+  // stride puts them in 32 banks) quantises each chunk into 32-byte rows
+  // of int8 quanta (i8_offset: conflict-free ldmatrix at any row offset)
+  static constexpr int XS = I8 ? 33 : 20;
   static constexpr int XSB = 24;
   static constexpr int OS = BN + 8;  // output tile row stride: float2 stores
   static constexpr int O_BYTES = TILE_CO * OS * 4;
   static_assert(KC * sizeof(WT) == 32, "a weight row is two 16-byte copies");
-  static_assert(NT8 % 2 == 0, "BF16 loads x fragments for two n-tiles");
+  static_assert(NT8 % 2 == 0, "BF16, I8 load x fragments for two n-tiles");
   static_assert(TILE_CO <= COUT_ALIGN && COUT_ALIGN % 16 == 0, "tiles");
   __host__ __device__ static int w_bytes(int K) {
     return K * TILE_CO * KC * (int)sizeof(WT);
@@ -114,14 +125,17 @@ struct Gemm {
     return (x_rows(K, dil) * XS * 4 + 15) / 16 * 16;
   }
   // a stage: the chunk's weights and its x as the fragments read it (f32
-  // hi and lo, or bf16 for BF16, whose single f32 staging buffer follows
-  // the stages)
+  // hi and lo; bf16 for BF16, int8 quanta for I8, whose single f32 staging
+  // buffer follows the stages)
   __host__ __device__ static int stage_bytes(int K, int dil) {
-    return w_bytes(K) + (BF ? (x_rows(K, dil) * XSB * 2 + 15) / 16 * 16
-                            : x32_bytes(K, dil));
+    return w_bytes(K) +
+           (I8   ? x_rows(K, dil) * 32
+            : BF ? (x_rows(K, dil) * XSB * 2 + 15) / 16 * 16
+                 : x32_bytes(K, dil));
   }
-  static int smem(int K, int dil) {
-    const int s = 2 * stage_bytes(K, dil) + (BF ? x32_bytes(K, dil) : 0);
+  __host__ __device__ static int smem(int K, int dil) {
+    const int s =
+        2 * stage_bytes(K, dil) + (BF || I8 ? x32_bytes(K, dil) : 0);
     return s > O_BYTES ? s : O_BYTES;
   }
 };
@@ -145,20 +159,22 @@ __host__ __device__ constexpr int mma_min_blocks(Dot D, int K) {
   return D == Dot::F32 && K != 3 ? 1 : 2;
 }
 
+// The block's tile (see the top of this file); I8 also takes its window's
+// scale q and the [Cout] weight scales sw.
 template <Dot D, int K, int WM, int MT>
-__global__ void __launch_bounds__(NT, mma_min_blocks(D, K))
-conv1d_mma_kernel(const float* __restrict__ x,
-                  const typename Gemm<D, WM, MT>::WT* __restrict__ wp,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ r0, const float* __restrict__ r1,
-                  const float* __restrict__ r2, float* __restrict__ y,
-                  int Cin, int Cout, int T, int dil, float out_scale) {
+__device__ __forceinline__ void conv1d_gemm(
+    unsigned char* smem, const float* __restrict__ x,
+    const typename Gemm<D, WM, MT>::WT* __restrict__ wp,
+    const float* __restrict__ bias, const float* __restrict__ r0,
+    const float* __restrict__ r1, const float* __restrict__ r2,
+    float* __restrict__ y, int Cin, int Cout, int T, int dil,
+    float out_scale, Quant q = {0.0f, 0.0f},
+    const float* __restrict__ sw = nullptr) {
   using G = Gemm<D, WM, MT>;
   using WT = typename G::WT;
   constexpr int KC = G::KC, EPS = G::EPS, XS = G::XS, XSB = G::XSB,
                 NT8 = G::NT8, TILE_CO = G::TILE_CO;
   constexpr bool SPLIT_ONCE = split_x_once(D, K, WM);
-  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM;
@@ -167,7 +183,7 @@ conv1d_mma_kernel(const float* __restrict__ x,
   const int co0 = blockIdx.y * TILE_CO;
   const long long b = blockIdx.z;
   const int pad = dil * (K - 1) / 2;
-  const int cin_p = (Cin + CIN_ALIGN - 1) / CIN_ALIGN * CIN_ALIGN;
+  const int cin_p = (Cin + G::ALIGN - 1) / G::ALIGN * G::ALIGN;
   const int cout_p = (Cout + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
   const int xr_n = G::x_rows(K, dil);
   const int stage = G::stage_bytes(K, dil);
@@ -176,15 +192,16 @@ conv1d_mma_kernel(const float* __restrict__ x,
   auto w_stage = [&](int s) {
     return reinterpret_cast<WT*>(smem + s * stage);
   };
-  // x as staged (f32; BF16: one buffer for both stages) and, for BF16, as
-  // the fragments read it (bf16)
+  // x as staged (f32; BF16, I8: one buffer for both stages) and, for BF16
+  // and I8, as the fragments read it (bf16, int8)
   auto x_stage = [&](int s) {
-    return reinterpret_cast<float*>(smem + (G::BF ? 2 * stage
-                                                  : s * stage + G::w_bytes(K)));
+    return reinterpret_cast<float*>(
+        smem + (G::BF || G::I8 ? 2 * stage : s * stage + G::w_bytes(K)));
   };
   auto xb_stage = [&](int s) {
     return reinterpret_cast<__nv_bfloat16*>(smem + s * stage + G::w_bytes(K));
   };
+  auto x8_stage = [&](int s) { return smem + s * stage + G::w_bytes(K); };
 
   // What a thread stages of every chunk: weight rows wrow + 128 i, 16-byte
   // half wseg; x's input channel xci at window rows xu + i XSTEP, lane =
@@ -206,6 +223,23 @@ conv1d_mma_kernel(const float* __restrict__ x,
                  wp + ((long long)k * cout_p + co0 + r) * cin_p + c0 +
                      wseg * EPS);
     }
+    if constexpr (G::I8) {
+      // warp w: channels 4 w .. 4 w + 3 of the chunk, lane: frames lane +
+      // 32 i (128-byte segments of x's rows)
+      float* xd = x_stage(s) + 4 * warp;
+      for (int u = lane; u < xr_n; u += 32) {
+        const int gt = t0 - pad + u;
+        const bool tvalid = (unsigned)gt < (unsigned)T;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ci = c0 + 4 * warp + j;
+          const bool valid = tvalid && ci < Cin;
+          cp_async4_zfill(xd + u * XS + j,
+                          valid ? xb + (long long)ci * T + gt : xb, valid);
+        }
+      }
+      return;
+    }
     float* xd = x_stage(s) + xci;
     const bool cvalid = c0 + xci < Cin;
     const float* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
@@ -216,24 +250,35 @@ conv1d_mma_kernel(const float* __restrict__ x,
     }
   };
 
-  float acc[MT][NT8][4];
+  Acc<D> acc[MT][NT8][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int n = 0; n < NT8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
 
   // two stages, one barrier a chunk: the barrier at chunk c ends every
   // warp's reads of chunk c - 1, whose stage the load of chunk c + 1 refills
-  // (and, for BF16, every thread's conversion of chunk c out of the f32
-  // buffer that the load refills)
+  // (and, for BF16 and I8, every thread's conversion of chunk c out of the
+  // f32 buffer that the load refills)
   const int n_chunks = cin_p / KC;
   load(0, 0);
   cp_async_commit();
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<0>();
-    if constexpr (G::BF) {  // the values this thread staged, to bf16
+    if constexpr (G::I8) {  // the values this thread staged, quantised
+      const float* xf = x_stage(0) + 4 * warp;
+      unsigned char* xq = x8_stage(c & 1);
+      for (int u = lane; u < xr_n; u += 32) {
+        const float* v = xf + u * XS;
+        unsigned packed = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          packed |= (unsigned)(quantize(v[j], q.qs) & 0xff) << (8 * j);
+        *reinterpret_cast<unsigned*>(xq + i8_offset(u, 4 * warp)) = packed;
+      }
+    } else if constexpr (G::BF) {  // the values this thread staged, to bf16
       const float* xf = x_stage(0) + xci;
       __nv_bfloat16* xh = xb_stage(c & 1) + xci;
       for (int u = xu; u < xr_n; u += XSTEP)
@@ -265,7 +310,10 @@ conv1d_mma_kernel(const float* __restrict__ x,
 #pragma unroll 1
     for (int k = 0; k < K; ++k) {
       const float* xk = xs + k * dil * XS;
-      if constexpr (G::BF) {
+      if constexpr (G::I8) {
+        mma_tap_s8<MT, NT8>(acc, ws + k * TILE_CO * 32, x8_stage(c & 1),
+                            wn * NT8 * 8 + k * dil, wm, lane);
+      } else if constexpr (G::BF) {
         unsigned a[MT][4];
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -311,19 +359,23 @@ conv1d_mma_kernel(const float* __restrict__ x,
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the stages
 
-  // the tile in shared memory, [TILE_CO][OS]
+  // the tile in shared memory, [TILE_CO][OS] (I8: dequantised)
   float* os = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int n = 0; n < NT8; ++n)
+    for (int h = 0; h < 2; ++h) {
+      const int co = (wm * MT + i) * 16 + g + 8 * h;
+      float fac = 0.0f;
+      if constexpr (G::I8) fac = co0 + co < Cout ? q.sx * sw[co0 + co] : 0.0f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int co = (wm * MT + i) * 16 + g + 8 * h;
+      for (int n = 0; n < NT8; ++n) {
         const int m = (wn * NT8 + n) * 8 + 2 * t;
         *reinterpret_cast<float2*>(os + co * G::OS + m) =
-            make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+            make_float2(dequant(acc[i][n][2 * h], fac),
+                        dequant(acc[i][n][2 * h + 1], fac));
       }
+    }
   __syncthreads();
 
   // whole rows out, in the epilogue's order: + bias, + r0, + r1, + r2,
@@ -363,46 +415,131 @@ conv1d_mma_kernel(const float* __restrict__ x,
   }
 }
 
+// F32 and BF16
 template <Dot D, int K, int WM, int MT>
-int launch_mma(const float* x, const void* w, const float* bias,
-               const float* r0, const float* r1, const float* r2, float* y,
-               int B, int Cin, int Cout, int T, int dil, float out_scale,
-               cudaStream_t stream) {
+__global__ void __launch_bounds__(NT, mma_min_blocks(D, K))
+conv1d_mma_kernel(const float* __restrict__ x,
+                  const typename Gemm<D, WM, MT>::WT* __restrict__ wp,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ r0, const float* __restrict__ r1,
+                  const float* __restrict__ r2, float* __restrict__ y,
+                  int Cin, int Cout, int T, int dil, float out_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  conv1d_gemm<D, K, WM, MT>(smem, x, wp, bias, r0, r1, r2, y, Cin, Cout, T,
+                            dil, out_scale);
+}
+
+// I8: the block's tile is its window; its scale from the pre-pass's
+// partial maxima ``part`` (n_groups a window, conv1d_amax_kernel)
+template <int K, int WM, int MT>
+__global__ void __launch_bounds__(NT, 2)
+conv1d_s8_kernel(const float* __restrict__ x,
+                 const signed char* __restrict__ wp,
+                 const float* __restrict__ sw,
+                 const float* __restrict__ part, int n_groups,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ r0, const float* __restrict__ r1,
+                 const float* __restrict__ r2, float* __restrict__ y,
+                 int Cin, int Cout, int T, int dil, float out_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[32];
+  const Quant q = window_quant(
+      part + ((long long)blockIdx.z * gridDim.x + blockIdx.x) * n_groups,
+      n_groups, red);
+  conv1d_gemm<Dot::I8, K, WM, MT>(smem, x, wp, bias, r0, r1, r2, y, Cin,
+                                  Cout, T, dil, out_scale, q, sw);
+}
+
+// The I8 pre-pass: part[b][w][g] = the largest |x| of channels [8 g, 8 g +
+// 8) over window w's positions [w BN - pad, w BN + BN + pad) ∩ [0, T)
+// (ops/quant.py's windows; zero where it holds none). A warp takes one
+// group of 8 channels (128-byte loads along each row), a block 8 groups:
+// grid (windows, ceil(Cin / 64), B). Reads x once, plus the windows' halos.
+constexpr int AMAX_CH = 8;  // channels a partial maximum
+
+__global__ void __launch_bounds__(NT)
+conv1d_amax_kernel(const float* __restrict__ x, float* __restrict__ part,
+                   int Cin, int T, int pad) {
+  const int lane = threadIdx.x & 31;
+  const int grp = blockIdx.y * (NT / 32) + (threadIdx.x >> 5);
+  const int n_groups = (Cin + AMAX_CH - 1) / AMAX_CH;
+  if (grp >= n_groups) return;  // a whole warp
+  const int c0 = grp * AMAX_CH, nc = min(AMAX_CH, Cin - c0);
+  const int lo = max((int)blockIdx.x * BN - pad, 0);
+  const int width = min((int)blockIdx.x * BN + BN + pad, T) - lo;
+  const float* xb = x + ((long long)blockIdx.z * Cin + c0) * T + lo;
+  float m = 0.0f;
+  for (int c = 0; c < nc; ++c)
+    for (int g = lane; g < width; g += 32)
+      m = fmaxf(m, fabsf(xb[(long long)c * T + g]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0)
+    part[((long long)blockIdx.z * gridDim.x + blockIdx.x) * n_groups + grp] =
+        m;
+}
+
+template <Dot D, int K, int WM, int MT>
+int launch_mma(const float* x, const void* w, const float* sw, float* part,
+               const float* bias, const float* r0, const float* r1,
+               const float* r2, float* y, int B, int Cin, int Cout, int T,
+               int dil, float out_scale, cudaStream_t stream) {
   using G = Gemm<D, WM, MT>;
-  auto kernel = conv1d_mma_kernel<D, K, WM, MT>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
   const int smem = G::smem(K, dil);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   dim3 grid((T + BN - 1) / BN, (Cout + G::TILE_CO - 1) / G::TILE_CO, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      x, static_cast<const typename G::WT*>(w), bias, r0, r1, r2, y, Cin,
-      Cout, T, dil, out_scale);
+  const auto* wp = static_cast<const typename G::WT*>(w);
+  if constexpr (D == Dot::I8) {
+    auto kernel = conv1d_s8_kernel<K, WM, MT>;  // with 128 static bytes
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    const int n_groups = (Cin + AMAX_CH - 1) / AMAX_CH;
+    conv1d_amax_kernel<<<dim3(grid.x, (n_groups + NT / 32 - 1) / (NT / 32),
+                              B),
+                         NT, 0, stream>>>(x, part, Cin, T, dil * (K - 1) / 2);
+    kernel<<<grid, NT, smem, stream>>>(x, wp, sw, part, n_groups, bias, r0,
+                                       r1, r2, y, Cin, Cout, T, dil,
+                                       out_scale);
+  } else {
+    auto kernel = conv1d_mma_kernel<D, K, WM, MT>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (attr != cudaSuccess) return (int)attr;
+    kernel<<<grid, NT, smem, stream>>>(x, wp, bias, r0, r1, r2, y, Cin, Cout,
+                                       T, dil, out_scale);
+  }
   return (int)cudaGetLastError();
 }
 
 // TILE_CO = 48 where 48 divides Cout and 64 does not, else 64
+inline bool narrow_tile(int Cout) { return Cout % 48 == 0 && Cout % 64 != 0; }
+
 template <Dot D, int K>
-int launch_mma_k(const float* x, const void* w, const float* bias,
-                 const float* r0, const float* r1, const float* r2, float* y,
-                 int B, int Cin, int Cout, int T, int dil, float out_scale,
-                 cudaStream_t s) {
-  if (Cout % 48 == 0 && Cout % 64 != 0)
-    return launch_mma<D, K, 1, 3>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
-                                  dil, out_scale, s);
-  return launch_mma<D, K, 2, 2>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
-                                dil, out_scale, s);
+int launch_mma_k(const float* x, const void* w, const float* sw, float* part,
+                 const float* bias, const float* r0, const float* r1,
+                 const float* r2, float* y, int B, int Cin, int Cout, int T,
+                 int dil, float out_scale, cudaStream_t s) {
+  if (narrow_tile(Cout))
+    return launch_mma<D, K, 1, 3>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
+                                  Cout, T, dil, out_scale, s);
+  return launch_mma<D, K, 2, 2>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
+                                Cout, T, dil, out_scale, s);
 }
 
-bool mma_fits(int K, int Cout, int dil, bool bf) {
-  const bool narrow = Cout % 48 == 0 && Cout % 64 != 0;
-  const int smem =
-      bf ? (narrow ? Gemm<Dot::BF16, 1, 3>::smem(K, dil)
-                   : Gemm<Dot::BF16, 2, 2>::smem(K, dil))
-         : (narrow ? Gemm<Dot::F32, 1, 3>::smem(K, dil)
-                   : Gemm<Dot::F32, 2, 2>::smem(K, dil));
-  return smem <= SMEM_MAX;
+// Shared memory one block of the GEMM route takes (mirrored by
+// flowhigh_tpu_torch/ops/conv.py:conv_smem_bytes)
+template <Dot D>
+int mma_smem(int K, int Cout, int dil) {
+  return narrow_tile(Cout) ? Gemm<D, 1, 3>::smem(K, dil)
+                           : Gemm<D, 2, 2>::smem(K, dil);
+}
+
+int mma_smem(int K, int Cout, int dil, int dot) {
+  return dot == (int)Dot::I8    ? mma_smem<Dot::I8>(K, Cout, dil)
+         : dot == (int)Dot::BF16 ? mma_smem<Dot::BF16>(K, Cout, dil)
+                                 : mma_smem<Dot::F32>(K, Cout, dil);
 }
 
 // --- 2. the narrow route -----------------------------------------------------------
@@ -533,268 +670,81 @@ int launch_narrow(const float* x, const float* w, const float* bias,
   return (int)cudaGetLastError();
 }
 
-// --- 3. the int8 route -------------------------------------------------------------
-
-template <int N>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < N; j += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + j);
-      v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
-    }
-  } else {
-    static_assert(N % 2 == 0, "TM must be even");
-#pragma unroll
-    for (int j = 0; j < N; j += 2) {
-      const float2 q = *reinterpret_cast<const float2*>(p + j);
-      v[j] = q.x; v[j + 1] = q.y;
-    }
-  }
-}
-
-constexpr int TX = 32;   // threads along time (one warp)
-constexpr int TY = 8;    // threads along output channels
-constexpr int IBN = 256;  // time samples a tile, the int8 window: 8 a thread
-
-template <int K, int CI, int TM>
-struct Tile {
-  static constexpr int BM = TM * TY;           // output channels per tile
-  static constexpr int R = CI * K;             // GEMM depth per chunk
-  static constexpr int WS = BM + 4;            // weight row stride (floats)
-  static constexpr int STAGE = R * IBN + R * WS;  // floats per stage
-  static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
-};
-
-// w holds int32 values (by their bits), with sw the [Cout] scales
-template <int K, int CI, int TM>
-__global__ void __launch_bounds__(NT, 2)
-conv1d_int8_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ sw,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ r0, const float* __restrict__ r1,
-                   const float* __restrict__ r2, float* __restrict__ y,
-                   int Cin, int Cout, int T, int dil, float out_scale) {
-  using L = Tile<K, CI, TM>;
-  using A = Acc<Dot::I8>;
-  extern __shared__ __align__(16) float smem_i8[];
-  float* smem = smem_i8;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int t0 = blockIdx.x * IBN;
-  const int co0 = blockIdx.y * L::BM;
-  const long long b = blockIdx.z;
-  const int pad = dil * (K - 1) / 2;
-  const long long CK = (long long)Cin * K;
-  const float* xb = x + b * (long long)Cin * T;
-  const int n_chunks = (Cin + CI - 1) / CI;
-
-  // stage one chunk: im2col rows (thread tid owns time sample tid of every
-  // row) and the weights, transposed to [R][BM]
-  auto load = [&](int chunk, int stage) {
-    float* xs = smem + stage * L::STAGE;
-    float* ws = xs + L::R * IBN;
-    const int c0 = chunk * CI;
-    const int g0 = t0 + tid - pad;
-#pragma unroll
-    for (int r = 0; r < L::R; ++r) {
-      const int c = c0 + r / K;
-      const int g = g0 + (r % K) * dil;
-      const bool ok = c < Cin && g >= 0 && g < T;
-      cp_async4_zfill(xs + r * IBN + tid, ok ? xb + (long long)c * T + g : xb,
-                      ok);
-    }
-    const long long rmax = CK - (long long)c0 * K;
-#pragma unroll
-    for (int e = tid; e < L::BM * L::R; e += NT) {
-      const int co = e / L::R;
-      const int r = e - co * L::R;
-      const int gco = co0 + co;
-      const bool ok = gco < Cout && r < rmax;
-      cp_async4_zfill(ws + r * L::WS + co,
-                      ok ? w + gco * CK + (long long)c0 * K + r : w, ok);
-    }
-    cp_async_commit();
-  };
-
-  A acc[TM][8];
-#pragma unroll
-  for (int j = 0; j < TM; ++j)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0;
-
-  load(0, 0);
-  Quant q{0.0f, 0.0f};
-  {  // the window's amax, while chunk 0 lands
-    __shared__ float red[32];
-    const int lo = max(t0 - pad, 0), hi = min(t0 + IBN + pad, T);
-    float m = 0.0f;
-    for (int c = 0; c < Cin; ++c)
-      for (int g = lo + tid; g < hi; g += NT)
-        m = fmaxf(m, fabsf(xb[(long long)c * T + g]));
-    q = quant_of(block_max(m, red));
-  }
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    if (chunk + 1 < n_chunks) {
-      load(chunk + 1, (chunk + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    {  // this thread's own staged x values
-      float* xo = smem + (chunk & 1) * L::STAGE + tid;
-#pragma unroll
-      for (int r = 0; r < L::R; ++r)
-        xo[r * IBN] = stage_value<Dot::I8>(xo[r * IBN], q.qs);
-    }
-    __syncthreads();
-    const float* xs = smem + (chunk & 1) * L::STAGE + 4 * tx;
-    const float* ws = smem + (chunk & 1) * L::STAGE + L::R * IBN + ty * TM;
-#pragma unroll
-    for (int r = 0; r < L::R; ++r) {
-      float a[TM];
-      load_row<TM>(ws + r * L::WS, a);
-      const float4 p = *reinterpret_cast<const float4*>(xs + r * IBN);
-      const float4 u = *reinterpret_cast<const float4*>(xs + r * IBN + IBN / 2);
-      const float v[8] = {p.x, p.y, p.z, p.w, u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int j = 0; j < TM; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          acc[j][i] = mad(bits_as<A>(a[j]), bits_as<A>(v[i]), acc[j][i]);
-    }
-    __syncthreads();  // the next iteration's load overwrites this stage
-  }
-
-#pragma unroll
-  for (int j = 0; j < TM; ++j) {
-    const int co = co0 + ty * TM + j;
-    if (co >= Cout) continue;
-    const long long base = (b * Cout + co) * (long long)T;
-    const float bv = bias != nullptr ? bias[co] : 0.0f;
-    const float fac = q.sx * sw[co];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = t0 + (i / 4) * (IBN / 2) + 4 * tx + (i % 4);
-      if (t >= T) continue;
-      float v = dequant(acc[j][i], fac) + bv;
-      if (r0 != nullptr) v += r0[base + t];
-      if (r1 != nullptr) v += r1[base + t];
-      if (r2 != nullptr) v += r2[base + t];
-      y[base + t] = v * out_scale;
-    }
-  }
-}
-
-template <int K, int CI, int TM>
-int launch_int8(const float* x, const float* w, const float* sw,
-                const float* bias, const float* r0, const float* r1,
-                const float* r2, float* y, int B, int Cin, int Cout, int T,
-                int dil, float out_scale, cudaStream_t stream) {
-  using L = Tile<K, CI, TM>;
-  auto kern = conv1d_int8_kernel<K, CI, TM>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + IBN - 1) / IBN, (Cout + L::BM - 1) / L::BM, B);
-  kern<<<grid, NT, L::SMEM, stream>>>(x, w, sw, bias, r0, r1, r2, y, Cin,
-                                      Cout, T, dil, out_scale);
-  return (int)cudaGetLastError();
-}
-
-// BM = 48 for the C = 48, 96 stages (no idle rows), else 64
-template <int K, int CI>
-int launch_int8_k(const float* x, const float* w, const float* sw,
-                  const float* bias, const float* r0, const float* r1,
-                  const float* r2, float* y, int B, int Cin, int Cout, int T,
-                  int dil, float out_scale, cudaStream_t s) {
-  if (Cout % 48 == 0 && Cout % 64 != 0)
-    return launch_int8<K, CI, 6>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout,
-                                 T, dil, out_scale, s);
-  return launch_int8<K, CI, 8>(x, w, sw, bias, r0, r1, r2, y, B, Cin, Cout, T,
-                               dil, out_scale, s);
-}
-
 // --- dispatch ----------------------------------------------------------------------
 
 int supported(int K, int Cout, int dil, int dot) {
   const bool gemm = K == 3 || K == 7 || K == 11;
   if (K <= 0 || K % 2 == 0 || dil <= 0) return 0;
-  if (dot == (int)Dot::I8) return Cout >= 16 && gemm;
-  if (dot != (int)Dot::F32 && dot != (int)Dot::BF16) return 0;
-  if (Cout < 16) return narrow_smem(K, dil) <= SMEM_MAX;
-  return gemm && mma_fits(K, Cout, dil, dot == (int)Dot::BF16);
+  if (dot != (int)Dot::F32 && dot != (int)Dot::BF16 && dot != (int)Dot::I8)
+    return 0;
+  if (Cout < 16)  // int8 has no narrow route: conv_post stays float32
+    return dot != (int)Dot::I8 && narrow_smem(K, dil) <= SMEM_MAX;
+  return gemm && mma_smem(K, Cout, dil, dot) <= SMEM_MAX;
 }
 
 template <Dot D>
-int conv1d_same(const float* x, const void* w, const float* sw,
+int conv1d_same(const float* x, const void* w, const float* sw, float* part,
                 const float* bias, const float* r0, const float* r1,
                 const float* r2, float* y, int B, int Cin, int Cout, int T,
                 int K, int dil, float out_scale, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535 ||
-      Cout > 65535 || !supported(K, Cout, dil, (int)D))
+      Cout > 65535 || !supported(K, Cout, dil, (int)D) ||
+      (D == Dot::I8 && (sw == nullptr || part == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const float* wf = static_cast<const float*>(w);
-  if constexpr (D == Dot::I8) {
-    switch (K) {  // CI x K = 24, 28, 22 rows of GEMM depth per chunk
-      case 3:
-        return launch_int8_k<3, 8>(x, wf, sw, bias, r0, r1, r2, y, B, Cin,
-                                   Cout, T, dil, out_scale, s);
-      case 7:
-        return launch_int8_k<7, 4>(x, wf, sw, bias, r0, r1, r2, y, B, Cin,
-                                   Cout, T, dil, out_scale, s);
-      default:
-        return launch_int8_k<11, 2>(x, wf, sw, bias, r0, r1, r2, y, B, Cin,
-                                    Cout, T, dil, out_scale, s);
-    }
-  } else {
+  if constexpr (D != Dot::I8) {
     if (Cout < 16)
-      return launch_narrow<D>(x, wf, bias, r0, r1, r2, y, B, Cin, Cout, T, K,
-                              dil, out_scale, s);
-    switch (K) {
-      case 3:
-        return launch_mma_k<D, 3>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
-                                  dil, out_scale, s);
-      case 7:
-        return launch_mma_k<D, 7>(x, w, bias, r0, r1, r2, y, B, Cin, Cout, T,
-                                  dil, out_scale, s);
-      default:
-        return launch_mma_k<D, 11>(x, w, bias, r0, r1, r2, y, B, Cin, Cout,
-                                   T, dil, out_scale, s);
-    }
+      return launch_narrow<D>(x, static_cast<const float*>(w), bias, r0, r1,
+                              r2, y, B, Cin, Cout, T, K, dil, out_scale, s);
+  }
+  switch (K) {
+    case 3:
+      return launch_mma_k<D, 3>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
+                                Cout, T, dil, out_scale, s);
+    case 7:
+      return launch_mma_k<D, 7>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
+                                Cout, T, dil, out_scale, s);
+    default:
+      return launch_mma_k<D, 11>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
+                                 Cout, T, dil, out_scale, s);
   }
 }
 
 }  // namespace
 
 // 1 when (K, Cout, dilation) has an instance of dot dtype ``dot`` (0 f32,
-// 1 bf16, 2 int8): f32 and bf16 any odd K for Cout < 16 (the narrow route),
-// else K in {3, 7, 11} (the GEMM route); int8 K in {3, 7, 11} and
-// Cout >= 16; and the dilation's window fits shared memory.
+// 1 bf16, 2 int8): f32 and bf16 any odd K for Cout < 16 (the narrow route);
+// every dtype K in {3, 7, 11} for Cout >= 16 (the GEMM route); and the
+// dilation's window fits shared memory.
 extern "C" int conv1d_same_supported(int K, int Cout, int dil, int dot) {
   return supported(K, Cout, dil, dot);
 }
 
-// The padding of the GEMM route's prepared weights: 0 -> Cin_p's multiple,
-// 1 -> Cout_p's.
+// The padding of the GEMM route's prepared weights: 0 -> Cin_p's multiple
+// (f32, bf16), 1 -> Cout_p's, 2 -> Cin_p's multiple for int8.
 extern "C" int conv1d_same_weight_align(int which) {
-  return which == 0 ? CIN_ALIGN : COUT_ALIGN;
+  return which == 0 ? CIN_ALIGN : which == 1 ? COUT_ALIGN : CIN_ALIGN_I8;
+}
+
+// Shared memory one block of the GEMM route takes for instance ``dot``
+// (0 f32, 1 bf16, 2 int8) at (K, Cout, dilation)
+extern "C" int conv1d_same_smem_bytes(int K, int Cout, int dil, int dot) {
+  return mma_smem(K, Cout, dil, dot);
 }
 
 // Each returns cudaGetLastError() after the launch (or the error that kept
 // it from launching). bias and r0..r2 may be null. w: for Cout >= 16 the
 // prepared weights [K][Cout_p][Cin_p] (ops/conv.py:conv_weights), float32
-// for conv1d_same_f32 and bfloat16 for conv1d_same_bf16; for Cout < 16 the
-// weights [Cout][Cin][K] as float32 (rounded to bf16 values for bf16).
+// for conv1d_same_f32, bfloat16 for conv1d_same_bf16 and int8 for
+// conv1d_same_int8; for Cout < 16 the weights [Cout][Cin][K] as float32
+// (rounded to bf16 values for bf16).
 extern "C" int conv1d_same_f32(const float* x, const void* w,
                                const float* bias, const float* r0,
                                const float* r1, const float* r2, float* y,
                                int B, int Cin, int Cout, int T, int K, int dil,
                                float out_scale, void* stream) {
-  return conv1d_same<Dot::F32>(x, w, nullptr, bias, r0, r1, r2, y, B, Cin,
-                               Cout, T, K, dil, out_scale, stream);
+  return conv1d_same<Dot::F32>(x, w, nullptr, nullptr, bias, r0, r1, r2, y,
+                               B, Cin, Cout, T, K, dil, out_scale, stream);
 }
 
 extern "C" int conv1d_same_bf16(const float* x, const void* w,
@@ -802,18 +752,19 @@ extern "C" int conv1d_same_bf16(const float* x, const void* w,
                                 const float* r1, const float* r2, float* y,
                                 int B, int Cin, int Cout, int T, int K,
                                 int dil, float out_scale, void* stream) {
-  return conv1d_same<Dot::BF16>(x, w, nullptr, bias, r0, r1, r2, y, B, Cin,
-                                Cout, T, K, dil, out_scale, stream);
+  return conv1d_same<Dot::BF16>(x, w, nullptr, nullptr, bias, r0, r1, r2, y,
+                                B, Cin, Cout, T, K, dil, out_scale, stream);
 }
 
-// wq: int32 weights [Cout][Cin][K] in [-127, 127], sw: [Cout] scales
-// (ops/quant.py)
-extern "C" int conv1d_same_int8(const float* x, const int* wq,
-                                const float* sw, const float* bias,
-                                const float* r0, const float* r1,
-                                const float* r2, float* y, int B, int Cin,
-                                int Cout, int T, int K, int dil,
-                                float out_scale, void* stream) {
-  return conv1d_same<Dot::I8>(x, wq, sw, bias, r0, r1, r2, y, B, Cin, Cout,
-                              T, K, dil, out_scale, stream);
+// sw: the [Cout] weight scales (ops/quant.py:int8_weights); part: scratch
+// of B x ceil(T / 256) x ceil(Cin / 8) floats for the pre-pass's partial
+// maxima. Launches the pre-pass, then the GEMM.
+extern "C" int conv1d_same_int8(const float* x, const void* w,
+                                const float* sw, float* part,
+                                const float* bias, const float* r0,
+                                const float* r1, const float* r2, float* y,
+                                int B, int Cin, int Cout, int T, int K,
+                                int dil, float out_scale, void* stream) {
+  return conv1d_same<Dot::I8>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
+                              Cout, T, K, dil, out_scale, stream);
 }

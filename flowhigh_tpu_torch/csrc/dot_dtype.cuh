@@ -10,13 +10,13 @@
 //         [-127, 127] and an f32 scale), the activation quantised in the
 //         kernel with one scale per window (aq = rint(a * (127 / amax))),
 //         integer sums (exact in any order: K Cin 127^2 < 2^31), then
-//         float(acc) * (s_x * s_w[co]). Kernels D and E sum on the tensor
-//         cores (s8 mma.sync, int8 operands; act_conv_core.cuh), kernel
-//         B.int8 by int32 multiply-adds on the FMA units.
+//         float(acc) * (s_x * s_w[co]). Kernels B, D and E sum on the
+//         tensor cores (s8 mma.sync, int8 operands; mma_sm90.cuh), each
+//         window's amax from a pre-pass launch that writes partial maxima
+//         (window_quant below reduces them).
 //
 // The tensor-core kernels (B's GEMM route, C, D, E) stage bf16 and int8
-// operands in their own types; kernel B.int8 (conv1d_same.cu) stages its
-// int8 operands as int32 values (bits_as, mad below).
+// operands in their own types.
 
 #pragma once
 
@@ -36,21 +36,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// the staged 4-byte value of an operand (an int32 for I8, by its bits)
-template <class T>
-__device__ __forceinline__ T bits_as(float f);
-template <>
-__device__ __forceinline__ float bits_as<float>(float f) { return f; }
-template <>
-__device__ __forceinline__ int bits_as<int>(float f) {
-  return __float_as_int(f);
-}
-
-__device__ __forceinline__ float mad(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ int mad(int a, int b, int c) { return a * b + c; }
-
 // the dequantised sum of one output: float(acc) * (s_x * s_w), the
 // product kept apart from the epilogue's adds (no FMA contraction), as the
 // JAX kernel's separate multiply
@@ -59,13 +44,10 @@ __device__ __forceinline__ float dequant(int acc, float fac) {
 }
 __device__ __forceinline__ float dequant(float acc, float) { return acc; }
 
-// an activation value as the dot of D stages it: rounded to bf16, or
-// quantised with qs = 127 / amax (its int32 bits)
-template <Dot D>
-__device__ __forceinline__ float stage_value(float v, float qs) {
-  if constexpr (D == Dot::BF16) return round_bf16(v);
-  if constexpr (D == Dot::I8) return __int_as_float(__float2int_rn(v * qs));
-  return v;
+// an activation value's int8 quantum, qs = 127 / amax: rint(v * qs), half
+// to even
+__device__ __forceinline__ int quantize(float v, float qs) {
+  return __float2int_rn(v * qs);
 }
 
 // The int8 activation scale of one window: 127 / amax and amax / 127 with
@@ -94,6 +76,16 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The int8 scale of one window: the largest of its n_groups pre-pass
+// partials at part[0 .. n_groups). Every thread of the block gets it.
+__device__ __forceinline__ Quant window_quant(const float* __restrict__ part,
+                                              int n_groups, float* red) {
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < n_groups; i += blockDim.x)
+    m = fmaxf(m, part[i]);
+  return quant_of(block_max(m, red));
 }
 
 }  // namespace

@@ -4,9 +4,11 @@
 // GEMM route (csrc/conv1d_same.cu), kernel C (csrc/conv_transpose1d.cu) and
 // the act->conv core of kernels D and E (csrc/act_conv_core.cuh). B and C stage
 // a chunk of KC input channels at a time: the weights as rows of 32 bytes
-// (one tap and output channel, KC = 8 f32 or 16 bf16 channels), and x as
-// f32 rows [frame][XS] (the chunk's channels of one frame, padded to XS),
-// and load their weight fragments with the a_frag_* helpers below.
+// (one tap and output channel, KC = 8 f32, 16 bf16 or 32 int8 channels),
+// and x as f32 rows [frame][XS] (the chunk's channels of one frame, padded
+// to XS), and load their weight fragments with the a_frag_* helpers below.
+// The s8 GEMMs (B.int8, D.int8, E.int8) keep their int8 operand as 32-byte
+// rows (i8_offset) and run a tap with mma_tap_s8.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / m16n8k8 /
 // m16n8k32"), for lane = 4 g + t (g = lane / 4 in [0, 8), t = lane % 4):
@@ -204,6 +206,47 @@ __device__ __forceinline__ void a_frag_3xtf32(unsigned (&ah)[4],
   tf32_split(wr[64 + (t ^ sw)], ah[1], al[1]);
   tf32_split(wr[(t + 4) ^ sw], ah[2], al[2]);
   tf32_split(wr[64 + ((t + 4) ^ sw)], ah[3], al[3]);
+}
+
+// --- the s8 GEMMs' x or activation operand ------------------------------------------
+
+// Byte offset of channel ci (< 32) of frame j in int8 rows (one 32-channel
+// chunk of an s8 GEMM's x or activation): 32 bytes a frame, the two
+// 16-byte halves swapped where (j / 4) is odd. The 8 rows an ldmatrix
+// reads, frames f .. f + 7 at one half, then fall in 8 distinct 4-bank
+// groups for any f.
+__device__ __forceinline__ int i8_offset(int j, int ci) {
+  return j * 32 + ((((ci >> 4) ^ (j >> 2)) & 1) << 4) + (ci & 15);
+}
+
+// One tap of an I8 GEMM (s8 mma.sync): acc[i][n] += W[rows (wm MT + i) 16
+// ..][32 channels] x A[frames f0 + 8 n ..][32 channels], with ws a weight
+// stage of 32-byte rows (w_row_offset) and act int8 rows (i8_offset) of
+// one 32-channel chunk; f0 = the warp's first frame plus the tap's offset.
+template <int MT, int NT8>
+__device__ __forceinline__ void mma_tap_s8(int (&acc)[MT][NT8][4],
+                                           const signed char* ws,
+                                           const unsigned char* act, int f0,
+                                           int wm, int lane) {
+  static_assert(NT8 % 2 == 0, "x for two n-tiles a load");
+  unsigned a[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) a_frag_s8(a[i], ws, (wm * MT + i) * 16, lane);
+  // ldmatrix.x4 rows, lane l: frame f0 + (n + l / 16) 8 + l % 8, half
+  // (l / 8) % 2: b0, b1 of n-tiles n, n + 1
+  const int h = (lane >> 3) & 1;
+  const int f1 = f0 + ((lane >> 4) & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int n = 0; n < NT8; n += 2) {
+    const int f = f1 + n * 8;
+    unsigned bq[4];
+    ldmatrix_x4(bq, act + f * 32 + (((h ^ (f >> 2)) & 1) << 4));
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      mma_s8_16832(acc[i][n], a[i], bq[0], bq[1]);
+      mma_s8_16832(acc[i][n + 1], a[i], bq[2], bq[3]);
+    }
+  }
 }
 
 }  // namespace

@@ -36,15 +36,16 @@ _PAIR_MMA = [_P] * 10 + [_I] * 9 + [_F, _P]
 _UNIT_MMA = [_P] * 13 + [_I] * 8 + [_F, _P]
 # argument types of each C entry point, in declaration order; every entry
 # point returns a C int (a CUDA error code or a flag) unless RESTYPES says.
-# each int8 instance takes one more pointer per weight tensor (its scales),
-# and those of D and E one for the pre-pass's scratch
+# each int8 instance takes one more pointer per weight tensor (its scales)
+# and one for the pre-pass's scratch
 SIGNATURES = {
     "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                  "snake_aa_firs_f32": [_P, _P, _P, _I, _I, _P]},
     "conv1d_same": {"conv1d_same_f32": _CONV, "conv1d_same_bf16": _CONV,
-                    "conv1d_same_int8": [_P] + _CONV,
+                    "conv1d_same_int8": [_P, _P] + _CONV,
                     "conv1d_same_supported": [_I, _I, _I, _I],
-                    "conv1d_same_weight_align": [_I]},
+                    "conv1d_same_weight_align": [_I],
+                    "conv1d_same_smem_bytes": [_I] * 4},
     "conv_transpose1d": {
         "conv_transpose1d_f32": _CONVT, "conv_transpose1d_bf16": _CONVT,
         "conv_transpose1d_supported": [_I, _I],

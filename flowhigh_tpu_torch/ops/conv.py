@@ -5,10 +5,14 @@
   a dilated "same" conv with zero padding and the epilogue
   ``out_scale * (conv + bias + sum(residuals))`` (up to three residuals);
   the kernel has instances for K in {3, 7, 11}, and any odd K when
-  Cout < 16. From Cout = 16 on, its float32 and bfloat16 instances run on
-  the tensor cores (bf16 ``mma.sync``, 3xTF32 for float32) and take their
-  weights in the layout ``conv_weights`` prepares once per weight tensor;
-  below (``conv_post``) they run a bytes-bound kernel on the FMA units.
+  Cout < 16. From Cout = 16 on, every instance runs on the tensor cores
+  (bf16 and s8 ``mma.sync``, 3xTF32 for float32) and takes its weights in
+  the layout ``conv_weights`` prepares once per weight tensor; below
+  (``conv_post``) float32 and bfloat16 run a bytes-bound kernel on the FMA
+  units. The int8 instance launches a pre-pass first, the window scales'
+  kernel (``conv1d_amax_plain`` is its plain version): the largest |x| of
+  each int8 window in partial maxima of 8 channels, into scratch that the
+  wrapper allocates.
 - ``conv_transpose1d`` replaces
   ``flowhigh_tpu/ops/packed.py:pallas_packed_conv_transpose1d``: a
   ConvTranspose1d with stride u, padding (K - u) / 2 and exactly u*T
@@ -21,7 +25,8 @@ raises.
 
 ``dot_dtype`` (``ops/quant.py``) picks the kernel's instance: float32 (the
 default), bfloat16 (B and C) or int8 (B, over the windows of
-``quant.conv1d_int8``; Cout >= 16). Inputs and outputs stay float32.
+``quant.conv1d_int8``, which are its tiles; Cout >= 16). Inputs and
+outputs stay float32.
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ import torch.nn.functional as F
 from ..utils import cudnn_f32
 from . import _build
 from .quant import (_cached, bf16_weights, check_dot_dtype, conv1d_int8,
-                    int8_weights, quantize_weights, round_bf16)
+                    int8_weights, quantize_weights, round_bf16, window_amax)
 
 CONV_TILE = 256  # kernel B.int8's time tile: the int8 partition of conv1d
+AMAX_CH = 8  # channels a partial maximum of B.int8's pre-pass
 NARROW_COUT = 16  # below it, kernel B's narrow route (conv_post)
 # the name of each instance's C entry point, and its code for the
 # ``*_supported`` queries
@@ -49,9 +55,11 @@ CONVT_CIN_ALIGN, CONVT_COUT_ALIGN = 16, 64
 # and kernel B's GEMM route's (csrc/conv1d_same.cu: CIN_ALIGN, COUT_ALIGN;
 # conv1d_same_weight_align)
 CONV_CIN_ALIGN, CONV_COUT_ALIGN = 16, 64
-# the int8 instances of kernels D and E take Cin in chunks of 32, one s8
-# mma.sync k-step (csrc/act_conv_core.cuh: MmaOps<Dot::I8>::KC)
+# the int8 instances of kernels B, D and E take Cin in chunks of 32, one s8
+# mma.sync k-step (csrc/conv1d_same.cu: CIN_ALIGN_I8; act_conv_core.cuh:
+# MmaOps<Dot::I8>::KC)
 INT8_CIN_ALIGN = 32
+SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
 
 
 def _check(what: str, x: torch.Tensor, *tensors) -> None:
@@ -69,10 +77,8 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def weight_ptrs(w: torch.Tensor, dot_dtype: torch.dtype) -> tuple:
-    """The data pointers a kernel instance takes for one weight tensor:
-    (w,) float32, (round_bf16(w),) bfloat16, (wq int32, s_w) int8."""
-    if dot_dtype == torch.int8:
-        return tuple(v.data_ptr() for v in int8_weights(w))
+    """The data pointer of kernel B's narrow route for one weight tensor:
+    (w,) float32, (round_bf16(w),) bfloat16."""
     if dot_dtype == torch.bfloat16:
         return (bf16_weights(w).data_ptr(),)
     return (w.data_ptr(),)
@@ -129,8 +135,8 @@ def conv_weight_layout(w: torch.Tensor,
                        ) -> torch.Tensor:
     """Kernel B's GEMM route and kernels D and E: w [Cout, Cin, K] -> [K,
     Cout_p, Cin_p] (``CONV_COUT_ALIGN``, ``CONV_CIN_ALIGN``), float32 or
-    bfloat16; int8 (D and E only): ``quantize_weights(w)``'s integers, Cin
-    padded to ``INT8_CIN_ALIGN`` (their scales are ``int8_weights(w)[1]``)."""
+    bfloat16; int8: ``quantize_weights(w)``'s integers, Cin padded to
+    ``INT8_CIN_ALIGN`` (their scales are ``int8_weights(w)[1]``)."""
     if dot_dtype == torch.int8:
         return _tap_major(quantize_weights(w)[0].permute(2, 0, 1),
                           INT8_CIN_ALIGN, CONV_COUT_ALIGN, dot_dtype)
@@ -145,14 +151,53 @@ def conv_weights(w: torch.Tensor, dot_dtype: torch.dtype) -> torch.Tensor:
                    lambda v: conv_weight_layout(v, dot_dtype))
 
 
+def conv_smem_bytes(k: int, dilation: int, cout: int,
+                    dot_dtype: torch.dtype = torch.float32) -> int:
+    """Bytes of shared memory one block of kernel B's GEMM route takes
+    (``Gemm::smem`` in csrc/conv1d_same.cu). A block owns tc = 64 output
+    channels, or 48 where 48 divides Cout and 64 does not, over 256 frames,
+    and stages per chunk of 8 (float32), 16 (bfloat16) or 32 (int8) input
+    channels, twice (double-buffered): the chunk's weights, K x tc rows of
+    32 bytes, and x over rows = 256 + d (K - 1) frames as the fragments
+    read it: float32 [frame][20] floats (TF32 hi and lo), bfloat16 [frame]
+    [24] bf16, int8 32-byte rows of quanta. bfloat16 and int8 also keep one
+    f32 staging buffer of x, [frame][20] and [frame][33] floats. Each
+    buffer of x is padded to 16 bytes. The output tile, tc x 264 floats,
+    reuses the same memory after the last chunk."""
+    check_dot_dtype(dot_dtype)
+    tc = 48 if cout % 48 == 0 and cout % 64 != 0 else 64
+    rows = 256 + dilation * (k - 1)
+
+    def pad16(n):
+        return -(-n // 16) * 16
+
+    x32 = pad16(rows * (33 if dot_dtype == torch.int8 else 20) * 4)
+    stage = k * tc * 32 + (rows * 32 if dot_dtype == torch.int8
+                           else pad16(rows * 48)
+                           if dot_dtype == torch.bfloat16 else x32)
+    extra = 0 if dot_dtype == torch.float32 else x32
+    return max(2 * stage + extra, tc * 264 * 4)
+
+
+def conv1d_amax_plain(x: torch.Tensor, k: int, dilation: int
+                      ) -> torch.Tensor:
+    """The plain version of kernel B.int8's pre-pass (the window scales'
+    kernel, ``conv1d_amax_kernel`` in csrc/conv1d_same.cu): x [B, Cin, T]
+    -> [B, ceil(T / 256), ceil(Cin / 8)], the largest |x| over each window
+    of ``quant.conv1d_int8`` ([256 w - pad, 256 w + 256 + pad) ∩ [0, T),
+    pad = d (K - 1) / 2) and each 8 channels."""
+    pad = dilation * (k - 1) // 2
+    return window_amax(x, -pad, CONV_TILE + 2 * pad, CONV_TILE,
+                       -(-x.shape[-1] // CONV_TILE), AMAX_CH)
+
+
 @functools.cache
 def _conv_library():
-    """Kernel B's library, once its weight layout is checked against
+    """Kernel B's library, once its weight layouts are checked against
     ``conv_weight_layout``'s."""
     lib = _build.library("conv1d_same")
-    if (lib.conv1d_same_weight_align(0),
-            lib.conv1d_same_weight_align(1)) != (CONV_CIN_ALIGN,
-                                                 CONV_COUT_ALIGN):
+    if tuple(lib.conv1d_same_weight_align(i) for i in range(3)) != (
+            CONV_CIN_ALIGN, CONV_COUT_ALIGN, INT8_CIN_ALIGN):
         raise RuntimeError("conv1d: the kernel's weight layout differs from "
                            "conv_weight_layout's")
     return lib
@@ -184,10 +229,14 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     if not lib.conv1d_same_supported(k, cout, dilation, DOT_CODE[dot_dtype]):
         raise ValueError(f"conv1d: no kernel instance for K={k}, Cout={cout}, "
                          f"dilation={dilation}, dot_dtype={dot_dtype}")
-    if dot_dtype == torch.int8 or cout < NARROW_COUT:
+    if cout < NARROW_COUT:
         wp = weight_ptrs(w, dot_dtype)
     else:  # the GEMM route's layout
         wp = (conv_weights(w, dot_dtype).data_ptr(),)
+    if dot_dtype == torch.int8:  # the weight scales, the pre-pass's scratch
+        part = torch.empty((bsz, -(-t // CONV_TILE), -(-cin // AMAX_CH)),
+                           device=x.device, dtype=torch.float32)
+        wp += (int8_weights(w)[1].data_ptr(), part.data_ptr())
     y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
     err = getattr(lib, f"conv1d_same_{DOT_NAME[dot_dtype]}")(

@@ -41,14 +41,13 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .conv import (DOT_NAME, _check, _stream, conv1d_plain, conv_weights,
-                   count_launch)
+from .conv import (DOT_NAME, SMEM_PER_BLOCK, _check, _stream, conv1d_plain,
+                   conv_weights, count_launch)
 from .fused_act import (_filter, snake_activation1d_ordered,
                         snake_activation1d_plain)
 from .quant import (DOT_DTYPES, check_dot_dtype, int8_conv_windows,
-                    int8_weights, untile, windows)
+                    int8_weights, untile, window_amax, windows)
 
-SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
 TAPS = (3, 7, 11)        # kernel instances (BigVGAN's resblock kernels)
 # the tensor-core pass (act_conv_core.cuh: act_conv_mma)
 MMA_RING = 3             # weight stages, one tap of [BM][32 bytes] each
@@ -338,12 +337,8 @@ def act_amax_plain(x: torch.Tensor, alpha: torch.Tensor,
     (zero where a window or a group holds no sample). Kernel D's windows:
     stride 256, lo = -pad, width 256 + 2 pad; kernel E's (act1): stride
     256 - 2 H, lo = -H - pad1, width 256 + 2 pad1."""
-    bsz, c, _ = x.shape
-    a = windows(snake_activation1d_ordered(x, alpha, beta, logscale), lo,
-                width, stride, n_win).abs()                # [B, n, C, W]
-    groups = -(-c // AMAX_CH)
-    a = torch.nn.functional.pad(a, (0, 0, 0, groups * AMAX_CH - c))
-    return a.reshape(bsz, n_win, groups, AMAX_CH * width).amax(dim=-1)
+    return window_amax(snake_activation1d_ordered(x, alpha, beta, logscale),
+                       lo, width, stride, n_win, AMAX_CH)
 
 
 # --- kernel wrappers -------------------------------------------------------------

@@ -132,6 +132,19 @@ def windows(a: torch.Tensor, lo: int, width: int, tile: int,
     return ap.unfold(2, width, tile)[:, :, :n].permute(0, 2, 1, 3)
 
 
+def window_amax(a: torch.Tensor, lo: int, width: int, tile: int, n: int,
+                group: int = 8) -> torch.Tensor:
+    """[B, C, T] -> [B, n, ceil(C / group)]: the largest |a| of each window
+    (``windows``) and each ``group`` channels, zero where a window or a
+    group holds no value: the partial maxima the int8 kernels' pre-passes
+    write, whose largest is the window's amax."""
+    bsz, c, _ = a.shape
+    win = windows(a, lo, width, tile, n).abs()              # [B, n, C, W]
+    groups = -(-c // group)
+    win = F.pad(win, (0, 0, 0, groups * group - c))
+    return win.reshape(bsz, n, groups, group * width).amax(dim=-1)
+
+
 def int8_conv_windows(win: torch.Tensor, w: torch.Tensor,
                       dilation: int) -> torch.Tensor:
     """int8 conv of each window of ``win`` [B, n, Cin, W] (one activation

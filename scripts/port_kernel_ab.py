@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
-    python3 scripts/port_kernel_ab.py [TREE] [--fused | --int8]
+    python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv] [--int8]
 
 Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
 TREE (default: this checkout), so two versions of a kernel compare in one
@@ -21,15 +21,17 @@ launches, CUDA events; a shape timed once and weighted by its launches):
 - kernel C (``conv_transpose1d``), float32 and bfloat16 instances, at the
   five upsampler shapes of a 10 s clip (Cin, Cout, T_in, u, K), with their
   per-clip sums (``C sum``, ``C.bf16 sum``);
-- kernel B (``conv1d``), float32 and bfloat16 instances, at every conv of
-  the unfused path of a 10 s clip (91 launches: the resblock convs of each
-  stage, Cin = Cout = C, T, K, d, residuals; and conv_post): per (C, K, d)
-  (``B 768 3 1``), per stage (``B 768 sum``), conv_post (``B post``) and
-  per clip (``B sum``), the same for ``B.bf16``.
+- kernel B (``conv1d``), float32, bfloat16 and int8 instances, at every
+  conv of the unfused path of a 10 s clip at that dtype (91 launches: the
+  resblock convs of each stage, Cin = Cout = C, T, K, d, residuals; and
+  conv_post, which stays float32 under int8, so B.int8 has 90): per (C, K,
+  d) (``B 768 3 1``), per stage (``B 768 sum``), conv_post (``B post``)
+  and per clip (``B sum``), the same for ``B.bf16`` and ``B.int8``.
 
-``--fused`` times D and E alone, ``--int8`` their int8 instances alone
-(with their A + B.int8 chains). Inputs are seeded random tensors. Needs
-a CUDA card.
+``--fused`` times D and E alone, ``--conv`` B alone; ``--int8`` keeps
+the int8 instances alone (D.int8 and E.int8 with their A + B.int8 chains,
+and B.int8): ``--fused --int8`` D.int8 and E.int8, ``--conv --int8``
+B.int8. Inputs are seeded random tensors. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -145,10 +147,47 @@ def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
             out[key] = out.get(key, 0.0) + v
 
 
+FLAGS = ("--fused", "--conv", "--int8")
+
+
+def conv_per_clip(randn, sfxs=tuple(DOTS)) -> dict:
+    """Kernel B (the instances of ``sfxs``) at every conv of the unfused
+    path of a 10 s clip, weighted by launches; conv_post (float32 under
+    int8) with the float32 and bfloat16 instances."""
+    import torch
+
+    from flowhigh_tpu_torch import ops
+    res: dict = {}
+    for sfx in sfxs:
+        name, dt = "B" + sfx, getattr(torch, DOTS[sfx])
+        sums: dict = {}
+        for (c, t, k, d, n_res, scale), n in unfused_convs().items():
+            x = randn(1, c, t)
+            w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(
+                c, scale=0.1)
+            rs = tuple(randn(1, c, t) for _ in range(n_res))
+            ms = n * time_ms(lambda: ops.conv1d(
+                x, w, bias, dilation=d, residuals=rs, out_scale=scale,
+                dot_dtype=dt))
+            for grp in (f"{name} {c} {k} {d}", f"{name} {c} sum",
+                        f"{name} sum"):
+                sums[grp] = sums.get(grp, 0.0) + ms
+            del x, w, rs
+        if dt != torch.int8:
+            x = randn(1, 48, 480000)
+            w, bias = randn(1, 48, 7, scale=(48 * 7) ** -0.5), randn(1)
+            sums[f"{name} post"] = time_ms(lambda: ops.conv1d(
+                x, w, bias, dot_dtype=dt))
+            sums[f"{name} sum"] += sums[f"{name} post"]
+        res.update(sums)
+    return res
+
+
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a not in ("--fused", "--int8")]
-    int8_only = "--int8" in sys.argv[1:]
-    fused_only = int8_only or "--fused" in sys.argv[1:]
+    args = [a for a in sys.argv[1:] if a not in FLAGS]
+    sfxs = (".int8",) if "--int8" in sys.argv[1:] else tuple(DOTS)
+    fused_only = "--fused" in sys.argv[1:]
+    conv_only = "--conv" in sys.argv[1:]
     tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
@@ -168,9 +207,11 @@ def main() -> int:
                                 * np.float32(scale)).cuda()
 
     res = {}
-    res.update(fused_per_clip(tree, randn,
-                              (".int8",) if int8_only else tuple(DOTS)))
-    if fused_only:
+    if not conv_only:
+        res.update(fused_per_clip(tree, randn, sfxs))
+    if not fused_only:
+        res.update(conv_per_clip(randn, sfxs))
+    if fused_only or conv_only or sfxs == (".int8",):
         return report(tree, res)
     for name, dt in (("C", torch.float32), ("C.bf16", torch.bfloat16)):
         total = 0.0
@@ -183,26 +224,6 @@ def main() -> int:
             res[f"{name} {cin} {u} {k}"] = ms
             total += ms
         res[f"{name} sum"] = total
-    for name, dt in (("B", torch.float32), ("B.bf16", torch.bfloat16)):
-        sums: dict = {}
-        for (c, t, k, d, n_res, scale), n in unfused_convs().items():
-            x = randn(1, c, t)
-            w, bias = randn(c, c, k, scale=(c * k) ** -0.5), randn(
-                c, scale=0.1)
-            rs = tuple(randn(1, c, t) for _ in range(n_res))
-            ms = n * time_ms(lambda: ops.conv1d(
-                x, w, bias, dilation=d, residuals=rs, out_scale=scale,
-                dot_dtype=dt))
-            for grp in (f"{name} {c} {k} {d}", f"{name} {c} sum",
-                        f"{name} sum"):
-                sums[grp] = sums.get(grp, 0.0) + ms
-            del x, w, rs
-        x = randn(1, 48, 480000)
-        w, bias = randn(1, 48, 7, scale=(48 * 7) ** -0.5), randn(1)
-        sums[f"{name} post"] = time_ms(lambda: ops.conv1d(x, w, bias,
-                                                          dot_dtype=dt))
-        sums[f"{name} sum"] += sums[f"{name} post"]
-        res.update(sums)
     return report(tree, res)
 
 

@@ -268,14 +268,17 @@ def test_bf16_tensor_core_sums_meet_the_bound_at_stage1_depth():
     # epilogue; conv_post by bytes
     ("conv1d_same", 18.83, "operations"),
     # bf16: bytes at 3.35 TB/s exceed the tensor cores' time
-    ("conv1d_same.bf16", 5.15, "bytes")])
+    ("conv1d_same.bf16", 5.15, "bytes"),
+    # int8: the same products at the s8 peak, by bytes; conv_post stays
+    # float32, so 90 launches
+    ("conv1d_same.int8", 4.36, "bytes")])
 def test_chip_smoke_bounds_kernel_b_by_its_route(instance, bound_ms, bound_by):
     cs = _chip_smoke()
     peaks = cs.card_peaks("NVIDIA H100 80GB HBM3")
     dt = cs.dot_dtype_of(instance)
     calls = cs.main_path_calls(FlowHighConfig().vocoder, 1000, False,
                                None if dt == torch.float32 else dt)[instance]
-    assert sum(calls.values()) == 91
+    assert sum(calls.values()) == (90 if dt == torch.int8 else 91)
     total = dots = 0.0
     for key, n in calls.items():
         byt, dk, other = cs.work(instance, key)
@@ -293,9 +296,12 @@ def test_chip_smoke_bounds_kernel_b_by_its_route(instance, bound_ms, bound_by):
     tot = cs.path_totals({instance: calls}, {instance: {
         key: _row(cs, peaks, instance, key) for key in calls}})[instance]
     assert tot["bound_by"] == bound_by
-    # the GEMM route's f32 products: three TF32 products at the TF32 peak
+    # the GEMM route's f32 products: three TF32 products at the TF32 peak;
+    # int8's one s8 product at the int8 peak
     assert cs.dot_seconds(peaks, "conv1d_same", 495e12, (768, 768)) == \
         pytest.approx(3.0)
+    assert cs.dot_seconds(peaks, "conv1d_same.int8", 1979e12,
+                          (768, 768)) == pytest.approx(1.0)
 
 
 def _row(cs, peaks, instance, key):

@@ -245,9 +245,10 @@ def test_amp_unit_kernel_matches_plain(cuda, gen, k, d):
 MMA_PAIRS = [(768, 768, 293, 11, 5), (384, 384, 100, 7, 3),
              (196, 192, 293, 3, 5), (100, 96, 129, 11, 1),
              (52, 48, 1, 3, 3), (40, 130, 257, 7, 1)]
-# (C, T, K, d) of kernel E
+# (C, T, K, d) of kernel E; C = 200 passes 64 x 192 with a partial block
 MMA_UNITS = [(192, 293, 11, 5), (192, 100, 3, 1), (96, 500, 7, 3),
-             (48, 1000, 11, 1), (160, 171, 3, 3), (48, 3, 7, 5)]
+             (48, 1000, 11, 1), (160, 171, 3, 3), (48, 3, 7, 5),
+             (200, 777, 7, 3)]
 
 
 def _launches(fn, dot_dtype):
@@ -510,12 +511,14 @@ def test_amp_unit_variant_matches_plain(cuda, gen, dot_dtype, k, d, b, c, t):
 # order, the same windows and quanta, exact int32 sums) and the same f32
 # epilogue, so they give the same bits: T off the 256-sample window, Cin
 # off the 32-channel chunk, C = 48, a cluster of two (C = 192) and of a
-# partial block (C = 160), and full-width stage shapes. (Cin, Cout, T, K,
-# d, B) for D, (C, T, K, d, B) for E
+# partial block (C = 160), a cluster of three 96-channel blocks (C = 200),
+# and full-width stage shapes. (Cin, Cout, T, K, d, B) for D, (C, T, K,
+# d, B) for E
 INT8_PAIRS = [(45, 64, 777, 7, 3, 1), (48, 48, 300, 11, 5, 2),
               (384, 384, 600, 3, 1, 1), (768, 768, 5000, 11, 5, 1)]
 INT8_UNITS = [(45, 777, 7, 3, 1), (48, 300, 11, 5, 2), (160, 777, 3, 1, 1),
-              (192, 1000, 7, 3, 2), (192, 80000, 11, 5, 1)]
+              (192, 1000, 7, 3, 2), (192, 80000, 11, 5, 1),
+              (200, 777, 7, 3, 1)]
 
 
 @pytest.mark.parametrize("cin,cout,t,k,d,b", INT8_PAIRS)
@@ -551,6 +554,42 @@ def test_amp_unit_int8_equals_plain(cuda, gen, c, t, k, d, b):
     assert ops.amp_unit.variant_launches[torch.int8] == v0 + 1
     want = ops.amp_unit_plain(*args, **kw)
     assert float((got - want).abs().max()) == 0.0 and torch.equal(got, want)
+
+
+# Kernel B.int8 (the GEMM route's s8 instance and its pre-pass) computes
+# the plain version's integers (the same windows, quanta and exact int32
+# sums) and its f32 epilogue in the same order, so it gives the same bits:
+# T off the window and below one, Cin off the 32-channel chunk, Cout 48
+# (48-channel tiles) and 40 (a partial tile), every K (d 5 at K 11), 0-3
+# residuals, batch 2, and the widest stage. (B, Cin, Cout, T, K, d, n_res)
+INT8_CONVS = [(2, 45, 40, 777, 3, 1, 0), (1, 48, 48, 100, 7, 3, 1),
+              (2, 96, 96, 300, 11, 5, 2), (1, 64, 200, 512, 7, 1, 3),
+              (1, 384, 384, 20000, 3, 3, 1), (1, 768, 768, 5000, 11, 5, 1)]
+
+
+@pytest.mark.parametrize("b,cin,cout,t,k,d,n_res", INT8_CONVS)
+def test_conv1d_int8_equals_plain(cuda, gen, b, cin, cout, t, k, d, n_res):
+    x = _randn(gen, cuda, b, cin, t)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = tuple(_randn(gen, cuda, b, cout, t) for _ in range(n_res))
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3,
+              dot_dtype=torch.int8)
+    v0 = ops.conv1d.variant_launches[torch.int8]
+    got = ops.conv1d(x, w, bias, **kw)
+    assert ops.conv1d.variant_launches[torch.int8] == v0 + 1
+    want = ops.conv1d_plain(x, w, bias, **kw)
+    assert float((got - want).abs().max()) == 0.0 and torch.equal(got, want)
+
+
+def test_conv_smem_arithmetic_matches_the_kernel(cuda):
+    lib = _build.library("conv1d_same")
+    for code, dt in enumerate((torch.float32, torch.bfloat16, torch.int8)):
+        for c in (768, 384, 200, 192, 96, 48, 40):
+            for k in (3, 7, 11):
+                for d in (1, 3, 5):
+                    assert lib.conv1d_same_smem_bytes(k, c, d, code) == \
+                        ops.conv.conv_smem_bytes(k, d, c, dt)
 
 
 def test_variant_wrappers_raise_without_an_instance(cuda, gen):
