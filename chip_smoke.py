@@ -41,7 +41,8 @@ Phases (any failure raises and the script exits non-zero):
    RTOL, and phase 1 fails if B.int8 differs at all). Phase 0 prints each
    kernel instance's registers and spills (ptxas) and fails if an int8
    instance of B, a tensor-core instance of D or E (float32, bfloat16,
-   int8) or an int8 pre-pass spills. C's rows per upsampler of the 10 s
+   int8), an int8 pre-pass, either instance of kernel A or probe G
+   spills. C's rows per upsampler of the 10 s
    clip (f32 and bf16) are printed, and B's per resblock shape of the
    unfused 10 s clip (stage x K x d, f32, bf16 and int8) and its
    ``conv_post`` row;
@@ -50,7 +51,9 @@ Phases (any failure raises and the script exits non-zero):
    on the unfused path: launch counts of every kernel on each run (zeroed
    just before, read just after, held against ``main_path_calls``), output
    shape and finiteness, the two paths' outputs against each other, median
-   ms per clip and RTF of each;
+   ms per clip and RTF of each; on one more unfused run, the largest
+   argument |a u| that kernel A's sine meets (``snake_arguments``), which
+   must lie within the range its error bound is stated for (2^15);
 S. serving: ServingPipeline over 12 x 10 s clips with at most 8 in flight,
    float32 and int16 wire: sustained RTF; a pinned-seed request against
    ``generate``; ``generate_batch`` on 4 clips at 16 and 8 kHz against
@@ -153,11 +156,13 @@ DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4),
 # (flowhigh_tpu_torch/ops/conv.py: NARROW_COUT)
 NARROW_COUT = 16
 # the entry functions that phase 0 fails on if ptxas reports a spill: the
-# tensor-core instances of D and E (float32, bfloat16; int8), B.int8 and
-# the int8 instances' pre-passes
+# tensor-core instances of D and E (float32, bfloat16; int8), B.int8, the
+# int8 instances' pre-passes, both instances of kernel A (its strip and
+# halo live in registers) and probe G (A's snake alone)
 NO_SPILL = ("act_conv1d_mma_kernel", "act_conv1d_s8_kernel",
             "amp_unit_mma_kernel", "amp_unit_s8_kernel", "act_amax_kernel",
-            "conv1d_s8_kernel", "conv1d_amax_kernel")
+            "conv1d_s8_kernel", "conv1d_amax_kernel", "snake_aa_kernel",
+            "snake_only_kernel")
 
 
 def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
@@ -740,6 +745,31 @@ def replayed(records: list):
     finally:
         for name, fn in saved.items():
             setattr(bigvgan, name, fn)
+
+
+@contextlib.contextmanager
+def snake_arguments(largest: list):
+    """Every call of kernel A in the vocoder also appends the largest |a u|
+    of its input to ``largest``: u = up2(x) by the plain resampler, a the
+    snake's alpha (exp'd under logscale). That is the argument of A's sine,
+    whose error bound ``csrc/snake.cuh`` states up to 2^15."""
+    import torch
+
+    from flowhigh_tpu_torch.models import bigvgan
+    saved = bigvgan.snake_activation1d
+
+    def call(x, alpha, beta, logscale=True):
+        with torch.no_grad():
+            a = torch.exp(alpha) if logscale else alpha
+            u = bigvgan.upsample1d(x, 2, 12)
+            largest.append(float((u * a[None, :, None]).abs().max()))
+        return saved(x, alpha, beta, logscale)
+
+    try:
+        bigvgan.snake_activation1d = call
+        yield largest
+    finally:
+        bigvgan.snake_activation1d = saved
 
 
 def launch_counts() -> dict:
@@ -1524,6 +1554,15 @@ def main() -> int:
     sr_unf = make_sr(config, "cuda", fuse_act_conv=False)
     out_unf, counts_unf = run_main_path(sr_unf, audio, IN_SR)
     check_launches("phase 2: unfused path", counts_unf, calls_unfused)
+    with snake_arguments([]) as sine_args:
+        sr_unf.generate(audio, IN_SR, timestep=1)
+    print(f"phase 2: kernel A's sine argument |a u| on the unfused path: "
+          f"largest {max(sine_args):.4g} over {len(sine_args)} calls (the "
+          f"error bound of csrc/snake.cuh holds to {2.0 ** 15:g})",
+          flush=True)
+    if not max(sine_args) <= 2.0 ** 15:
+        raise AssertionError(f"|a u| reached {max(sine_args)}, beyond the "
+                             "sine's stated range")
     times_unf = clip_ms_of(sr_unf, audio)
     clip_ms_unf = float(np.median(times_unf))
     paths_diff = float(np.abs(out - out_unf).max())
@@ -1617,6 +1656,7 @@ def main() -> int:
         "clip_ms": clip_ms, "clip_ms_all": times,
         "rtf": SECONDS * 1e3 / clip_ms, "clip_ms_unfused": clip_ms_unf,
         "clip_ms_unfused_all": times_unf, "paths_max_abs_diff": paths_diff,
+        "sine_argument_max": max(sine_args),
         "serving": serving, "phase3_max_abs_diff": diff,
         "phase3_stages": stages, "launches": counts,
         "launches_unfused": counts_unf, "main_path": main_tot,

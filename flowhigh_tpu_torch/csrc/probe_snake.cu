@@ -10,7 +10,8 @@
 // L = p * C in the script); ab [2, L].
 //
 // Bound: device memory, 8 bytes per element (one read, one write); two
-// precise sines per element are below the card's rate. Design: elementwise.
+// sines per element (snake.cuh: reduction by pi and a polynomial, no slow
+// path) are below the card's rate. Design: elementwise.
 // A block owns VEC * blockDim.x consecutive lanes, so each thread keeps its
 // lanes' a and 1 / (b + 1e-9) in registers (no per-element division or
 // index arithmetic), and walks the rows ROWS at a time, 16-byte loads and

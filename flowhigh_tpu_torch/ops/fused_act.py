@@ -5,12 +5,16 @@ plain PyTorch version.
 ``flowhigh_tpu/ops/fused_act.py:fused_snake_activation1d`` (C = 768, 384
 stages) and ``flowhigh_tpu/ops/packed.py:packed_snake_activation1d`` (the
 packed C = 192, 96, 48 stages and ``activation_post``). It computes
-down2(snake(up2(x))) in one pass: the 2x-rate intermediate stays in shared
-memory. Bound: device memory, 8 bytes per element (one read, one write).
+down2(snake(up2(x))) in one pass: each thread's strip of outputs and its
+2x-rate samples stay in registers, the halos pass between lanes by
+shuffles. Bound: device memory, 8 bytes per element (one read, one
+write). Any B*C.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,6 +31,14 @@ def _filter(device: torch.device) -> torch.Tensor:
         _filters[device] = torch.from_numpy(
             kaiser_sinc_filter1d(0.25, 0.3, 12)).to(device)
     return _filters[device]
+
+
+@functools.cache
+def taps_host() -> ctypes.Array:
+    """The 12 taps of ``_filter`` in host memory, made once: kernel A's
+    entry points read them at the launch and pass them by value."""
+    from ..models.bigvgan import kaiser_sinc_filter1d
+    return (ctypes.c_float * 12)(*kaiser_sinc_filter1d(0.25, 0.3, 12).tolist())
 
 
 def snake_activation1d_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -99,15 +111,13 @@ def snake_activation1d(x: torch.Tensor, alpha: torch.Tensor,
                              f"float32 tensor on {x.device}")
     if alpha.shape != (c,) or (beta is not None and beta.shape != (c,)):
         raise ValueError("snake_activation1d: alpha/beta must have shape [C]")
-    if bsz * c > 65535:
-        raise ValueError("snake_activation1d: B*C must be <= 65535")
     y = torch.empty_like(x)
     lib = _build.library("snake_aa")
     err = lib.snake_aa_f32(
         x.data_ptr(), alpha.data_ptr(),
-        beta.data_ptr() if beta is not None else None,
-        _filter(x.device).data_ptr(), y.data_ptr(), bsz * c, c, t,
-        int(logscale), torch.cuda.current_stream(x.device).cuda_stream)
+        beta.data_ptr() if beta is not None else None, taps_host(),
+        y.data_ptr(), bsz * c, c, t, int(logscale),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "snake_aa")
     snake_activation1d.launches += 1
     return y

@@ -31,7 +31,7 @@ import torch
 
 from . import _build
 from .conv import _stream
-from .fused_act import _filter
+from .fused_act import taps_host
 from .quant import round_bf16
 
 HALO = 8  # the JAX kernel's neighbour blocks: 8 rows
@@ -117,12 +117,9 @@ def act_firs_only(x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("act_firs_only: x must be contiguous")
     bsz, c, t = x.shape
-    if bsz * c > 65535:
-        raise ValueError("act_firs_only: B*C must be <= 65535")
     y = torch.empty_like(x)
     err = _build.library("snake_aa").snake_aa_firs_f32(
-        x.data_ptr(), _filter(x.device).data_ptr(), y.data_ptr(), bsz * c, t,
-        _stream(x))
+        x.data_ptr(), taps_host(), y.data_ptr(), bsz * c, t, _stream(x))
     _build.check(err, "snake_aa_firs")
     act_firs_only.launches += 1
     return y

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
-    python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv] [--int8]
+    python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv | --act]
+                                      [--int8]
 
 Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
 TREE (default: this checkout), so two versions of a kernel compare in one
@@ -28,7 +29,23 @@ launches, CUDA events; a shape timed once and weighted by its launches):
   d) (``B 768 3 1``), per stage (``B 768 sum``), conv_post (``B post``)
   and per clip (``B sum``), the same for ``B.bf16`` and ``B.int8``.
 
-``--fused`` times D and E alone, ``--conv`` B alone; ``--int8`` keeps
+- kernel A (``snake_activation1d``) at every shape of the unfused path
+  of a 10 s clip (91 launches: 18 a stage and ``activation_post``) and
+  the default path's one launch, through its wrapper (``A``) and as
+  device time alone (``A graph``: the 15 launches captured in a CUDA
+  graph and replayed, so the wrapper's host cost is left out) and the
+  host time of its call (``A host``: the enqueue alone); beside
+  it, at the same shapes and launches, A's firs-only instance
+  (``A.firs``, the snake as the identity), probe G (``G``, the snake
+  alone on the same elements as [1, C * T / 384, 384], the probe script's
+  width) and the bytes bound
+  (``A bound``): per stage (``A 768 sum``), per clip (``A sum``) and
+  for the default path (``A default``). One call of this mode on a
+  parent tree and on copies that drop one part of A each gives the
+  elimination split.
+
+``--fused`` times D and E alone, ``--conv`` B alone, ``--act`` A alone
+(with its firs-only instance and G); ``--int8`` keeps
 the int8 instances alone (D.int8 and E.int8 with their A + B.int8 chains,
 and B.int8): ``--fused --int8`` D.int8 and E.int8, ``--conv --int8``
 B.int8. Inputs are seeded random tensors. Needs a CUDA card.
@@ -147,7 +164,88 @@ def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
             out[key] = out.get(key, 0.0) + v
 
 
-FLAGS = ("--fused", "--conv", "--int8")
+FLAGS = ("--fused", "--conv", "--act", "--int8")
+
+
+def graph_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+    """Mean device ms of ``fn``'s launches: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host work sits between the launches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+G_LANES = 384  # probe G's lanes (C * T of every stage is a multiple)
+
+
+def host_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+    """Mean host ms of one call of ``fn`` (its enqueue: the wrapper's
+    checks, its allocation and the launch), the card left to run."""
+    import time
+
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def act_per_clip(tree: Path, randn) -> dict:
+    """Kernel A (wrapper and device time), its firs-only instance, probe G
+    and the bytes bound at every shape of the unfused and default paths of
+    a 10 s clip, weighted by launches."""
+    import torch
+
+    from flowhigh_tpu_torch import FlowHighConfig, ops
+    import chip_smoke  # the tree's (main puts TREE first on the path)
+    cfg = FlowHighConfig().vocoder
+    bw = chip_smoke.PEAKS["sxm"][1]
+    per_shape = {}
+    for c, t in sorted(set(chip_smoke.main_path_calls(
+            cfg, 1000, False)["snake_aa"]), reverse=True):
+        x = randn(1, c, t)
+        a, b = randn(c, scale=0.3), randn(c, scale=0.3)
+        xg = randn(1, c * t // G_LANES, G_LANES)
+        ab = torch.exp(randn(2, G_LANES, scale=0.3))
+        per_shape[c, t] = {
+            "A": time_ms(lambda: ops.snake_activation1d(x, a, b, True)),
+            "A host": host_ms(lambda: ops.snake_activation1d(x, a, b, True)),
+            "A graph": graph_ms(lambda: ops.snake_activation1d(x, a, b, True)),
+            "A.firs": time_ms(lambda: ops.act_firs_only(x)),
+            "G": time_ms(lambda: ops.snake_only(xg, ab)),
+            "A bound": chip_smoke.work("snake_aa", (c, t))[0] / bw * 1e3}
+        del x, xg
+        torch.cuda.empty_cache()
+    res: dict = {}
+    for fuse, grp in ((False, "sum"), (True, "default")):
+        calls = chip_smoke.main_path_calls(cfg, 1000, fuse)["snake_aa"]
+        for (c, t), n in calls.items():
+            for name, ms in per_shape[c, t].items():
+                keys = [f"{name} {grp}"] + ([f"{name} {c} sum"] if grp ==
+                                            "sum" else [])
+                for key in keys:
+                    res[key] = res.get(key, 0.0) + n * ms
+    return res
 
 
 def conv_per_clip(randn, sfxs=tuple(DOTS)) -> dict:
@@ -188,6 +286,7 @@ def main() -> int:
     sfxs = (".int8",) if "--int8" in sys.argv[1:] else tuple(DOTS)
     fused_only = "--fused" in sys.argv[1:]
     conv_only = "--conv" in sys.argv[1:]
+    act_only = "--act" in sys.argv[1:]
     tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
@@ -207,6 +306,8 @@ def main() -> int:
                                 * np.float32(scale)).cuda()
 
     res = {}
+    if act_only:
+        return report(tree, act_per_clip(tree, randn))
     if not conv_only:
         res.update(fused_per_clip(tree, randn, sfxs))
     if not fused_only:

@@ -47,17 +47,55 @@ def _close(got, want):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("b,c,t,with_beta", [(2, 48, 3000, True),
-                                             (1, 16, 1025, False),
-                                             (1, 4, 5, True)])
-def test_snake_kernel_matches_plain(cuda, gen, b, c, t, with_beta):
+# kernel A (csrc/snake_aa.cu): strips of 8 outputs a thread, tiles of 1,024
+# a block; interior tiles need T % 4 == 0 and 8 samples beyond the tile
+A_STRIP, A_TILE = 8, 1024
+SNAKE_CASES = [
+    (2, 48, 3000, True, True), (1, 16, 1025, False, True),
+    (1, 4, 5, True, True),
+    # each stage's C at a cut T (interior tiles at 4,100 and 2,056)
+    (1, 768, 5000, True, True), (1, 384, 4100, True, True),
+    (1, 192, 3000, True, True), (1, 96, 2056, True, True),
+    (1, 48, 4096, True, True),
+    # rows shorter than the down FIR, a strip, a tile
+    (1, 4, 1, True, True), (1, 4, 2, True, True), (1, 4, 12, True, True),
+    (1, 4, 13, True, True),
+    # one more than a whole number of strips and of tiles, with T % 4 == 0
+    # beside (interior tiles) and not (the clamped path throughout)
+    (1, 8, A_STRIP + 1, True, True), (1, 8, 32 * A_STRIP + 1, True, True),
+    (1, 8, A_TILE + 1, True, True), (1, 8, 2 * A_TILE + 1, True, True),
+    (1, 8, 3 * A_TILE + 8, True, True), (1, 8, 3 * A_TILE + 9, True, True),
+    (1, 8, 3 * A_TILE + 12, True, True),
+    (1, 8, 2 * A_TILE + A_STRIP + 1, True, True),
+    # plain snake (beta = None) and linear-scale parameters
+    (1, 96, 4100, False, True), (1, 96, 4100, True, False),
+    (1, 96, 4100, False, False),
+    # B * C above 65,535 (the grid is one-dimensional over rows and tiles)
+    (86, 768, 13, True, True), (2, 33000, 2056, True, True)]
+
+
+@pytest.mark.parametrize("b,c,t,with_beta,logscale", SNAKE_CASES)
+def test_snake_kernel_matches_plain(cuda, gen, b, c, t, with_beta, logscale):
     x = _randn(gen, cuda, b, c, t)
     a = _randn(gen, cuda, c, scale=0.3)
     beta = _randn(gen, cuda, c, scale=0.3) if with_beta else None
+    if not logscale:  # positive alpha, beta as the linear parameters are
+        a = a.abs() + 0.5
+        beta = None if beta is None else beta.abs() + 0.5
     n0 = ops.snake_activation1d.launches
+    _close(ops.snake_activation1d(x, a, beta, logscale),
+           ops.snake_activation1d_plain(x, a, beta, logscale))
+    assert ops.snake_activation1d.launches == n0 + 1
+
+
+def test_snake_kernel_takes_any_alignment(cuda, gen):
+    # a row view one float in: the pointers rule out 16-byte access, so
+    # every tile takes the clamped path
+    base = _randn(gen, cuda, 1 + 8 * 4100)
+    x = base[1:].view(1, 8, 4100)
+    a, beta = _randn(gen, cuda, 8, scale=0.3), _randn(gen, cuda, 8, scale=0.3)
     _close(ops.snake_activation1d(x, a, beta),
            ops.snake_activation1d_plain(x, a, beta))
-    assert ops.snake_activation1d.launches == n0 + 1
 
 
 @pytest.mark.parametrize("cin,cout,k,d,n_res", [(48, 48, 11, 5, 3),
@@ -652,7 +690,8 @@ def test_snake_only_kernel_matches_plain(cuda, gen, b, s, lanes):
     assert ops.snake_only.launches == n0 + 1
 
 
-@pytest.mark.parametrize("b,c,t", [(2, 48, 3000), (1, 4, 5)])
+@pytest.mark.parametrize("b,c,t", [(2, 48, 3000), (1, 4, 5), (1, 8, 4100),
+                                   (1, 4, 1), (70, 1000, 13)])
 def test_act_firs_only_kernel_matches_plain(cuda, gen, b, c, t):
     x = _randn(gen, cuda, b, c, t)
     n0 = ops.act_firs_only.launches
