@@ -10,9 +10,16 @@ multiple of the block ``flash_block(N)`` with q = k = v = 0 in segment 0,
 so a masked query (segment 0) attends to the other masked keys AND to the
 pad keys (logit 0, value 0); a valid query attends to the valid keys only.
 
-Bound: f32 arithmetic on the card, 4 N^2 D operations per (batch, head).
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+Bound: the two products, 4 N^2 D operations per (batch, head), which the
+kernel runs on the tensor cores in 3xTF32 (three TF32 products per f32
+product at the TF32 peak; f32 accuracy, with each tensor-core sum joined
+to the running ones by f32 adds that round to nearest), plus the
+softmax's few operations per score on the FMA units. The kernel: 128
+queries a block as 4 warps of 32 rows, 32-key tiles through a two-stage
+``cp.async`` ring, Q split once into TF32 hi and lo, the softmax in base
+2 (``csrc/flash_attn.cu``; its arithmetic is emulated on the CPU in
+``tests/test_torch_flash_plan.py``). A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
-    python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv | --act]
-                                      [--int8]
+    python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv | --act |
+                                      --flash] [--int8]
 
 Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
 TREE (default: this checkout), so two versions of a kernel compare in one
@@ -44,8 +44,20 @@ launches, CUDA events; a shape timed once and weighted by its launches):
   parent tree and on copies that drop one part of A each gives the
   elimination split.
 
+- kernel F (``flash_attention``) at the model's 16 heads of 64 and its
+  qk-norm scale 10, with a frame mask as the vector field passes it: the
+  300 s long-form clip (N = 30,000, all valid; ``F 30000`` a launch,
+  ``F clip`` its two launches a clip) and StreamingSR's 10 s chunks (N =
+  1,000: ``F 1000 b1``, ``F 1000 b2``, and ``F 1000 b2 masked`` with 950
+  and 998 valid frames), through its wrapper (``F ...``) and as device
+  time alone (``F graph ...``, CUDA graph); at N = 1,000 also, under
+  ``max_abs``, F's largest difference from its plain version in float32
+  and in float64, and the float32 plain version's from the float64 one.
+  One call of this mode on a parent tree and on the copies of
+  ``scripts/port_flash_elim.py`` gives F's elimination split.
+
 ``--fused`` times D and E alone, ``--conv`` B alone, ``--act`` A alone
-(with its firs-only instance and G); ``--int8`` keeps
+(with its firs-only instance and G), ``--flash`` F alone; ``--int8`` keeps
 the int8 instances alone (D.int8 and E.int8 with their A + B.int8 chains,
 and B.int8): ``--fused --int8`` D.int8 and E.int8, ``--conv --int8``
 B.int8. Inputs are seeded random tensors. Needs a CUDA card.
@@ -164,7 +176,7 @@ def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
             out[key] = out.get(key, 0.0) + v
 
 
-FLAGS = ("--fused", "--conv", "--act", "--int8")
+FLAGS = ("--fused", "--conv", "--act", "--flash", "--int8")
 
 
 def graph_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -248,6 +260,49 @@ def act_per_clip(tree: Path, randn) -> dict:
     return res
 
 
+# kernel F: (name, B, N, valid frames of each row); the long-form clip's
+# vector field launches F twice (depth 2)
+FLASH_AB = (("30000", 1, 30000, (30000,)), ("1000 b1", 1, 1000, (1000,)),
+            ("1000 b2", 2, 1000, (1000, 1000)),
+            ("1000 b2 masked", 2, 1000, (950, 998)))
+FLASH_HEADS, FLASH_DIM, FLASH_SCALE, FLASH_PER_CLIP = 16, 64, 10.0, 2
+
+
+def flash_per_shape(randn, errors: dict) -> dict:
+    """Kernel F through its wrapper and in a CUDA graph at ``FLASH_AB``;
+    at N = 1,000 its max abs difference from the plain version in float32
+    and in float64, and the float32 plain version's from the float64 one,
+    into ``errors``."""
+    import torch
+
+    from flowhigh_tpu_torch import ops
+    res: dict = {}
+    for name, b, n, valids in FLASH_AB:
+        q, k, v = (randn(b, FLASH_HEADS, n, FLASH_DIM) for _ in range(3))
+        mask = (torch.arange(n, device="cuda")[None, :]
+                < torch.tensor(valids, device="cuda")[:, None])
+        reps = 5 if n > 4096 else 15
+
+        def run():
+            return ops.flash_attention(q, k, v, mask, FLASH_SCALE)
+        if n <= 4096:
+            got = run().double()
+            p32 = ops.flash_attention_plain(q, k, v, mask, FLASH_SCALE).double()
+            p64 = ops.flash_attention_plain(q.double(), k.double(), v.double(),
+                                            mask, FLASH_SCALE)
+            errors.update({f"F vs plain32 {name}": float((got - p32).abs().max()),
+                           f"F vs plain64 {name}": float((got - p64).abs().max()),
+                           f"plain32 vs plain64 {name}":
+                               float((p32 - p64).abs().max())})
+            del got, p32, p64
+        res[f"F {name}"] = time_ms(run, reps, 1)
+        res[f"F graph {name}"] = graph_ms(run, reps, 1)
+        del q, k, v, mask
+    for key in ("F", "F graph"):
+        res[f"{key} clip"] = FLASH_PER_CLIP * res[f"{key} 30000"]
+    return res
+
+
 def conv_per_clip(randn, sfxs=tuple(DOTS)) -> dict:
     """Kernel B (the instances of ``sfxs``) at every conv of the unfused
     path of a 10 s clip, weighted by launches; conv_post (float32 under
@@ -287,6 +342,7 @@ def main() -> int:
     fused_only = "--fused" in sys.argv[1:]
     conv_only = "--conv" in sys.argv[1:]
     act_only = "--act" in sys.argv[1:]
+    flash_only = "--flash" in sys.argv[1:]
     tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
@@ -308,6 +364,9 @@ def main() -> int:
     res = {}
     if act_only:
         return report(tree, act_per_clip(tree, randn))
+    if flash_only:
+        errors: dict = {}
+        return report(tree, flash_per_shape(randn, errors), errors)
     if not conv_only:
         res.update(fused_per_clip(tree, randn, sfxs))
     if not fused_only:
@@ -328,12 +387,15 @@ def main() -> int:
     return report(tree, res)
 
 
-def report(tree: Path, res: dict) -> int:
+def report(tree: Path, res: dict, errors=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"tree": str(tree), "card": card,
-                      "ms": {k: round(v, 3) for k, v in res.items()}}))
+    line = {"tree": str(tree), "card": card,
+            "ms": {k: round(v, 3) for k, v in res.items()}}
+    if errors:
+        line["max_abs"] = errors
+    print(json.dumps(line))
     return 0
 
 if __name__ == "__main__":
