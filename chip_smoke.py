@@ -42,8 +42,9 @@ Phases (any failure raises and the script exits non-zero):
    RTOL, and phase 1 fails if B.int8 differs at all). Phase 0 prints each
    kernel instance's registers and spills (ptxas) and fails if an int8
    instance of B, a tensor-core instance of D or E (float32, bfloat16,
-   int8), an int8 pre-pass, either instance of kernel A, probe G or an
-   instance of kernel F spills. C's rows per upsampler of the 10 s
+   int8), an int8 pre-pass, either instance of kernel A, probe G, an
+   instance of kernel F or an instance of probe H (with its prep
+   kernels) spills. C's rows per upsampler of the 10 s
    clip (f32 and bf16) are printed, and B's per resblock shape of the
    unfused 10 s clip (stage x K x d, f32, bf16 and int8) and its
    ``conv_post`` row;
@@ -99,7 +100,8 @@ M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    (f32 and bf16, with and without the snake; p > 1) against their plain
    versions: G, firs-only and f32 H at atol / rtol 1e-4 on values divided
    by the largest |plain value|, bf16 H in relative L2 (1e-3) and scaled
-   max abs (``PROBE_BF16_TOL``); each with its bound, its plain version's
+   max abs (``PROBE_BF16_TOL``); each with its bound (f32 H in 3xTF32
+   terms, with its f32 FMA bound printed beside), its plain version's
    time and kernels A and B on the same elements beside it;
 I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    signal as a 16 kHz int16 wav (random weights at full width, seed 0, as
@@ -148,23 +150,28 @@ PEAKS = {"sxm": (67e12, 3.35e12, 989e12, 1979e12, 495e12),
          "nvl": (60e12, 3.9e12, 835e12, 1671e12, 417e12)}
 # instances whose dot products run on another unit than their dtype's:
 # the float32 instances of kernel C, of kernel B's GEMM route, of kernels
-# D and E (their act->conv core's tensor-core route) and kernel F (both
-# products) run each f32 product as three TF32 products on the tensor
-# cores (3xTF32): {instance: (products per dot product, peak)}
+# D and E (their act->conv core's tensor-core route), kernel F (both
+# products) and probe H (both products, with and without the snake) run
+# each f32 product as three TF32 products on the tensor cores (3xTF32):
+# {instance: (products per dot product, peak)}
 DOT_UNITS = {"conv_transpose1d": (3, 4), "conv1d_same": (3, 4),
-             "act_conv1d": (3, 4), "amp_unit": (3, 4), "flash_attn": (3, 4)}
+             "act_conv1d": (3, 4), "amp_unit": (3, 4), "flash_attn": (3, 4),
+             "mxu_fir": (3, 4), "mxu_fir.dots": (3, 4)}
 # kernel B's narrow route (conv_post) below this Cout: f32 FMA at any dtype
 # (flowhigh_tpu_torch/ops/conv.py: NARROW_COUT)
 NARROW_COUT = 16
 # the entry functions that phase 0 fails on if ptxas reports a spill: the
 # tensor-core instances of D and E (float32, bfloat16; int8), B.int8, the
 # int8 instances' pre-passes, both instances of kernel A (its strip and
-# halo live in registers), probe G (A's snake alone) and every instance of
-# kernel F (Q's split fragments and the running O live in registers)
+# halo live in registers), probe G (A's snake alone), every instance of
+# kernel F (Q's split fragments and the running O live in registers) and
+# of probe H (the output accumulator lives in registers), with H's prep
+# kernels
 NO_SPILL = ("act_conv1d_mma_kernel", "act_conv1d_s8_kernel",
             "amp_unit_mma_kernel", "amp_unit_s8_kernel", "act_amax_kernel",
             "conv1d_s8_kernel", "conv1d_amax_kernel", "snake_aa_kernel",
-            "snake_only_kernel", "flash_attn_kernel")
+            "snake_only_kernel", "flash_attn_kernel", "fir_tf32_kernel",
+            "fir_wgmma_kernel", "fir_pack_f32_kernel", "fir_pack_kernel")
 
 
 def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
@@ -175,7 +182,10 @@ def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
     if base == "conv1d_same" and sfx != "int8" and key is not None \
             and key[1] < NARROW_COUT:
         return dots / peaks[0]
-    n, peak = DOT_UNITS.get(kernel, (1, {"": 0, "bf16": 2, "int8": 3}[sfx]))
+    if kernel in DOT_UNITS:
+        n, peak = DOT_UNITS[kernel]
+    else:  # the dtype's own unit
+        n, peak = 1, {"": 0, "bf16": 2, "int8": 3}[sfx]
     return n * dots / peaks[peak]
 
 
@@ -188,10 +198,17 @@ def ptxas_entries(log: str) -> list:
     out = []
     for chunk in log.split("Compiling entry function '")[1:]:
         fn = chunk.split("'")[0]
-        # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 hex><n><kernel>I<args>EEv
-        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)(?:I(.*?)EEv|"
-                      r"E)", fn)
-        kern, targs = (m.group(1), m.group(2) or "") if m else (fn, "")
+        # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 hex>[<n><namespace>...]
+        # <n><kernel>I<args>EEv: the kernel is the last length-prefixed name
+        m = re.search(r"_cu_[0-9a-f]{8}", fn)
+        kern, targs, pos = fn, "", m.end() if m else len(fn)
+        while m and pos < len(fn) and fn[pos].isdigit():
+            d = re.match(r"\d+", fn[pos:]).group()
+            kern = fn[pos + len(d):pos + len(d) + int(d)]
+            pos += len(d) + int(d)
+        if m and fn.startswith("I", pos):
+            t = re.match(r"I(.*?)EEv", fn[pos:])
+            targs = t.group(1) if t else ""
         args = ",".join(re.findall(r"(?:DotE|Li)(\d+)E", targs + "E"))
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1245,7 +1262,9 @@ def probe_phase(peaks) -> tuple[dict, dict]:
                 "plain_ms": time_ms(plain), "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": err,
                 "kernel_a_ms": rec["rows"]["act_full"]["ms"],
-                "kernel_b_ms": rec["rows"]["conv k7d3"]["ms"]})
+                "kernel_b_ms": rec["rows"]["conv k7d3"]["ms"],
+                **({"bound_fma_ms": rec["rows"][row]["bound_fma_ms"]}
+                   if "bound_fma_ms" in rec["rows"][row] else {})})
         del inp, rows
     for inst, r in res.items():
         cs = r["cases"]
@@ -1256,9 +1275,13 @@ def probe_phase(peaks) -> tuple[dict, dict]:
         r["max_abs_err"] = max(x["max_abs_err"] for x in cs)
         r["library_ms"] = None
         r["unfused_chain_ms"] = None
+        fma = ""
+        if all("bound_fma_ms" in x for x in cs):  # H f32: 3xTF32 and FMA
+            r["bound_fma_ms"] = sum(x["bound_fma_ms"] for x in cs)
+            fma = f" in 3xTF32, {r['bound_fma_ms']:.3f} at the f32 FMA peak"
         print(f"  {inst}: {r['launches']} launches; one per case: "
               f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
-              f"{r['bound_ms']:.3f} {r['bound_by']}; kernel A "
+              f"{r['bound_ms']:.3f} {r['bound_by']}{fma}; kernel A "
               f"{r['kernel_a_ms']:.3f}, B {r['kernel_b_ms']:.3f} on the same "
               f"elements)", flush=True)
     print(f"phase M: done in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -119,17 +119,6 @@ __device__ __forceinline__ void load_tile(float* smem, int st, int k0,
   }
 }
 
-// v = hi + lo exactly: hi is v rounded to TF32, to nearest with ties away
-// from zero, as cvt.rna.tf32.f32 rounds a finite v (here two integer
-// operations on the bits, where ptxas makes the cvt four); lo is the f32
-// remainder, of which the tensor cores take the top 19 bits (TF32 by
-// truncation: below 2^-21 |v| is lost, against 2^-22 with tf32_split's
-// rounded lo, at one conversion less)
-__device__ __forceinline__ void split_hi(float v, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
 // the 3xTF32 pair of a B fragment: (hi, lo) of b0 and b1
 struct BFrag {
   unsigned h0, h1, l0, l1;

@@ -1,8 +1,10 @@
 // Warp-level tensor-core and asynchronous-copy helpers for sm_90a (mma.sync
 // on bf16, tf32 and s8, ldmatrix, cp.async) and the 3xTF32 split, shared by
 // the kernels that run their dot products on the tensor cores: kernel B's
-// GEMM route (csrc/conv1d_same.cu), kernel C (csrc/conv_transpose1d.cu) and
-// the act->conv core of kernels D and E (csrc/act_conv_core.cuh). B and C stage
+// GEMM route (csrc/conv1d_same.cu), kernel C (csrc/conv_transpose1d.cu),
+// the act->conv core of kernels D and E (csrc/act_conv_core.cuh), kernel F
+// (csrc/flash_attn.cu) and kernel H's f32 instances (csrc/probe_fir.cu;
+// its bf16 ones run on wgmma, csrc/wgmma_sm90.cuh). B and C stage
 // a chunk of KC input channels at a time: the weights as rows of 32 bytes
 // (one tap and output channel, KC = 8 f32, 16 bf16 or 32 int8 channels),
 // and x as f32 rows [frame][XS] (the chunk's channels of one frame, padded
@@ -108,6 +110,17 @@ __device__ __forceinline__ void tf32_split(float v, unsigned& hi,
                                            unsigned& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// v = hi + lo exactly: hi is v rounded to TF32, to nearest with ties away
+// from zero, as cvt.rna.tf32.f32 rounds a finite v (here two integer
+// operations on the bits, where ptxas makes the cvt four); lo is the f32
+// remainder, of which the tensor cores take the top 19 bits (TF32 by
+// truncation: below 2^-21 |v| is lost, against 2^-22 with tf32_split's
+// rounded lo, at one conversion less)
+__device__ __forceinline__ void split_hi(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 // --- products -----------------------------------------------------------------

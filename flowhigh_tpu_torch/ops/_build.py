@@ -61,12 +61,16 @@ SIGNATURES = {
     "flash_attn": {"flash_attn_f32": [_P] * 5 + [_I] * 5 + [_F, _P],
                    "flash_attn_supported": [_I]},
     "probe_snake": {"snake_only_f32": [_P, _P, _P, _L, _I, _P]},
-    "probe_fir": {name: [_P] * 5 + [_I] * 3 + [_P] for name in (
-        "mxu_fir_f32", "mxu_fir_f32_dots", "mxu_fir_bf16",
-        "mxu_fir_bf16_dots")},
+    # H takes a scratch of mxu_fir_scratch_bytes(L, bf16) bytes (its
+    # weights laid out as the slices it reads)
+    "probe_fir": {"mxu_fir_scratch_bytes": [_I, _I],
+                  **{name: [_P] * 6 + [_I] * 3 + [_P] for name in (
+                      "mxu_fir_f32", "mxu_fir_f32_dots", "mxu_fir_bf16",
+                      "mxu_fir_bf16_dots")}},
 }
 RESTYPES = {"act_conv1d_smem_bytes": ctypes.c_longlong,
-            "amp_unit_smem_bytes": ctypes.c_longlong}
+            "amp_unit_smem_bytes": ctypes.c_longlong,
+            "mxu_fir_scratch_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -12,8 +12,9 @@ They are the card's counterparts of the round-4 microbenchmark probes of
 - ``mxu_fir`` (H) replaces ``mxu_fir`` (``pallas_call`` at ``:102``): the
   up-FIR as a matrix product [S, L] @ [L, 2L] over three row shifts, the
   snake, the down-FIR as [S, 2L] @ [2L, L] over three shifts, in one
-  kernel. Bound: operations, 24 S L^2, at the f32 FMA rate (float32
-  weights) or the bf16 tensor-core rate (bfloat16 weights, ``mma.sync``).
+  kernel. Bound: operations, 24 S L^2, on the tensor cores: in 3xTF32
+  for float32 weights (``mma.sync``), at the bf16 rate for bfloat16
+  weights (``wgmma``, clusters of two blocks).
 - ``act_firs_only`` is kernel A with the snake replaced by the identity,
   ``down2(up2(x))``: the JAX script's ``firs_only`` row, which
   monkeypatches ``ops/packed.py:_snake_packed``.
@@ -197,10 +198,16 @@ def mxu_fir(x: torch.Tensor, up: torch.Tensor, dn: torch.Tensor,
                          f"B = {bsz}")
     _check_card("mxu_fir", x, up, dn, ab2)
     out = torch.empty_like(x)
+    lib = _build.library("probe_fir")
+    # a prep kernel lays up and dn out here, at each call, as the slices
+    # the kernel reads
+    scratch = torch.empty(
+        lib.mxu_fir_scratch_bytes(lanes, int(up.dtype == torch.bfloat16)),
+        dtype=torch.uint8, device=x.device)
     inst = mxu_fir_instance(up.dtype, do_snake)
-    err = getattr(_build.library("probe_fir"), inst)(
+    err = getattr(lib, inst)(
         x.data_ptr(), up.data_ptr(), dn.data_ptr(), ab2.data_ptr(),
-        out.data_ptr(), bsz, s, lanes, _stream(x))
+        out.data_ptr(), scratch.data_ptr(), bsz, s, lanes, _stream(x))
     _build.check(err, inst)
     mxu_fir.launches += 1
     mxu_fir.instance_launches[inst] += 1

@@ -17,14 +17,18 @@ events (median of ``--reps`` single launches after ``--warmup``):
     conv k7d3    kernel B (ops.conv1d, k 7, d 3) on [1, C, S * p], with its
                  TFLOP/s
     mxu_fir      kernel H (ops.mxu_fir) for p > 1, as the JAX script: f32,
-                 f32 dots_only and bf16 (mma.sync), and bf16 dots_only
+                 f32 dots_only (3xTF32, mma.sync) and bf16 (wgmma), and
+                 bf16 dots_only
 
 Each row carries its bound: the larger of the bytes it must move over the
 card's memory rate and its operations over the card's peak for their type
-(chip_smoke.py's table). The inputs are the JAX script's, made with numpy
-from the same seed in the same order. The TPU's ``cap`` variants are not
-run: the tile rows are the card's own. One JSON line per case. Without a
-CUDA card it exits with a message and runs nothing.
+(chip_smoke.py's table); H's f32 rows count their dot products in 3xTF32,
+as chip_smoke.dot_seconds does for the other 3xTF32 kernels, and carry the
+f32 FMA units' bound beside it (``bound_fma_ms``). The inputs are the JAX
+script's, made with numpy from the same seed in the same order. The TPU's
+``cap`` variants are not run: the tile rows are the card's own. One JSON
+line per case. Without a CUDA card it exits with a message and runs
+nothing.
 """
 
 from __future__ import annotations
@@ -88,17 +92,26 @@ def case_inputs(rng: np.random.Generator, s: int, c: int, p: int,
     return out
 
 
-def bound(byt: float, dot_ops: float, other_ops: float, peaks,
-          dot_peak: float) -> tuple[float, str]:
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound(byt: float, dot_s: float, other_ops: float,
+          peaks) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the dot products taking ``dot_s`` seconds on their unit."""
     bytes_ms = byt / peaks[1] * 1e3
-    ops_ms = (dot_ops / dot_peak + other_ops / peaks[0]) * 1e3
+    ops_ms = (dot_s + other_ops / peaks[0]) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def mxu_fir_dots(s: int, lanes: int) -> float:
+    """Kernel H's dot-product operations: 12 L^2 a row for each product."""
+    return 24.0 * s * lanes ** 2
+
+
 def case_rows(inp: dict, s: int, c: int, p: int, peaks) -> dict:
-    """{row: (kernel call, plain call, bound ms, bound_by)} of one case."""
-    from chip_smoke import work
+    """{row: (kernel call, plain call, bound ms, bound_by)} of one case.
+    Kernel H's bound counts its f32 instances in 3xTF32 (three TF32
+    products a dot product at the TF32 peak, ``chip_smoke.dot_seconds``),
+    its bf16 ones at the bf16 peak."""
+    from chip_smoke import dot_seconds, work
     from flowhigh_tpu_torch import ops
 
     lanes, t = p * c, s * p
@@ -108,20 +121,20 @@ def case_rows(inp: dict, s: int, c: int, p: int, peaks) -> dict:
     rows["act_full"] = (
         lambda: ops.snake_activation1d(xa, inp["al"], inp["be"], True),
         lambda: ops.snake_activation1d_plain(xa, inp["al"], inp["be"], True),
-        *bound(byt, 0.0, other, peaks, peaks[0]))
+        *bound(byt, 0.0, other, peaks))
     rows["firs_only"] = (lambda: ops.act_firs_only(xa),
                          lambda: ops.act_firs_only_plain(xa),
                          *bound(4.0 * (2 * c * t + 12), 0.0, FIRS_OPS * c * t,
-                                peaks, peaks[0]))
+                                peaks))
     rows["snake_floor"] = (lambda: ops.snake_only(x, inp["ab"]),
                            lambda: ops.snake_only_plain(x, inp["ab"]),
                            *bound(4.0 * (2 * s * lanes + 2 * lanes), 0.0,
-                                  0.0, peaks, peaks[0]))
+                                  0.0, peaks))
     byt, dots, other = work("conv1d_same", (c, c, t, 7, 3, 0, 1.0))
     rows["conv k7d3"] = (
         lambda: ops.conv1d(xa, inp["w"], inp["b"], dilation=3),
         lambda: ops.conv1d_plain(xa, inp["w"], inp["b"], dilation=3),
-        *bound(byt, dots, other, peaks, peaks[0]))
+        *bound(byt, dots / peaks[0], other, peaks))
     if p == 1:
         return rows  # shifts are free row slices at p = 1 (the JAX script)
     for label, dt, snk in MXU_VARIANTS:
@@ -134,8 +147,8 @@ def case_rows(inp: dict, s: int, c: int, p: int, peaks) -> dict:
             lambda up=up, dn=dn, snk=snk: ops.mxu_fir_plain(
                 x, up, dn, inp["ab2"], do_snake=snk),
             *bound(4.0 * (2 * s * lanes + 4 * lanes) + size * 12 * lanes ** 2,
-                   24.0 * s * lanes ** 2, 0.0, peaks,
-                   peaks[2] if dt == "bfloat16" else peaks[0]))
+                   dot_seconds(peaks, "mxu_fir" + (".bf16" if sfx else ""),
+                               mxu_fir_dots(s, lanes)), 0.0, peaks))
     return rows
 
 
@@ -156,12 +169,17 @@ def run(reps: int = 15, warmup: int = 3, emit=print) -> list:
             ms = time_ms(fn, reps, warmup)
             rec["rows"][row] = {"ms": ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by}
+            if row.startswith("mxu_fir f32"):  # the f32 FMA units' bound
+                rec["rows"][row]["bound_fma_ms"] = (
+                    mxu_fir_dots(s, p * c) / peaks[0] * 1e3)
         conv = rec["rows"]["conv k7d3"]
         conv["tflops"] = 2.0 * s * p * c * c * 7 / (conv["ms"] * 1e-3) / 1e12
         act = rec["rows"]["act_full"]["ms"]
         emit(f"{name}: " + ", ".join(
             f"{row} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
-            f"{r['bound_by']}" + (f", {act - r['ms']:+.3f} vs act"
+            f"{r['bound_by']}" + (f"; f32 FMA {r['bound_fma_ms']:.3f}"
+                                  if "bound_fma_ms" in r else "")
+            + (f", {act - r['ms']:+.3f} vs act"
                                   if row.startswith("mxu") else "") + ")"
             for row, r in rec["rows"].items())
             + f"; conv {conv['tflops']:.1f} TFLOP/s")

@@ -2,7 +2,7 @@
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
     python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv | --act |
-                                      --flash] [--int8]
+                                      --flash | --fir] [--int8]
 
 Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
 TREE (default: this checkout), so two versions of a kernel compare in one
@@ -56,8 +56,24 @@ launches, CUDA events; a shape timed once and weighted by its launches):
   One call of this mode on a parent tree and on the copies of
   ``scripts/port_flash_elim.py`` gives F's elimination split.
 
+- probe kernel H (``mxu_fir``), its four instances (``H f32``, ``H
+  f32_dots``, ``H bf16``, ``H bf16_dots``) at the three probe cases with p
+  > 1 of ``scripts/port_bench_act_mxu.py`` (S = 60,000, 60,000, 40,000
+  rows of L = 384; the script's inputs, drawn from its seed in its
+  order): through the wrapper (``H f32 s5``) and as device time alone
+  (``H graph f32 s5``, CUDA graph), summed over the cases (``H f32 sum``,
+  ``H graph f32 sum``), the plain version's time (``H plain f32 sum``), and
+  the bounds: 24 S L^2 operations at the bf16 tensor-core peak, and for
+  the f32 instances in 3xTF32 terms (three TF32 products at the TF32
+  peak, ``H bound f32 sum``) and at the f32 FMA peak (``H bound f32 fma
+  sum``); under ``max_abs`` each instance's error against its plain
+  version as chip_smoke.py phase M measures it. One call of this mode on
+  a parent tree and on the copies of ``scripts/port_fir_elim.py`` gives
+  H's elimination split.
+
 ``--fused`` times D and E alone, ``--conv`` B alone, ``--act`` A alone
-(with its firs-only instance and G), ``--flash`` F alone; ``--int8`` keeps
+(with its firs-only instance and G), ``--flash`` F alone, ``--fir`` H
+alone; ``--int8`` keeps
 the int8 instances alone (D.int8 and E.int8 with their A + B.int8 chains,
 and B.int8): ``--fused --int8`` D.int8 and E.int8, ``--conv --int8``
 B.int8. Inputs are seeded random tensors. Needs a CUDA card.
@@ -176,7 +192,7 @@ def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
             out[key] = out.get(key, 0.0) + v
 
 
-FLAGS = ("--fused", "--conv", "--act", "--flash", "--int8")
+FLAGS = ("--fused", "--conv", "--act", "--flash", "--fir", "--int8")
 
 
 def graph_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -303,6 +319,59 @@ def flash_per_shape(randn, errors: dict) -> dict:
     return res
 
 
+# kernel H: (instance, weight dtype, snake) and the probe cases with p > 1
+FIR_INSTANCES = (("f32", "float32", True), ("f32_dots", "float32", False),
+                 ("bf16", "bfloat16", True), ("bf16_dots", "bfloat16", False))
+
+
+def fir_per_case(tree: Path, errors: dict) -> dict:
+    """Kernel H's four instances at the probe script's cases with p > 1:
+    wrapper and CUDA-graph times, plain times, bounds (see the module
+    docstring); each instance's error against its plain version into
+    ``errors``."""
+    import torch
+
+    from flowhigh_tpu_torch import ops
+    import chip_smoke  # the tree's (main puts TREE first on the path)
+    bench = chip_smoke._load_probe_script()
+    peaks = chip_smoke.PEAKS["sxm"]
+    rng = np.random.default_rng(0)  # the probe script's draws, in order
+    res: dict = {}
+    for name, s, c, p in bench.CASES:
+        inp = bench.case_inputs(rng, s, c, p, "cuda")
+        if p == 1:
+            continue
+        case = name.split()[0]
+        ops_ = 24.0 * s * (p * c) ** 2  # both products, either instance
+        keys = {"H bound bf16": ops_ / peaks[2] * 1e3,
+                "H bound f32": 3 * ops_ / peaks[4] * 1e3,
+                "H bound f32 fma": ops_ / peaks[0] * 1e3}
+        for label, dt, snk in FIR_INSTANCES:
+            sfx = "_bf16" if dt == "bfloat16" else ""
+            args = (inp["x"], inp["up" + sfx], inp["dn" + sfx], inp["ab2"])
+
+            def run(args=args, snk=snk):
+                return ops.mxu_fir(*args, do_snake=snk)
+
+            def plain(args=args, snk=snk):
+                return ops.mxu_fir_plain(*args, do_snake=snk)
+            want, got = plain().double(), run().double()
+            diff = (got - want).abs()
+            errors[f"H {label} {case}"] = (
+                float(diff.norm() / want.norm()) if dt == "bfloat16"
+                else float(diff.max() / want.abs().max()))
+            del got, want, diff
+            keys.update({f"H {label}": time_ms(run, 10, 2),
+                         f"H graph {label}": graph_ms(run, 10, 2),
+                         f"H plain {label}": time_ms(plain, 3, 1)})
+        for key, ms in keys.items():
+            res[f"{key} {case}"] = ms
+            res[f"{key} sum"] = res.get(f"{key} sum", 0.0) + ms
+        del inp
+        torch.cuda.empty_cache()
+    return res
+
+
 def conv_per_clip(randn, sfxs=tuple(DOTS)) -> dict:
     """Kernel B (the instances of ``sfxs``) at every conv of the unfused
     path of a 10 s clip, weighted by launches; conv_post (float32 under
@@ -343,6 +412,7 @@ def main() -> int:
     conv_only = "--conv" in sys.argv[1:]
     act_only = "--act" in sys.argv[1:]
     flash_only = "--flash" in sys.argv[1:]
+    fir_only = "--fir" in sys.argv[1:]
     tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
@@ -367,6 +437,9 @@ def main() -> int:
     if flash_only:
         errors: dict = {}
         return report(tree, flash_per_shape(randn, errors), errors)
+    if fir_only:
+        errors = {}
+        return report(tree, fir_per_case(tree, errors), errors)
     if not conv_only:
         res.update(fused_per_clip(tree, randn, sfxs))
     if not fused_only:

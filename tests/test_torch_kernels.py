@@ -718,8 +718,20 @@ def _close_max_normalised(got, want):
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("b,s,lanes", [(2, 128, 64), (1, 200, 128),
-                                       (1, 512, 384)])
+# kernel H's row tiles (csrc/probe_fir.cu): 62 output rows a block (f32),
+# 126 a cluster of two blocks (bf16); S is a multiple of 8 (the JAX
+# kernel's row blocks), so the rows next to a tile edge are 8 away
+H_TILE_F32, H_TILE_BF16 = 62, 126
+MXU_FIR_CASES = [
+    (2, 128, 64), (1, 200, 128), (1, 512, 384),
+    (1, 8, 384),                                  # one block, 8 rows
+    (3, 4 * H_TILE_F32 + 8, 192),                 # B = 3, past an f32 edge
+    (1, 4 * H_TILE_F32, 256),                     # whole f32 tiles
+    (2, 4 * H_TILE_BF16, 64),                     # whole bf16 tiles
+    (1, 4 * H_TILE_BF16 - 8, 384), (1, 4 * H_TILE_BF16 + 8, 384)]
+
+
+@pytest.mark.parametrize("b,s,lanes", MXU_FIR_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("do_snake", [True, False])
 def test_mxu_fir_kernel_matches_plain(cuda, gen, b, s, lanes, dtype, do_snake):
