@@ -56,7 +56,7 @@ Phases (any failure raises and the script exits non-zero):
    ms per clip and RTF of each; on one more unfused run, the largest
    argument |a u| that kernel A's sine meets (``snake_arguments``), which
    must lie within the range its error bound is stated for (2^15);
-S. serving: ServingPipeline over 12 x 10 s clips with at most 8 in flight,
+serving: ServingPipeline over 12 x 10 s clips with at most 8 in flight,
    float32 and int16 wire: sustained RTF; a pinned-seed request against
    ``generate``; ``generate_batch`` on 4 clips at 16 and 8 kHz against
    per-clip ``generate`` (max abs diff <= 1e-4);
@@ -92,6 +92,26 @@ L. long-form: the same weights with ``ModelConfig(attn_flash=True)`` run
    runs each), int16 within
    1e-4 of float32, seam LSD against the single-pass output below
    max(2.0, 2.5 x overall LSD);
+S. the rest of the inference surface, at full width with phase 2's
+   seeded weights. S1: ``generate`` on phase 2's 10 s clip with
+   ``ode_method="adaptive"`` (dopri5) and ``use_torchode=True`` (tsit5)
+   at atol = rtol = 1e-5 through ``dispatch_generate`` (its third result,
+   the solver's statistics): n_loops, n_accepted, converged, ms per clip,
+   the launch counts of phase 2; on a 1 s clip card and CPU within 1e-3
+   with equal accepted steps, or, after a flipped accept, the two solved
+   mels' RMS difference within the solver's tolerance (one atol + rtol
+   max|y| a step). S2: ``sample()`` (4 steps of the model's solver,
+   cond_scale 2, mel_pp, decode_to_audio) on the 10 s clip's mel and on
+   its audio, phase 2's launch counts; 1 s card vs CPU within 1e-3. S3: a
+   ``VocoderConfig(resblock="2")`` vocoder (AMPBlock2) at 1,536 channels
+   on the 10 s mel: kernels A and B 46 launches each and C 5
+   (``main_path_calls``), every launch replayed against its plain version
+   on its own inputs (``replayed``), ms per clip, 1 s card vs CPU within
+   1e-3; phase 1 times its A and B shapes (``resblock2_path`` in the
+   records). S4: ``generate(upsampling_method="librosa")`` (the soxr_hq
+   FIR) at 16 and 44.1 kHz, ``encode_torchaudio`` and
+   ``post_process_with_phase``, each card vs CPU on 1 s
+   (``SURFACE_TOL``);
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    of scripts/bench_act_mxu.py): the probe script's run over its four
    cases with every launch count zeroed just before and read just after
@@ -118,8 +138,9 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    are per long-form clip; each variant's on its dtype's fused path, or
    the unfused one for B.int8, which only that path runs; the probe
    kernels' launches from phase M's run, their times summed over the
-   probe script's cases, one launch each), the card line and, last, the
-   ``ok`` line.
+   probe script's cases, one launch each; A, B and C's AMPBlock2 sums in
+   ``resblock2_path``), with phase S's paths (``paths``: name, launches,
+   ms), the card line and, last, the ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
 """
@@ -127,6 +148,7 @@ Per-shape numbers go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -257,8 +279,9 @@ def dot_dtype_of(name: str):
 
 def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None):
     """Every kernel call of one BigVGAN forward over ``frames`` mel frames,
-    routed as ``models/bigvgan.py`` routes it (the port's plans) for the
-    vocoder's ``conv_dtype``: {instance: {shape key: launches}} over the
+    routed as ``models/bigvgan.py`` routes it (the port's plans; AMPBlock2
+    on kernels A and B whatever ``fuse_act_conv``) for the vocoder's
+    ``conv_dtype``: {instance: {shape key: launches}} over the
     five kernels and, for bf16 or int8, that dtype's variants; the
     resblock convs at ``conv_dtype``, the upsamplers and conv_post at
     bfloat16 under bfloat16 and float32 under int8 (``boundary_dtype``).
@@ -291,6 +314,10 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None):
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                          cfg.resblock_dilation_sizes)):
             for m, d in enumerate(rd):
+                if cfg.resblock == "2":  # AMPBlock2: A, then B with x added
+                    add("snake_aa", (ch, t))
+                    add("conv1d_same" + res, (ch, ch, t, rk, d, 1, 1.0))
+                    continue
                 last = j == nk - 1 and m == len(rd) - 1
                 n_extra, scale = (nk - 1, 1.0 / nk) if last else (0, 1.0)
                 if fuse_act_conv is True and amp_unit_plan(rk, d, ch, t):
@@ -726,11 +753,15 @@ def check_flash(peaks, long_frames: int) -> dict:
 # --- end to end ----------------------------------------------------------------
 
 def make_sr(config, device: str, seed: int = 0, fuse_act_conv=True,
-            conv_dtype=None):
+            conv_dtype=None, **kw):
+    """Seeded random weights at ``config``; ``kw`` (e.g. ``ode_method``,
+    ``use_torchode``, ``upsampling_method``) override the constructor's
+    arguments."""
     from flowhigh_tpu_torch import FlowHighSR
-    sr = FlowHighSR(config, cfm_method="independent_cfm_adaptive",
-                    ode_method="euler", fuse_act_conv=fuse_act_conv,
-                    vocoder_conv_dtype=conv_dtype, device=device)
+    args = dict(cfm_method="independent_cfm_adaptive", ode_method="euler",
+                fuse_act_conv=fuse_act_conv, vocoder_conv_dtype=conv_dtype,
+                device=device)
+    sr = FlowHighSR(config, **{**args, **kw})
     sr.init_params(seed)
     return sr
 
@@ -927,8 +958,6 @@ def stage_diffs(sr_gpu, sr_cpu, audio: np.ndarray) -> dict:
 def longform_phase(config, dense_out: np.ndarray, audio10: np.ndarray) -> dict:
     """Phase L (see the module docstring); ``dense_out`` is phase 2's
     default-path output of ``audio10``."""
-    import dataclasses
-
     import torch
 
     from flowhigh_tpu_torch import (StreamingSR, boundary_lsd,
@@ -1165,6 +1194,267 @@ def reduced_phase(config, frames: int, f32_out: np.ndarray,
                                    "replayed": {k: list(v) for k, v in
                                                 worst.items()}}
         res[name] = r
+    return res
+
+
+# --- phase S: the rest of the inference surface ---------------------------------
+
+# the adaptive generates of S1 (name -> constructor arguments); the
+# tolerances are the constructor's defaults, atol = rtol = 1e-5
+ADAPTIVE = {"dopri5": dict(ode_method="adaptive"),
+            "tsit5": dict(use_torchode=True)}
+# resblock "2" at the published widths (phase S3)
+RESBLOCK2 = dict(resblock="2")
+# card against CPU: waveforms at phase 3's bound; encode_torchaudio in
+# decibels, its power spectrum taken in float64 as encode's magnitude is
+# (the float32 one is printed beside it); the phase splice on the same
+# inputs, whose float32 rounding moves it by 3.6e-7 on the CPU
+SURFACE_TOL = {"wave": 1e-3, "encode_db": 1e-3, "splice": 1e-4}
+
+
+def _adaptive_run(sr, audio: np.ndarray, in_sr: int):
+    """``dispatch_generate`` as ``generate`` pads a clip: (out [1, T48]
+    numpy, AdaptiveStats as numpy, host ms with the read-back)."""
+    import torch
+
+    from flowhigh_tpu_torch.sr import padded_length, valid_samples_48k
+    n = len(audio)
+    padded = np.zeros(padded_length(n, in_sr), np.float32)
+    padded[:n] = audio
+    if sr.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _, st = sr.dispatch_generate(padded[None], np.array([n]), in_sr)
+    out = out[:, :valid_samples_48k(n, in_sr)].cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = {"n_loops": int(st.n_loops), "n_accepted":
+             st.n_accepted.cpu().tolist(), "converged":
+             st.converged.cpu().tolist()}
+    return out, stats, ms
+
+
+def _solver_bound(sr, stats: dict, mel) -> float:
+    """The adaptive solver's own bound on the RMS difference of two solves:
+    one tolerance (atol + rtol max|y|, the error norm's scale) a step, over
+    the larger count of accepted steps."""
+    return max(stats) * (sr.ode_atol + sr.ode_rtol * float(mel.abs().max()))
+
+
+def surface_phase(config, calls: dict, audio10: np.ndarray) -> dict:
+    """Phase S (see the module docstring); ``calls`` is phase 2's
+    ``main_path_calls``, ``audio10`` its 10 s clip."""
+    import torch
+
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.compat import seeded_init_
+    from flowhigh_tpu_torch.dsp import (apply_mel, mel_filterbank_htk,
+                                        resample_poly, stft)
+    from flowhigh_tpu_torch.models import BigVGAN, encode_torchaudio, mel_encode
+    from flowhigh_tpu_torch.postprocessing import post_process_with_phase
+    from flowhigh_tpu_torch.profiling import clip_signal
+
+    res: dict = {"paths": []}
+    short = clip_signal(1.0, IN_SR)
+
+    def path(name: str, counts: dict, ms: float, **extra) -> None:
+        res["paths"].append({"name": name, "launches": {
+            k: v for k, v in counts.items() if v}, "ms": ms, **extra})
+
+    # S1: the adaptive generate, dopri5 then tsit5
+    for name, kw in ADAPTIVE.items():
+        sr = make_sr(config, "cuda", **kw)
+        ops.reset_launch_counts()
+        out, stats, ms_first = _adaptive_run(sr, audio10, IN_SR)
+        counts = launch_counts()
+        if out.shape != (1, int(SECONDS * 48000)) or not np.isfinite(
+                out).all():
+            raise AssertionError(f"phase S1 {name}: bad output {out.shape}")
+        check_launches(f"phase S1: generate {name}", counts, calls)
+        _, stats2, ms = _adaptive_run(sr, audio10, IN_SR)
+        print(f"phase S1: generate(ode_method=adaptive, {name}) 10 s: "
+              f"n_loops {stats['n_loops']} ({7 * stats['n_loops']} field "
+              f"calls), n_accepted {stats['n_accepted']}, converged "
+              f"{stats['converged']}; {ms:.1f} ms per clip (first run "
+              f"{ms_first:.1f})", flush=True)
+        if stats2 != stats or not all(stats["converged"]):
+            raise AssertionError(f"phase S1 {name}: {stats} then {stats2}")
+        g_out, g_st, _ = _adaptive_run(sr, short, IN_SR)
+        sr_cpu = make_sr(config, "cpu", **kw)
+        t0 = time.perf_counter()
+        c_out, c_st, _ = _adaptive_run(sr_cpu, short, IN_SR)
+        cpu_s = time.perf_counter() - t0
+        diff = float(np.abs(g_out - c_out).max())
+        entry = {"n_loops": stats["n_loops"],
+                 "n_accepted": stats["n_accepted"],
+                 "converged": stats["converged"], "ms": ms,
+                 "card_1s": g_st, "cpu_1s": c_st, "card_vs_cpu": diff}
+        if g_st["n_accepted"] == c_st["n_accepted"]:
+            print(f"phase S1: {name} 1 s card vs CPU max abs {diff:.3e} "
+                  f"(<= {SURFACE_TOL['wave']}), equal steps {g_st} (CPU run "
+                  f"{cpu_s:.1f} s)", flush=True)
+            if not diff <= SURFACE_TOL["wave"]:
+                raise AssertionError(f"phase S1 {name}: card and CPU differ "
+                                     f"by {diff}")
+        else:  # a flipped accept: the two solves differ within tolerance
+            batch = torch.from_numpy(short)[None]  # one 1 s bucket
+            mels = []
+            for m in (sr, sr_cpu):
+                with torch.inference_mode():
+                    mel, _, _, _ = m._prep_and_solve(
+                        batch.to(m.device), torch.tensor([len(short)],
+                                                         device=m.device),
+                        m.generator(0), IN_SR, 48000, 1)
+                mels.append(mel.cpu().double())
+            rms = float((mels[0] - mels[1]).pow(2).mean().sqrt())
+            bound = _solver_bound(sr, g_st["n_accepted"] + c_st[
+                "n_accepted"], mels[1])
+            entry.update(mel_rms_diff=rms, mel_bound=bound)
+            print(f"phase S1: {name} 1 s: card steps {g_st}, CPU steps "
+                  f"{c_st} (a flipped accept); waveform max abs {diff:.3e}; "
+                  f"solved mels' RMS difference {rms:.3e} held to the "
+                  f"solver's tolerance {bound:.3e}", flush=True)
+            if not rms <= bound:
+                raise AssertionError(f"phase S1 {name}: mels differ by {rms}")
+        res[f"adaptive_{name}"] = entry
+        path(f"FlowHighSR.generate(ode_method=adaptive, {name})", counts, ms,
+             n_loops=stats["n_loops"])
+        del sr, sr_cpu
+
+    # S2: sample() on the 10 s clip's mel and on its audio
+    sr = make_sr(config, "cuda")
+    x48 = resample_poly(torch.from_numpy(audio10)[None], 48000, IN_SR)
+    x48 = x48 / x48.abs().max()
+    with torch.inference_mode():
+        mel10 = mel_encode(x48.cuda())
+    for what, cond in (("mel", mel10), ("audio", x48.cuda())):
+        kw = dict(cond=cond, cond_scale=2.0, mel_pp=True, decode_to_audio=True)
+        ops.reset_launch_counts()
+        out = sr.sample(**kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if out.shape != (1, mel10.shape[1] * 480) or not torch.isfinite(
+                out).all():
+            raise AssertionError(f"phase S2 {what}: bad output {out.shape}")
+        check_launches(f"phase S2: sample(cond={what})", counts, calls)
+        t0 = time.perf_counter()
+        sr.sample(**kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"phase S2: sample(cond={what}, time_steps=4, cond_scale=2, "
+              f"mel_pp, decode_to_audio) 10 s: out {tuple(out.shape)}, "
+              f"{ms:.1f} ms", flush=True)
+        res[f"sample_{what}_ms"] = ms
+        path(f"FlowHighSR.sample(cond={what}, cond_scale=2.0, mel_pp=True)",
+             counts, ms)
+    x1 = x48[:, :48000]
+    sr_cpu = make_sr(config, "cpu")
+    with torch.inference_mode():
+        mel1 = mel_encode(x1)
+    for what, cond in (("mel", mel1), ("audio", x1)):
+        kw = dict(cond_scale=2.0, mel_pp=True, decode_to_audio=True)
+        got = sr.sample(cond=cond.cuda(), **kw).cpu()
+        want = sr_cpu.sample(cond=cond, **kw)
+        diff = float((got - want).abs().max())
+        print(f"phase S2: sample(cond={what}) 1 s card vs CPU max abs "
+              f"{diff:.3e} (<= {SURFACE_TOL['wave']})", flush=True)
+        res[f"sample_{what}_card_vs_cpu"] = diff
+        if not diff <= SURFACE_TOL["wave"]:
+            raise AssertionError(f"phase S2 {what}: card and CPU differ")
+
+    # S3: a full-width AMPBlock2 vocoder
+    cfg2 = dataclasses.replace(config.vocoder, **RESBLOCK2)
+    calls2 = main_path_calls(cfg2, mel10.shape[1])
+    voc = seeded_init_(BigVGAN(cfg2).eval(), 1).cuda()
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = voc(mel10)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_launches("phase S3: AMPBlock2 vocoder", counts, calls2)
+        if not torch.isfinite(out).all():
+            raise AssertionError("phase S3: non-finite output")
+        with replayed([]) as records:
+            voc(mel10)
+        worst = {}
+        for inst, max_abs, _ in records:
+            worst[inst] = max(worst.get(inst, 0.0), max_abs)
+        print(f"phase S3: {len(records)} launches replayed against their "
+              f"plain versions on their own inputs (atol / rtol {ATOL}): "
+              f"max abs {worst}", flush=True)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            voc(mel10)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        voc_cpu = BigVGAN(cfg2).eval()
+        voc_cpu.load_state_dict({k: v.cpu() for k, v in
+                                 voc.state_dict().items()})
+        diff = float((voc(mel1.cuda()).cpu() - voc_cpu(mel1)).abs().max())
+    print(f"phase S3: AMPBlock2 vocoder ({cfg2.upsample_initial_channel} "
+          f"channels, rates "
+          f"{cfg2.upsample_rates}) {ms:.2f} ms per 10 s clip (median of 5: "
+          f"{[round(t, 2) for t in times]}); 1 s card vs CPU max abs "
+          f"{diff:.3e} (<= {SURFACE_TOL['wave']})", flush=True)
+    if not diff <= SURFACE_TOL["wave"]:
+        raise AssertionError(f"phase S3: card and CPU differ by {diff}")
+    res["resblock2"] = {"ms": ms, "ms_all": times, "card_vs_cpu": diff,
+                        "replayed": len(records), "replay_max_abs": worst,
+                        "launches": counts}
+    path("BigVGAN(VocoderConfig(resblock='2'))", counts, ms)
+    del voc, voc_cpu
+
+    # S4: the soxr_hq front end, the torchaudio encode, the phase splice
+    calls1 = main_path_calls(config.vocoder, 48000 // config.mel.hop_length)
+    for in_sr in (16000, 44100):
+        clip = clip_signal(1.0, in_sr)
+        g = make_sr(config, "cuda", upsampling_method="librosa")
+        c = make_sr(config, "cpu", upsampling_method="librosa")
+        ops.reset_launch_counts()
+        got = g.generate(clip, in_sr)
+        counts = launch_counts()
+        check_launches(f"phase S4: generate(upsampling_method=librosa) "
+                       f"{in_sr} Hz", counts, calls1)
+        want = c.generate(clip, in_sr)
+        diff = float(np.abs(got - want).max())
+        print(f"phase S4: generate(upsampling_method=librosa) 1 s at {in_sr} "
+              f"Hz card vs CPU max abs {diff:.3e} (<= {SURFACE_TOL['wave']})",
+              flush=True)
+        res[f"librosa_{in_sr}_card_vs_cpu"] = diff
+        if got.shape != (1, 48000) or not diff <= SURFACE_TOL["wave"]:
+            raise AssertionError(f"phase S4 librosa {in_sr}: {diff}")
+        path(f"FlowHighSR.generate(upsampling_method=librosa), 1 s at "
+             f"{in_sr} Hz", counts, None)
+        del g, c
+
+    def encode_f32_fft(a):
+        """encode_torchaudio with its power spectrum in float32."""
+        spec = stft(a, 2048, 480, 2048, center=True, pad_mode="reflect")
+        power = apply_mel(spec.real ** 2 + spec.imag ** 2,
+                          mel_filterbank_htk(48000, 2048, 256, 0.0, 24000.0))
+        return (10.0 * torch.log10(torch.clamp(power, min=1e-10))
+                ).transpose(-1, -2)
+
+    with torch.inference_mode():
+        ta = {prec: float((enc(x1.cuda()).cpu() - enc(x1)).abs().max())
+              for prec, enc in (("f64", encode_torchaudio),
+                                ("f32_stft", encode_f32_fft))}
+        out_g = sr.generate(short, IN_SR)
+        pred = torch.from_numpy(out_g)
+        splice = float((post_process_with_phase(pred.cuda(), x1.cuda(),
+                                                48000).cpu()
+                        - post_process_with_phase(pred, x1, 48000)
+                        ).abs().max())
+    print(f"phase S4: encode_torchaudio 1 s card vs CPU max abs {ta['f64']:.3e}"
+          f" dB (float64 power, <= {SURFACE_TOL['encode_db']}; with a float32 "
+          f"FFT {ta['f32_stft']:.3e} dB); post_process_with_phase 1 s card vs "
+          f"CPU max abs {splice:.3e} (<= {SURFACE_TOL['splice']})", flush=True)
+    res.update(encode_torchaudio_card_vs_cpu=ta, splice_card_vs_cpu=splice)
+    if not (ta["f64"] <= SURFACE_TOL["encode_db"]
+            and splice <= SURFACE_TOL["splice"] and np.isfinite(out_g).all()):
+        raise AssertionError("phase S4: card and CPU differ")
     return res
 
 
@@ -1511,17 +1801,21 @@ def main() -> int:
     calls_red = {n: tuple(main_path_calls(config.vocoder, frames, fuse,
                                           getattr(torch, n))
                           for fuse in (True, False)) for n in REDUCED}
+    # phase S3's AMPBlock2 vocoder at the published widths
+    calls_rb2 = main_path_calls(
+        dataclasses.replace(config.vocoder, **RESBLOCK2), frames)
 
     # phase 1: kernels against plain versions at every shape of the paths
     t0 = time.perf_counter()
     shapes = {k: set(calls[k]) | set(calls_unfused[k]) | set(calls_long[k])
-              for k in KERNEL_NAMES}
+              | set(calls_rb2[k]) for k in KERNEL_NAMES}
     for v in VARIANT_NAMES:
         shapes[v] = set().union(*(set(c.get(v, ())) for pair in
                                   calls_red.values() for c in pair))
     rows = check_kernels(shapes, "cuda", peaks)
     main_tot = path_totals(calls, rows)
     unfused_tot = path_totals(calls_unfused, rows)
+    rb2_tot = path_totals(calls_rb2, rows)
     red_tot = {n: tuple(path_totals(c, rows) for c in pair)
                for n, pair in calls_red.items()}
     for n, (fused_t, unfused_t) in red_tot.items():
@@ -1654,6 +1948,11 @@ def main() -> int:
         "ms": n_f * r["ms"], "plain_ms": n_f * r["plain_ms"],
         "library_ms": n_f * r["library_ms"], "unfused_chain_ms": None}
 
+    # phase S: the adaptive solver, sample(), AMPBlock2, the front end
+    t0 = time.perf_counter()
+    surface = surface_phase(config, calls, audio)
+    print(f"phase S: done in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # phase 4: the records
     kernels = []
     for k in ALL_KERNELS:
@@ -1665,6 +1964,8 @@ def main() -> int:
             entry["unfused_path"] = {f: unfused_tot[k][f] for f in RECORD}
         if k in main_tot:
             entry["longform_path"] = {f: long_tot[k][f] for f in RECORD}
+        if k in rb2_tot:
+            entry["resblock2_path"] = {f: rb2_tot[k][f] for f in RECORD}
         kernels.append(entry)
     for k in VARIANT_NAMES:  # each on its dtype's fused path, else unfused
         n = SUFFIXES[k.partition(".")[2]]
@@ -1705,8 +2006,9 @@ def main() -> int:
         "longform_path": long_tot,
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
+        "surface": surface, "resblock2_path": rb2_tot,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "paths": surface["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

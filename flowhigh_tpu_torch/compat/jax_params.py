@@ -92,8 +92,8 @@ def vector_field_state_from_jax(params: dict, cfg: ModelConfig) -> dict:
 
 
 def vocoder_state_from_jax(params: dict, cfg: VocoderConfig) -> dict:
-    """JAX ``BigVGAN`` params -> ``BigVGAN`` state dict: first the
-    reference's weight-normed layout (``weight_v = w``, ``weight_g = |w|``,
+    """JAX ``BigVGAN`` params (resblock "1" or "2") -> ``BigVGAN`` state
+    dict: first the reference's weight-normed layout (``weight_v = w``, ``weight_g = |w|``,
     as the JAX package exports it), then folded, plus the alias-free filter
     buffers the reference modules carry."""
     p = _tree(params)
@@ -121,6 +121,11 @@ def vocoder_state_from_jax(params: dict, cfg: VocoderConfig) -> dict:
     for n in range(len(cfg.upsample_rates) * nk):
         blk, B = p[f"resblocks_{n}"], f"resblocks.{n}"
         for j in range(len(cfg.resblock_dilation_sizes[n % nk])):
+            if cfg.resblock == "2":  # AMPBlock2: act_j -> convs_j
+                put_conv(f"{B}.convs.{j}", blk[f"convs_{j}_kernel"],
+                         blk[f"convs_{j}_bias"])
+                put_act(f"{B}.activations.{j}", blk[f"act_{j}"])
+                continue
             put_conv(f"{B}.convs1.{j}", blk[f"convs1_{j}_kernel"],
                      blk[f"convs1_{j}_bias"])
             put_conv(f"{B}.convs2.{j}", blk[f"convs2_{j}_kernel"],

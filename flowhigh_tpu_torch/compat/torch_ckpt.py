@@ -52,7 +52,10 @@ def vocoder_config_from_json(path) -> VocoderConfig:
 
 def vocoder_state_from_reference(sd: dict, expected: dict) -> dict:
     """Reference generator state dict (weight-normed or folded) -> the
-    port's ``BigVGAN`` state dict. ``expected`` is the target module's own
+    port's ``BigVGAN`` state dict. The port's modules carry the reference's
+    names for both resblock types (``resblocks.{n}.convs{1,2}.{j}`` and
+    ``activations.{m}`` for "1", ``resblocks.{n}.convs.{j}`` and
+    ``activations.{j}`` for "2"), so the keys map one to one. ``expected`` is the target module's own
     state dict: alias-free filter buffers missing from the file are rebuilt
     (they are fixed Kaiser-sinc taps), anything else missing raises."""
     out = fold_state_dict(sd)
@@ -70,7 +73,8 @@ def vector_field_state_from_reference(sd: dict, expected: dict) -> dict:
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
     if any(".1.to_qkva" in k or "gate_loop" in k for k in sd):
         raise NotImplementedError(
-            "checkpoint contains GateLoop layers, which are not ported")
+            "checkpoint contains GateLoop layers, which are not ported "
+            "(ROADMAP.md queue 1 item 11(c))")
     out = {k.removeprefix("flowhigh."): v for k, v in sd.items()
            if not k.startswith("flowhigh.audio_enc_dec.")}
     return _select(out, expected, "vector field")

@@ -1,12 +1,14 @@
 """BigVGAN 48 kHz 256-band generator — counterpart of
-``flowhigh_tpu/models/bigvgan.py`` (AMPBlock1 only).
+``flowhigh_tpu/models/bigvgan.py`` (resblock "1", ``AMPBlock1``, and
+resblock "2", ``AMPBlock2``).
 
 PyTorch's [B, C, T] layout inside; the public ``BigVGAN.forward`` takes the
 JAX package's [B, frames, n_mels] mel and returns [B, T_wav]. Weights keep
 the reference PyTorch state-dict layout (``tests/torch_ref.py:TorchBigVGAN``
 with weight norm folded): ``conv_pre``, ``ups.{i}.0``,
-``resblocks.{n}.convs{1,2}.{j}``, ``resblocks.{n}.activations.{m}.act``,
-``activation_post``, ``conv_post``, plus the alias-free filter buffers.
+``resblocks.{n}.convs{1,2}.{j}`` (``resblocks.{n}.convs.{j}`` for
+AMPBlock2), ``resblocks.{n}.activations.{m}.act``, ``activation_post``,
+``conv_post``, plus the alias-free filter buffers.
 
 The hot path runs through the port's five kernels. ``fuse_act_conv``
 chooses, as in the JAX package (``flowhigh_tpu/models/bigvgan.py:
@@ -21,7 +23,11 @@ AMPBlock1``), how each AMPBlock1 dilation unit runs:
 - ``False``: kernels A and B for everything.
 
 The MRF branch average is folded into the last branch's final kernel as
-residual + extras x 1/num_kernels. ``activation_post`` and ``conv_post``
+residual + extras x 1/num_kernels. ``AMPBlock2`` (per dilation: act ->
+dilated conv -> + x) runs each act on kernel A and each conv on kernel B
+with x as its residual, whatever ``fuse_act_conv`` says, and its MRF
+average is a sum and a divide, as in the JAX package, which folds the
+average for AMPBlock1 only. ``activation_post`` and ``conv_post``
 run on kernels A and B, the upsamplers on kernel C; ``conv_pre`` is a
 plain ``F.conv1d``. An upsampler whose K - stride is odd (none in the
 published config) runs the library transposed conv in float32 instead, by
@@ -242,6 +248,32 @@ class AMPBlock1(nn.Module):
         return x
 
 
+class AMPBlock2(nn.Module):
+    """Per dilation: act -> dilated conv -> + x (the JAX package's
+    ``AMPBlock2``, one conv per dilation)."""
+
+    def __init__(self, channels: int, kernel_size: int,
+                 dilations: Sequence[int], activation: str = "snakebeta",
+                 logscale: bool = True,
+                 dot_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dot_dtype = check_dot_dtype(dot_dtype)
+        self.dilations = tuple(dilations)
+        self.convs = nn.ModuleList([
+            nn.Conv1d(channels, channels, kernel_size, dilation=d,
+                      padding=(kernel_size * d - d) // 2)
+            for d in self.dilations])
+        self.activations = nn.ModuleList([
+            Activation1d(channels, activation, logscale)
+            for _ in self.dilations])
+
+    def forward(self, x):
+        for d, act, conv in zip(self.dilations, self.activations, self.convs):
+            x = conv1d(act(x), conv.weight, conv.bias, dilation=d,
+                       residuals=(x,), dot_dtype=self.dot_dtype)
+        return x
+
+
 class BigVGAN(nn.Module):
     """conv_pre -> [upsample -> MRF average]* -> act -> conv_post -> tanh."""
 
@@ -255,8 +287,9 @@ class BigVGAN(nn.Module):
         None (float32) | torch.bfloat16 | torch.int8 (see the module
         docstring)."""
         super().__init__()
-        if cfg.resblock != "1":
-            raise NotImplementedError("only AMPBlock1 (resblock '1') is ported")
+        if cfg.resblock not in ("1", "2"):
+            raise ValueError(f"resblock must be '1' or '2', got "
+                             f"{cfg.resblock!r}")
         self.cfg = cfg
         self.conv_dtype = check_dot_dtype(conv_dtype or torch.float32)
         # the JAX package's _boundary_dtype: int8 quantises resblocks only
@@ -274,10 +307,12 @@ class BigVGAN(nn.Module):
                 nn.ConvTranspose1d(cin, cout, k, u, padding=(k - u) // 2)]))
             for rk, rd in zip(cfg.resblock_kernel_sizes,
                               cfg.resblock_dilation_sizes):
-                self.resblocks.append(AMPBlock1(cout, rk, rd, cfg.activation,
-                                                cfg.snake_logscale,
-                                                fuse_act_conv,
-                                                self.conv_dtype))
+                self.resblocks.append(
+                    AMPBlock1(cout, rk, rd, cfg.activation,
+                              cfg.snake_logscale, fuse_act_conv,
+                              self.conv_dtype) if cfg.resblock == "1" else
+                    AMPBlock2(cout, rk, rd, cfg.activation,
+                              cfg.snake_logscale, self.conv_dtype))
         self.activation_post = Activation1d(cout, cfg.activation,
                                             cfg.snake_logscale)
         self.conv_post = nn.Conv1d(cout, 1, 7, padding=3)
@@ -301,9 +336,16 @@ class BigVGAN(nn.Module):
         nk = self.num_kernels
         for i, u in enumerate(self.cfg.upsample_rates):
             x = self._upsample(x, self.ups[i][0], u)
+            blocks = self.resblocks[i * nk:(i + 1) * nk]
+            if self.cfg.resblock == "2":  # the MRF average, summed apart
+                ys = [block(x) for block in blocks]
+                acc = ys[0]
+                for y in ys[1:]:
+                    acc = acc + y
+                x = acc / nk
+                continue
             ys: list = []
-            for j in range(nk):
-                block = self.resblocks[i * nk + j]
+            for j, block in enumerate(blocks):
                 if j == nk - 1:  # the MRF average, folded into the last conv
                     ys.append(block(x, extra_residuals=ys, out_scale=1.0 / nk))
                 else:

@@ -23,11 +23,13 @@ class VectorFieldNet(nn.Module):
         super().__init__()
         if cfg.architecture != "transformer":
             raise NotImplementedError(
-                f"architecture {cfg.architecture!r} is not ported")
+                f"architecture {cfg.architecture!r} is not ported (ROADMAP.md "
+                "queue 1 item 11(c))")
         if (cfg.num_register_tokens or cfg.use_unet_skip_connection
                 or cfg.use_gateloop_layers):
             raise NotImplementedError(
-                "register tokens, U-Net skips and GateLoop layers are not ported")
+                "register tokens, U-Net skips and GateLoop layers are not "
+                "ported (ROADMAP.md queue 1 item 11(c))")
         self.cfg = cfg
         self.sinu_pos_emb = nn.Sequential(
             LearnedSinusoidalPosEmb(cfg.dim), nn.Linear(cfg.dim, cfg.dim),

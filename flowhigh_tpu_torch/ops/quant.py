@@ -55,7 +55,7 @@ quantise over different windows and agree to quantisation grade only.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +68,38 @@ def check_dot_dtype(dot_dtype: torch.dtype) -> torch.dtype:
         raise ValueError(f"dot_dtype must be one of {DOT_DTYPES}, got "
                          f"{dot_dtype!r}")
     return dot_dtype
+
+
+CONV_DTYPES = {None: None, torch.bfloat16: torch.bfloat16,
+                torch.int8: torch.int8, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}
+
+
+def resolve_conv_dtype(value) -> Optional[torch.dtype]:
+    """``vocoder_conv_dtype`` -> None (float32), torch.bfloat16 or
+    torch.int8."""
+    try:
+        return CONV_DTYPES[value]
+    except (KeyError, TypeError):
+        raise ValueError("vocoder_conv_dtype must be None, torch.bfloat16, "
+                         f"torch.int8, 'bfloat16' or 'int8', got {value!r}"
+                         ) from None
+
+
+def check_lowering_switches(fused, packed, kernel_pipeline,
+                            names=("fused_vocoder", "packed_vocoder",
+                                   "vocoder_kernel_pipeline")) -> None:
+    """Validate the JAX package's TPU lowering switches (a bool, None or a
+    bool, an int >= 1), which the card's kernels do not depend on;
+    ``names`` are the caller's keywords for the messages."""
+    if not isinstance(fused, bool):
+        raise ValueError(f"{names[0]} must be a bool, got {fused!r}")
+    if packed is not None and not isinstance(packed, bool):
+        raise ValueError(f"{names[1]} must be None or a bool, got {packed!r}")
+    if isinstance(kernel_pipeline, bool) or not isinstance(
+            kernel_pipeline, int) or kernel_pipeline < 1:
+        raise ValueError(f"{names[2]} must be an int >= 1, got "
+                         f"{kernel_pipeline!r}")
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,14 @@ device-to-host copy overlap:
                  resolve the Future]
 
 ``inference_mode`` and the current CUDA stream are thread-local, so the
-dispatcher sets both itself. ``_generate_impl`` reads nothing back from the
-device (the output length is computed on the host), so the dispatcher never
-waits for the card and can queue the next clip while this one computes.
+dispatcher sets both itself. On the fixed grid ``_generate_impl`` reads
+nothing back from the device (the output length is computed on the host),
+so the dispatcher never waits for the card and can queue the next clip
+while this one computes. A model built with ``ode_method="adaptive"``
+makes the dispatcher wait on the device once per solver loop
+(``cfm.odeint_adaptive``); its statistics ride to the fetcher, which
+warns after the clip is done if an item did not converge, as the JAX
+package's fetcher does.
 
     with ServingPipeline(model) as srv:
         futs = [srv.submit(a, 16000) for a in clips]
@@ -38,8 +43,8 @@ import numpy as np
 import torch
 
 from .pipeline import StagePipeline
-from .sr import (FlowHighSR, _wire_int16, padded_length, prepare_clip,
-                 valid_samples_48k)
+from .sr import (FlowHighSR, _warn_if_unconverged, _wire_int16, padded_length,
+                 prepare_clip, valid_samples_48k)
 
 
 def request_seed(seed: int, index: int) -> int:
@@ -183,9 +188,9 @@ class ServingPipeline:
                 x = batch.to(torch.float32)
                 if batch.dtype == torch.int16:
                     x = x / 32768.0
-                out, _ = m._generate_impl(x, lens, generator, sr,
-                                          self.target_sampling_rate,
-                                          self.timestep)
+                out, _, stats = m._generate_impl(x, lens, generator, sr,
+                                                 self.target_sampling_rate,
+                                                 self.timestep)
                 if self.wire == "int16":
                     out = _wire_int16(out)
                 done = None
@@ -196,15 +201,16 @@ class ServingPipeline:
             fut.set_exception(e)
             return None
         # the pinned input buffer stays referenced until the copy has run
-        return (fut, out, done, n48, host)
+        return (fut, out, stats, done, n48, host)
 
     def _fetch(self, item):
         """Wait for the clip, copy it to the host, trim, resolve the
         Future. Owns every blocking device-to-host transfer."""
-        fut, out, done, n48, _host = item
+        fut, out, stats, done, n48, _host = item
         try:
             if done is not None:
                 done.synchronize()
+            _warn_if_unconverged(stats)
             out_np = out[:, :n48].cpu().numpy()
             if out_np.dtype == np.int16:
                 out_np = out_np.astype(np.float32) / 32767.0

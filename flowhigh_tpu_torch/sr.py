@@ -1,35 +1,40 @@
 """FlowHighSR — any-rate -> 48 kHz super-resolution, counterpart of the
 ``generate`` / ``generate_batch`` / ``dispatch_generate`` /
-``generate_longform`` / ``vocode_chunked`` / ``from_local`` /
+``generate_longform`` / ``vocode_chunked`` / ``sample`` / ``from_local`` /
 ``from_pretrained`` surface of ``flowhigh_tpu/sr.py``.
 
 One clip runs: polyphase upsample, masked peak-norm, mel encode, cutoff
-search, prior, fixed-grid ODE solve of the vector field, BigVGAN vocode
-(the port's CUDA kernels on the card), spectral low-band splice. Audio is
+search, prior, ODE solve of the vector field (fixed grid, or adaptive with
+``ode_method="adaptive"`` / ``use_torchode=True``), BigVGAN vocode (the
+port's CUDA kernels on the card), spectral low-band splice. Audio is
 bucketed to 1 s multiples at 48 kHz as in the JAX package, so both see the
 same padded shapes; the result is sliced back to the true length.
 
-``_generate_impl`` reads nothing back from the device: the true lengths go
-in as a tensor, the output length is computed on the host from the same
-integers (``valid_samples_48k``), so a caller can keep several clips in
-flight (``serving.ServingPipeline``).
+On the fixed grid ``_generate_impl`` reads nothing back from the device:
+the true lengths go in as a tensor, the output length is computed on the
+host from the same integers (``valid_samples_48k``), so a caller can keep
+several clips in flight (``serving.ServingPipeline``). The adaptive solver
+reads its loop condition back once per loop (``cfm.odeint_adaptive``).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .cfm import mel_cutoff_bins, odeint_fixed, sample_prior
+from .cfm import (TABLEAUS, mel_cutoff_bins, mel_replace, odeint_adaptive,
+                  odeint_fixed, sample_prior)
 from .compat.jax_params import (seeded_init_, vector_field_state_from_jax,
                                 vocoder_state_from_jax)
 from .config import CFMConfig, FlowHighConfig, ModelConfig
 from .dsp import resample_poly
 from .models import BigVGAN, VectorFieldNet, forward_with_cond_scale, mel_encode
+from .ops.quant import check_lowering_switches, resolve_conv_dtype
 from .postprocessing import post_process
 from .utils import resolve_device
 
@@ -58,6 +63,28 @@ def padded_length(n: int, in_sr: int, target_sr: int = 48000) -> int:
     return max(in_bucket, math.ceil(n / in_bucket) * in_bucket)
 
 
+def _warn_if_unconverged(stats) -> None:
+    """Warn when an adaptive solve left items short of t = 1 (they hit
+    ``max_steps``): the last accepted state is returned for them. Reads
+    ``stats`` back; ``None`` (the fixed grid) reads nothing."""
+    if stats is None:
+        return
+    conv = stats.converged.cpu().numpy()
+    if not conv.all():
+        bad = np.where(~conv)[0].tolist()
+        warnings.warn(
+            f"adaptive ODE solver hit max_steps before reaching t=1 for "
+            f"batch item(s) {bad}; returning the last accepted state. "
+            f"Loosen atol/rtol or raise max_steps.", RuntimeWarning,
+            stacklevel=3)
+
+
+def _is_probably_audio(x: torch.Tensor) -> bool:
+    """[B, T] or [B, 1, T] is audio, [B, T, M] a mel (the reference's
+    rule)."""
+    return x.ndim == 2 or (x.ndim == 3 and x.shape[1] == 1)
+
+
 def _wire_int16(out: torch.Tensor) -> torch.Tensor:
     """Waveform -> int16 on the device, round(clip(x * 32767)) (the
     reference's wav scale), so the device-to-host copy moves half the bytes.
@@ -84,50 +111,33 @@ def prepare_clip(audio) -> np.ndarray:
     return audio.astype(np.float32)
 
 
-_CONV_DTYPES = {None: None, torch.bfloat16: torch.bfloat16,
-                torch.int8: torch.int8, "bfloat16": torch.bfloat16,
-                "int8": torch.int8}
-
-
-def _conv_dtype(value) -> Optional[torch.dtype]:
-    """``vocoder_conv_dtype`` -> None (float32), torch.bfloat16 or
-    torch.int8."""
-    try:
-        return _CONV_DTYPES[value]
-    except (KeyError, TypeError):
-        raise ValueError("vocoder_conv_dtype must be None, torch.bfloat16, "
-                         f"torch.int8, 'bfloat16' or 'int8', got {value!r}"
-                         ) from None
-
-
-def _check_lowering_switches(fused_vocoder, packed_vocoder,
-                             kernel_pipeline) -> None:
-    if not isinstance(fused_vocoder, bool):
-        raise ValueError(f"fused_vocoder must be a bool, got {fused_vocoder!r}")
-    if packed_vocoder is not None and not isinstance(packed_vocoder, bool):
-        raise ValueError("packed_vocoder must be None or a bool, got "
-                         f"{packed_vocoder!r}")
-    if isinstance(kernel_pipeline, bool) or not isinstance(
-            kernel_pipeline, int) or kernel_pipeline < 1:
-        raise ValueError("vocoder_kernel_pipeline must be an int >= 1, got "
-                         f"{kernel_pipeline!r}")
-
-
 class FlowHighSR:
     def __init__(self, config: FlowHighConfig = FlowHighConfig(), params=None,
                  vocoder_params=None, *, cfm_method: Optional[str] = None,
                  sigma: Optional[float] = None,
                  ode_method: Optional[str] = None,
+                 cond_drop_prob: float = 0.0,
                  prior_semantics: str = "reference",
                  upsampling_method: str = "scipy", fuse_act_conv=True,
                  vocoder_conv_dtype=None, vocoder_storage_dtype=None,
                  fused_vocoder: bool = False,
                  packed_vocoder: Optional[bool] = None,
-                 vocoder_kernel_pipeline: int = 1, device=None):
+                 vocoder_kernel_pipeline: int = 1,
+                 use_torchode: bool = False, ode_atol: float = 1e-5,
+                 ode_rtol: float = 1e-5, ode_tableau: Optional[str] = None,
+                 device=None):
         """``params``/``vocoder_params``: the JAX package's param trees
         (nested dicts of arrays), carried across by ``compat.jax_params``;
         without them the networks keep their constructor init until
-        ``init_params``. ``fuse_act_conv`` (True | False | "auto" |
+        ``init_params``. ``ode_method``: "euler" | "midpoint" (fixed grid)
+        | "adaptive" (``cfm.odeint_adaptive`` at ``ode_atol``/``ode_rtol``
+        with ``ode_tableau``, "dopri5" by default); ``use_torchode=True``
+        (the reference's flag) means "adaptive" with "tsit5", the tableau
+        torchode instantiates. ``cond_drop_prob`` is kept for training and
+        has no effect on inference. ``prior_semantics``: "reference" (the
+        reference's executed prior) | "paper" (see ``_default_stds``).
+        ``upsampling_method``: "scipy" (``resample_poly``'s scipy design) |
+        "librosa" (its soxr_hq design). ``fuse_act_conv`` (True | False | "auto" |
         "pairs") chooses the vocoder's kernels (``models/bigvgan.py``).
         ``vocoder_conv_dtype`` (None | torch.bfloat16 | torch.int8 |
         "bfloat16" | "int8") is the dot precision of the vocoder's convs, as
@@ -139,8 +149,8 @@ class FlowHighSR:
         build the port's model, and otherwise ignored, since the card's
         kernels do not depend on them (``ValueError`` on another value).
         ``device=None`` means CUDA, and raises without it."""
-        _check_lowering_switches(fused_vocoder, packed_vocoder,
-                                 vocoder_kernel_pipeline)
+        check_lowering_switches(fused_vocoder, packed_vocoder,
+                                vocoder_kernel_pipeline)
         self.config = config
         self.device = resolve_device(device)
         self.cfm_method = cfm_method or config.cfm.cfm_method
@@ -148,25 +158,30 @@ class FlowHighSR:
             raise ValueError(f"unknown cfm_method {self.cfm_method!r}")
         self.sigma = config.cfm.sigma if sigma is None else sigma
         self.ode_method = ode_method or config.cfm.ode_method
-        if self.ode_method == "adaptive":
-            raise NotImplementedError("the adaptive ODE solver is not ported")
-        if self.ode_method not in ("euler", "midpoint"):
+        if use_torchode:  # the reference's flag: the adaptive solver
+            self.ode_method = "adaptive"
+        if self.ode_method not in ("euler", "midpoint", "adaptive"):
             raise ValueError(f"unknown ode_method {self.ode_method!r}")
-        if upsampling_method == "librosa":
-            raise NotImplementedError("the soxr_hq (librosa) upsampler is not ported")
-        if upsampling_method != "scipy":
+        self.ode_atol, self.ode_rtol = ode_atol, ode_rtol
+        self.ode_tableau = ode_tableau or ("tsit5" if use_torchode
+                                           else "dopri5")
+        if self.ode_tableau not in TABLEAUS:
+            raise ValueError(f"unknown tableau {self.ode_tableau!r} "
+                             f"(options: {sorted(TABLEAUS)})")
+        self.cond_drop_prob = cond_drop_prob
+        if upsampling_method not in ("scipy", "librosa"):
             raise ValueError(f"upsampling_method must be 'scipy' or 'librosa', "
                              f"got {upsampling_method!r}")
-        if prior_semantics == "paper":
-            raise NotImplementedError("prior_semantics='paper' is not ported")
-        if prior_semantics != "reference":
+        self.upsampling_method = upsampling_method
+        if prior_semantics not in ("reference", "paper"):
             raise ValueError(f"prior_semantics must be 'reference' or 'paper', "
                              f"got {prior_semantics!r}")
+        self.prior_semantics = prior_semantics
         if vocoder_storage_dtype is not None:
             raise NotImplementedError(
                 "vocoder_storage_dtype (bf16 feature maps through kernels A-E) "
                 "is not ported (ROADMAP.md queue 1 item 15)")
-        self.vocoder_conv_dtype = _conv_dtype(vocoder_conv_dtype)
+        self.vocoder_conv_dtype = resolve_conv_dtype(vocoder_conv_dtype)
 
         self.net = VectorFieldNet(config.model).eval()
         self.vocoder = BigVGAN(config.vocoder, fuse_act_conv,
@@ -192,10 +207,17 @@ class FlowHighSR:
         self.cfm_method = cfm_method
 
     def _default_stds(self):
-        """(std_1, std_2) of the prior: the reference's executed behaviour,
-        ``(1.0, sigma)`` for every method (see the JAX package's
-        ``FlowHighSR._default_stds``)."""
-        return 1.0, self.sigma
+        """(std_1, std_2) of the prior that ``generate`` uses. "reference":
+        the reference's executed behaviour, ``(1.0, sigma)`` for every
+        method (its ``sample()`` overwrites the ``std_2 = 1`` its
+        ``generate()`` passes). "paper": the intended ``std_2 = 1`` for
+        independent_cfm_adaptive (prior N(cond, 1)), ``sigma`` for the
+        others. As the JAX package's ``FlowHighSR._default_stds``."""
+        if self.prior_semantics == "reference":
+            return 1.0, self.sigma
+        std_2 = (1.0 if self.cfm_method == "independent_cfm_adaptive"
+                 else self.sigma)
+        return 1.0, std_2
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the model's device seeded with ``seed``."""
@@ -203,14 +225,43 @@ class FlowHighSR:
 
     # -- the clip pipeline ------------------------------------------------------
 
+    def _field(self, cond_mel: torch.Tensor, mask: Optional[torch.Tensor],
+               cond_scale: float = 1.0):
+        """The ODE's right-hand side f(t, x), t [] or [B]. The vector field
+        runs row by row: its matmuls at the height of one clip sum in the
+        same order whatever the batch, so a clip's output does not depend
+        on the clips batched with it (at full width batching moved the
+        48 kHz output by up to 1.6e-4 on an H100; chip_smoke.py's serving
+        phase holds it to 1e-4). Each row gets its own time when the
+        adaptive solver passes one per item."""
+        def ode_fn(t, x):
+            return torch.cat([
+                forward_with_cond_scale(
+                    self.net, x[i:i + 1], times=t[i:i + 1] if t.ndim else t,
+                    cond=cond_mel[i:i + 1], cond_scale=cond_scale,
+                    mask=None if mask is None else mask[i:i + 1])
+                for i in range(x.shape[0])])
+        return ode_fn
+
+    def _solve(self, ode_fn, y0: torch.Tensor, time_steps: int):
+        """(sampled, stats) by the model's ``ode_method``: the adaptive
+        solver's ``AdaptiveStats``, or None on the fixed grid."""
+        if self.ode_method == "adaptive":
+            return odeint_adaptive(ode_fn, y0, self.ode_atol, self.ode_rtol,
+                                   return_stats=True,
+                                   tableau=self.ode_tableau)
+        return odeint_fixed(ode_fn, y0, time_steps, self.ode_method), None
+
     def _prep_and_solve(self, audio: torch.Tensor, n_valid: torch.Tensor,
                         generator: torch.Generator, in_sr: int, target_sr: int,
                         time_steps: int):
         """Upsample + peak-norm + mel encode + cutoff + prior + ODE solve.
         ``audio`` [B, T_pad], ``n_valid`` [B] true sample counts (device).
-        Returns (sampled mel [B, F, M], cond wav [B, T48], n_valid48 [B])."""
+        Returns (sampled mel [B, F, M], cond wav [B, T48], n_valid48 [B],
+        stats: ``AdaptiveStats`` or None on the fixed grid)."""
         hop = self.config.mel.hop_length
-        cond = resample_poly(audio, target_sr, in_sr)  # [B, T48_pad]
+        design = "soxr_hq" if self.upsampling_method == "librosa" else "scipy"
+        cond = resample_poly(audio, target_sr, in_sr, design)  # [B, T48_pad]
         # exact floor(n * up / down) without overflow
         up, down = _rates(target_sr, in_sr)
         n_valid = n_valid.to(torch.int64)
@@ -229,23 +280,12 @@ class FlowHighSR:
                       < (n_valid48[:, None] + hop - 1) // hop)
         cutoff = mel_cutoff_bins(cond_mel)
 
-        # the vector field runs row by row: its matmuls at the height of one
-        # clip sum in the same order whatever the batch, so a clip's output
-        # does not depend on the clips batched with it (at full width
-        # batching moved the 48 kHz output by up to 1.6e-4 on an H100;
-        # chip_smoke.py's serving phase holds it to 1e-4)
-        def ode_fn(t, x):
-            return torch.cat([
-                forward_with_cond_scale(self.net, x[i:i + 1], times=t,
-                                        cond=cond_mel[i:i + 1], cond_scale=1.0,
-                                        mask=frame_mask[i:i + 1])
-                for i in range(x.shape[0])])
-
         std_1, std_2 = self._default_stds()
         y0 = sample_prior(generator, self.cfm_method, cond_mel, std_1, std_2,
                           cutoff)
-        sampled = odeint_fixed(ode_fn, y0, time_steps, self.ode_method)
-        return sampled, cond, n_valid48
+        sampled, stats = self._solve(self._field(cond_mel, frame_mask), y0,
+                                     time_steps)
+        return sampled, cond, n_valid48, stats
 
     def _align_and_splice(self, hr: torch.Tensor, cond: torch.Tensor,
                           n_valid48: torch.Tensor) -> torch.Tensor:
@@ -261,11 +301,13 @@ class FlowHighSR:
                        generator: torch.Generator, in_sr: int, target_sr: int,
                        time_steps: int):
         """[B, T_pad] float32 audio and [B] lengths on the device ->
-        (out [B, T48], n_valid48 [B]) on the device, with no host sync."""
-        sampled, cond, n_valid48 = self._prep_and_solve(
+        (out [B, T48], n_valid48 [B], stats) on the device; ``stats`` is the
+        adaptive solver's ``AdaptiveStats``, None on the fixed grid, which
+        runs with no host sync."""
+        sampled, cond, n_valid48, stats = self._prep_and_solve(
             audio, n_valid, generator, in_sr, target_sr, time_steps)
         hr = self.vocoder(sampled)                     # [B, F * hop]
-        return self._align_and_splice(hr, cond, n_valid48), n_valid48
+        return self._align_and_splice(hr, cond, n_valid48), n_valid48, stats
 
     @torch.inference_mode()
     def generate(self, audio: np.ndarray, sr: int,
@@ -282,8 +324,10 @@ class FlowHighSR:
         padded = np.zeros(padded_length(n, sr, target_sampling_rate),
                           audio.dtype)
         padded[:n] = audio
-        out, _ = self.dispatch_generate(padded[None], np.array([n]), sr,
-                                        target_sampling_rate, timestep, seed)
+        out, _, stats = self.dispatch_generate(
+            padded[None], np.array([n]), sr, target_sampling_rate, timestep,
+            seed)
+        _warn_if_unconverged(stats)
         n48 = valid_samples_48k(n, sr, target_sampling_rate)
         return out[:, :n48].cpu().numpy()
 
@@ -294,13 +338,16 @@ class FlowHighSR:
                           wire: Optional[str] = None):
         """Run one pre-padded [B, T] batch (numpy or tensor; int16 rides the
         int16 input wire) with true lengths ``lens`` [B] and return the
-        DEVICE tensors (out [B, T48], n_valid48 [B]) without waiting for
-        the device: the work is queued on the current stream. ``generator``
+        DEVICE tensors (out [B, T48], n_valid48 [B], stats), as the JAX
+        package does. On the fixed grid ``stats`` is None and nothing waits
+        for the device: the work is queued on the current stream. Under
+        ``ode_method="adaptive"`` ``stats`` is the solver's
+        ``AdaptiveStats`` (device tensors), and the call waits on the
+        device once per solver loop (``cfm.odeint_adaptive``); pass it to
+        ``_warn_if_unconverged`` once the result is fetched. ``generator``
         (on the model's device) overrides ``seed``. ``wire='int16'``
         converts the output to int16 on the device (``_wire_int16``); the
-        caller divides by 32767 to recover float. Unlike the JAX package's
-        version there is no third (adaptive-solver statistics) result: the
-        adaptive solver is not ported."""
+        caller divides by 32767 to recover float."""
         if wire not in (None, "float32", "int16"):
             raise ValueError(f"wire must be None|'float32'|'int16', got {wire!r}")
         batch = torch.as_tensor(batch).to(self.device, non_blocking=True)
@@ -310,12 +357,12 @@ class FlowHighSR:
         if generator is None:
             generator = self.generator(seed)
         with torch.inference_mode():
-            out, n48 = self._generate_impl(batch, lens, generator, int(sr),
-                                           int(target_sampling_rate),
-                                           int(timestep))
+            out, n48, stats = self._generate_impl(
+                batch, lens, generator, int(sr), int(target_sampling_rate),
+                int(timestep))
             if wire == "int16":
                 out = _wire_int16(out)
-        return out, n48
+        return out, n48, stats
 
     def generate_batch(self, audios: list, srs,
                        target_sampling_rate: int = 48000, timestep: int = 1,
@@ -344,15 +391,64 @@ class FlowHighSR:
                     a = a.astype(np.float32) / 32768.0
                 batch[row, :len(a)] = a
             lens = np.array([len(prepped[i]) for i in idxs])
-            out, _ = self.dispatch_generate(batch, lens, rate,
-                                            target_sampling_rate, timestep,
-                                            seed)
+            out, _, stats = self.dispatch_generate(
+                batch, lens, rate, target_sampling_rate, timestep, seed)
+            _warn_if_unconverged(stats)
             out = out.cpu().numpy()
             for row, i in enumerate(idxs):
                 n48 = valid_samples_48k(len(prepped[i]), rate,
                                         target_sampling_rate)
                 outs[i] = out[row:row + 1, :n48]
         return outs
+
+    # -- sampling --------------------------------------------------------------
+
+    @torch.inference_mode()
+    def sample(self, *, cond, time_steps: int = 4, cond_scale: float = 1.0,
+               decode_to_audio: bool = True, std_1: Optional[float] = None,
+               std_2: Optional[float] = None, mel_pp: bool = False,
+               cfm_method: Optional[str] = None,
+               generator: Optional[torch.Generator] = None, mask=None,
+               eps=None) -> torch.Tensor:
+        """ODE sampling from a condition, the JAX package's
+        ``FlowHighSR.sample`` (the reference's ``sample``).
+
+        ``cond``: audio [B, T] or [B, 1, T] (mel-encoded first, with no
+        peak-norm) or a log-mel [B, T, M]. ``cond_scale`` != 1 mixes the
+        conditional and null branches (classifier-free guidance). The stds
+        follow the reference: for any method but basic_cfm, unless both are
+        given, both are overwritten with (1, sigma). ``mel_pp`` keeps the
+        condition's bins below its cutoff. ``cfm_method`` outside the known
+        four falls back to the model's. ``generator`` (on the model's
+        device) draws the prior, seeded 0 when None; ``eps`` [B, T, M]
+        replaces that draw (``cfm.sample_prior``). ``mask`` [B, T] bool
+        marks the valid frames. The solver is the model's ``ode_method``
+        (``time_steps`` steps on the fixed grid). Returns a tensor on the
+        model's device: the waveform [B, T * hop] through ``self.vocoder``
+        (the port's kernels on the card) with ``decode_to_audio``, else the
+        mel [B, T, M]."""
+        if cfm_method not in CFMConfig.CFM_METHODS:
+            cfm_method = self.cfm_method
+        if cfm_method != "basic_cfm" and (std_1 is None or std_2 is None):
+            std_1, std_2 = 1.0, self.sigma
+        if std_1 is None:
+            std_1, std_2 = 1.0, 0.0  # unused by basic_cfm
+        if generator is None:
+            generator = self.generator(0)
+        cond = torch.as_tensor(cond, dtype=torch.float32, device=self.device)
+        if _is_probably_audio(cond):
+            cond = mel_encode(cond.reshape(cond.shape[0], -1), self.config.mel)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        cutoff = mel_cutoff_bins(cond)
+        y0 = sample_prior(generator, cfm_method, cond, float(std_1),
+                          float(std_2), cutoff, eps)
+        sampled, stats = self._solve(self._field(cond, mask, float(cond_scale)),
+                                     y0, int(time_steps))
+        if mel_pp:
+            sampled = mel_replace(sampled, cond, cutoff)
+        _warn_if_unconverged(stats)
+        return self.vocoder(sampled) if decode_to_audio else sampled
 
     # -- long-form single-pass mode ---------------------------------------------
 
@@ -411,9 +507,10 @@ class FlowHighSR:
         batch = torch.from_numpy(padded)[None].to(self.device)
         lens = torch.tensor([n], device=self.device)
         with torch.inference_mode():
-            sampled, cond, n_valid48 = self._prep_and_solve(
+            sampled, cond, n_valid48, stats = self._prep_and_solve(
                 batch, lens, self.generator(seed), int(sr),
                 int(target_sampling_rate), int(timestep))
+            _warn_if_unconverged(stats)
             hr = self.vocode_chunked(sampled, vocoder_chunk_frames,
                                      vocoder_overlap_frames)
             out = self._align_and_splice(hr, cond, n_valid48)

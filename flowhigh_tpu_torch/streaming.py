@@ -23,7 +23,7 @@ import torch
 
 from .pipeline import StagePipeline
 from .serving import request_seed
-from .sr import FlowHighSR
+from .sr import FlowHighSR, _warn_if_unconverged
 
 
 class StreamingSR:
@@ -119,7 +119,7 @@ class StreamingSR:
             bi, host, nb = item
             with (torch.cuda.stream(compute) if cuda
                   else contextlib.nullcontext()):
-                out, _ = model.dispatch_generate(
+                out, _, stats = model.dispatch_generate(
                     host, lens, sr, target_sampling_rate, timestep,
                     generator=model.generator(request_seed(seed, bi)),
                     wire=self.wire)
@@ -128,12 +128,13 @@ class StreamingSR:
                     done = torch.cuda.Event()
                     done.record()
             # the pinned buffer stays referenced until its copy has run
-            return out, nb, done, host
+            return out, stats, nb, done, host
 
         def fetch(item):
-            out, nb, done, _host = item
+            out, stats, nb, done, _host = item
             if done is not None:
                 done.synchronize()
+            _warn_if_unconverged(stats)
             out_np = out.cpu().numpy()
             if out_np.dtype == np.int16:
                 out_np = out_np.astype(np.float32) / 32767.0
@@ -178,4 +179,5 @@ class StreamingSR:
         the port's multi-card serving (ROADMAP queue 1, distributed)."""
         raise NotImplementedError(
             "StreamingSR.generate_sharded needs a device mesh and is not "
-            "ported; use generate (one card) or FlowHighSR.generate_longform")
+            "ported (ROADMAP.md queue 1 item 13); use generate (one card) or "
+            "FlowHighSR.generate_longform")

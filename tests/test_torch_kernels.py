@@ -118,6 +118,19 @@ def test_conv1d_kernel_matches_plain(cuda, gen, cin, cout, k, d, n_res):
     assert ops.conv1d.launches == n0 + 1
 
 
+# AMPBlock2's convs (models/bigvgan.py): every stage's width, K 3 / 7 / 11
+# at d 1 / 3 / 5, with x itself as the residual; T cut to 2,000 frames
+@pytest.mark.parametrize("c", [768, 384, 192, 96, 48])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("d", [1, 3, 5])
+def test_conv1d_ampblock2_shapes_match_plain(cuda, gen, c, k, d):
+    x = _randn(gen, cuda, 1, c, 2000)
+    w = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    bias = _randn(gen, cuda, c, scale=0.1)
+    kw = dict(dilation=d, residuals=(x,))
+    _close(ops.conv1d(x, w, bias, **kw), ops.conv1d_plain(x, w, bias, **kw))
+
+
 # kernel B's GEMM route at its edges: (B, Cin, Cout, T, K, d, residuals):
 # Cout 48 and 96 (48-channel tiles), 64, 128 and 70 (a ragged 64-channel
 # tile), Cin off the 8 / 16-channel chunk, T off the 256-frame tile, T a
@@ -408,6 +421,16 @@ def test_unfused_vocoder_on_card_matches_cpu(cuda, gen):
     cfg = VocoderConfig(upsample_initial_channel=64)
     counts = _vocoder_on_card_vs_cpu(cuda, gen, cfg, False)
     assert counts == [91, 91, 5, 0, 0, 0]
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_resblock2_vocoder_on_card_matches_cpu(cuda, gen, fuse):
+    # AMPBlock2: per stage 3 resblocks x 3 dilations of kernel A then
+    # kernel B with x as its residual, whatever fuse_act_conv says
+    cfg = VocoderConfig(upsample_initial_channel=64, resblock="2")
+    counts = _vocoder_on_card_vs_cpu(cuda, gen, cfg, fuse)
+    assert counts[:5] == _main_path_calls(cfg, 8, fuse) == [46, 46, 5, 0, 0]
+    assert counts[5:] == [0]
 
 
 # kernel F (flash attention) with masks, N not a multiple of the tile or the

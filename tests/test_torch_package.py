@@ -90,11 +90,18 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                                 dict(upsampling_method="librosa"),
                                 dict(prior_semantics="paper")])
 def test_unported_options_raise(kw):
+    """The options that once raised now build and are kept; what
+    is still not ported (bf16 feature maps, ROADMAP.md queue 1 item 15)
+    raises and names its item."""
     small = port_config.FlowHighConfig().replace(
         model=port_config.ModelConfig(dim=32, depth=1, heads=2, dim_head=16),
         vocoder=port_config.VocoderConfig(upsample_initial_channel=32))
-    with pytest.raises(NotImplementedError):
-        FlowHighSR(small, device="cpu", **kw)
+    sr = FlowHighSR(small, device="cpu", **kw)
+    for key, value in kw.items():
+        assert getattr(sr, key) == value
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        FlowHighSR(small, device="cpu", vocoder_storage_dtype=torch.bfloat16,
+                   **kw)
 
 
 def test_wrappers_refuse_other_devices():

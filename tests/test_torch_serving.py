@@ -233,6 +233,35 @@ class TestServingPipeline:
         with pytest.raises(ValueError, match="max_in_flight"):
             ServingPipeline(tiny_model, max_in_flight=0)
 
+    @pytest.mark.slow
+    def test_soak_smoke_no_host_leak(self, tiny_model, rng):
+        """tests/test_serving.py's soak test on the port's pipeline:
+        hundreds of clips through one pipeline all complete with no stage
+        error, and host RSS growth plateaus phase over phase rather than
+        staying linear. RSS is the whole process's, so the floor is the
+        JAX test's 15 MB."""
+        def rss_mb():
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * 4096 / 1e6
+
+        clip = (rng.standard_normal(8000) * 32000).astype(np.int16)
+        per_phase = 100
+        growth = []
+        with ServingPipeline(tiny_model, max_in_flight=4,
+                             wire="int16") as srv:
+            srv.submit(clip, 16000).result()  # first-use set-up outside
+            for _phase in range(3):
+                r0 = rss_mb()
+                futs = [srv.submit(clip, 16000) for _ in range(per_phase)]
+                outs = [f.result() for f in futs]
+                growth.append(rss_mb() - r0)
+                assert len(outs) == per_phase
+                assert all(o.dtype == np.float32 and o.size for o in outs)
+            assert not srv._pipe.stage_errors
+        assert growth[2] < max(15.0, 0.5 * growth[0]), (
+            f"host RSS growth not plateauing: {growth} MB per "
+            f"{per_phase}-clip phase")
+
     def test_warmup(self, tiny_model):
         with ServingPipeline(tiny_model) as srv:
             srv.warmup(16000, 0.5)
@@ -266,6 +295,12 @@ def tiny_pair():
                      cfm_method="independent_cfm_adaptive", ode_method="euler",
                      device="cpu")
     return jsr, psr
+
+
+def _no_read_back(name):
+    def call(*args, **kw):
+        raise AssertionError(f"Tensor.{name} read a value back")
+    return call
 
 
 class TestBatch:
@@ -310,19 +345,28 @@ class TestBatch:
         for o_m, o_f in zip(mixed, all_f):
             np.testing.assert_array_equal(o_m, o_f)
 
-    def test_dispatch_generate_returns_device_tensors(self, tiny_model, rng):
+    def test_dispatch_generate_returns_device_tensors(self, tiny_model, rng,
+                                                      monkeypatch):
         audio = _clip(rng, 16000)
         batch = np.zeros((2, 16000), np.float32)
         batch[0], batch[1, :8000] = audio, audio[:8000]
-        out, n48 = tiny_model.dispatch_generate(batch, [16000, 8000], 16000)
+        # the fixed grid reads nothing back: every host read of a tensor
+        # raises inside the dispatch
+        with monkeypatch.context() as m:
+            for name in ("item", "tolist", "numpy", "cpu", "__bool__",
+                         "__int__", "__float__"):
+                m.setattr(torch.Tensor, name, _no_read_back(name))
+            out, n48, stats = tiny_model.dispatch_generate(
+                batch, [16000, 8000], 16000)
+        assert stats is None  # the JAX package's third result, fixed grid
         assert isinstance(out, torch.Tensor) and out.shape == (2, 48000)
         assert n48.tolist() == [48000, 24000]
         # row 1 is the 0.5 s clip in a 1 s bucket, as generate pads it
         np.testing.assert_allclose(
             out[1:, :24000].numpy(),
             tiny_model.generate(audio[:8000], 16000), atol=1e-4)
-        wired, _ = tiny_model.dispatch_generate(batch, [16000, 8000], 16000,
-                                                wire="int16")
+        wired, _, _ = tiny_model.dispatch_generate(batch, [16000, 8000],
+                                                   16000, wire="int16")
         assert wired.dtype == torch.int16
         with pytest.raises(ValueError, match="wire"):
             tiny_model.dispatch_generate(batch, [16000, 8000], 16000,
