@@ -65,13 +65,14 @@ def _jax_draw(key: int, shape) -> np.ndarray:
 
 # (cfm_method, cond: "mel" | "audio" | "audio3", kwargs); together they
 # cover every method, both kinds of cond, cond_scale 2, mel_pp, both
-# decode_to_audio settings and stds that make the draw count
+# decode_to_audio settings, a frame mask and stds that make the draw count
 SAMPLE_CASES = {
     "basic_mel": ("basic_cfm", "mel", dict(time_steps=2,
                                            decode_to_audio=False)),
-    "adaptive_cfg2": ("independent_cfm_adaptive", "mel",
-                      dict(time_steps=2, cond_scale=2.0, std_1=1.0, std_2=0.5,
-                           decode_to_audio=False)),
+    "adaptive_cfg2_mask": ("independent_cfm_adaptive", "mel",
+                           dict(time_steps=2, cond_scale=2.0, std_1=1.0,
+                                std_2=0.5, decode_to_audio=False,
+                                mask=np.arange(24)[None, :] < 17)),
     "constant_audio_pp": ("independent_cfm_constant", "audio",
                           dict(time_steps=1, mel_pp=True, std_1=0.9,
                                std_2=0.3)),
@@ -93,8 +94,9 @@ def test_sample_matches_jax(tiny_pair, rng, case):
     jsr, psr = tiny_pair
     method, kind, kw = SAMPLE_CASES[case]
     cond = _cond(kind, rng)
+    jkw = {k: jnp.asarray(v) if k == "mask" else v for k, v in kw.items()}
     want = np.asarray(jsr.sample(cond=jnp.asarray(cond), cfm_method=method,
-                                 rng=jax.random.PRNGKey(7), **kw))
+                                 rng=jax.random.PRNGKey(7), **jkw))
     n_frames = 24 if kind == "mel" else 9600 // 480  # center=False frames
     eps = _jax_draw(7, (1, n_frames, 256))
     got = psr.sample(cond=cond, cfm_method=method, eps=eps, **kw).numpy()
@@ -128,18 +130,6 @@ def test_sample_defaults_and_generator(tiny_pair, rng):
     torch.testing.assert_close(lone, dflt, rtol=0, atol=0)
     with pytest.raises(ValueError, match="eps shape"):
         psr.sample(eps=np.zeros((1, 3, 256), np.float32), **kw)
-
-
-def test_sample_mask_matches_jax(tiny_pair, rng):
-    jsr, psr = tiny_pair
-    cond = _cond("mel", rng)
-    mask = np.arange(24)[None, :] < 17
-    want = np.asarray(jsr.sample(cond=jnp.asarray(cond), time_steps=1,
-                                 decode_to_audio=False, mask=jnp.asarray(mask),
-                                 rng=jax.random.PRNGKey(1)))
-    got = psr.sample(cond=cond, time_steps=1, decode_to_audio=False,
-                     mask=mask).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-3)
 
 
 def test_sample_prior_eps_hook(rng):

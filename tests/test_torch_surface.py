@@ -24,6 +24,7 @@ from flowhigh_tpu.models.melvoco import MelVoco as JaxMelVoco
 from flowhigh_tpu.models.melvoco import encode_torchaudio as jax_encode_ta
 from flowhigh_tpu.postprocessing import (post_process_with_phase as
                                          jax_post_process_with_phase)
+from flowhigh_tpu.sr import _fast_init
 from flowhigh_tpu_torch import FlowHighSR
 from flowhigh_tpu_torch import config as pcfg
 from flowhigh_tpu_torch.cfm import cutoff_bins_from_energy
@@ -124,6 +125,15 @@ def test_encode_torchaudio_matches_jax(rng, log):
 
 # --- MelVoco -------------------------------------------------------------------------
 
+def _jax_vocoder_params(jvoc, num_mels: int, seed: int):
+    """JAX BigVGAN params from fan-in normals (shapes by ``eval_shape``, no
+    compile of the init) with every 1-D leaf perturbed, so that the
+    snakes' parameters and the biases show."""
+    params = _fast_init(lambda r: jvoc.init(r, jnp.zeros((1, 4, num_mels))),
+                        jax.random.PRNGKey(seed))
+    return _perturbed_1d(params, seed + 2, 0.1)
+
+
 SMALL_MEL = dict(n_mels=32, n_fft=256, win_length=256, hop_length=64,
                  sampling_rate=16000, f_max=8000.0)
 # the mel's hop = prod(rates)
@@ -135,9 +145,7 @@ SMALL_VOC = dict(num_mels=32, upsample_initial_channel=16,
 @pytest.fixture(scope="module")
 def melvoco_pair():
     jm = JaxMelVoco(jcfg.MelConfig(**SMALL_MEL), jcfg.VocoderConfig(**SMALL_VOC))
-    mel = jnp.zeros((1, 8, 32))
-    params = _perturbed_1d(jax.jit(jm.vocoder.init)(jax.random.PRNGKey(0),
-                                                    mel), 2, 0.1)
+    params = _jax_vocoder_params(jm.vocoder, 32, 0)
     jm.vocoder_params = params
     pm = MelVoco(pcfg.MelConfig(**SMALL_MEL), pcfg.VocoderConfig(**SMALL_VOC),
                  jax.device_get(params), device="cpu")
@@ -242,8 +250,7 @@ def test_bigvgan_resblock2_matches_jax(rng):
     cfg_j = jcfg.VocoderConfig(**SMALL_VOCODER2)
     mel = rng.standard_normal((2, 6, 32)).astype(np.float32)
     jvoc = JaxBigVGAN(cfg_j)
-    params = _perturbed_1d(
-        jax.jit(jvoc.init)(jax.random.PRNGKey(0), jnp.asarray(mel)), 2, 0.1)
+    params = _jax_vocoder_params(jvoc, 32, 0)
     want = np.asarray(jax.jit(jvoc.apply)(params, jnp.asarray(mel)))
     cfg = pcfg.VocoderConfig(**SMALL_VOCODER2)
     for fuse in (True, False):  # AMPBlock2 takes A and B either way
@@ -276,8 +283,7 @@ def test_from_local_loads_a_resblock2_checkpoint(tmp_path, rng):
     (``resblocks.{n}.convs.{j}``, ``activations.{j}``, weight-normed)."""
     cfg_j = jcfg.VocoderConfig(**FILE_VOCODER2)
     jvoc = JaxBigVGAN(cfg_j)
-    params = _perturbed_1d(jax.jit(jvoc.init)(
-        jax.random.PRNGKey(1), jnp.zeros((1, 4, 256))), 5, 0.1)
+    params = _jax_vocoder_params(jvoc, 256, 1)
     sd = vocoder_params_to_torch_state(params, cfg_j)
     assert "resblocks.1.convs.2.weight_v" in sd
     torch.save({"generator": sd}, tmp_path / "bigvgan_48khz_256band.pt")
