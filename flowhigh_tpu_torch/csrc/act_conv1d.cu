@@ -13,8 +13,10 @@
 // input and the folded MRF average, out_scale = 1/3).
 //
 // Layout: x [B, Cin, T], w [Cout, Cin, K], residuals and y [B, Cout, T],
-// alpha, beta [Cin], all float32 and contiguous; filt the 12 Kaiser-sinc
-// taps of kernel A.
+// alpha, beta [Cin], all contiguous; filt the 12 Kaiser-sinc taps of kernel
+// A. x, the residuals and y are in the storage type (float32, or bf16 for
+// the JAX package's bf16 feature maps: widened to f32 on load, y rounded
+// once at the store; act_conv_core.cuh), the rest float32.
 //
 // Bound (a 10 s clip, 36 launches at C = 768 and 384): operations. F32
 // runs each product as three TF32 products on the tensor cores (3xTF32:
@@ -54,18 +56,19 @@ namespace {
 
 // --- the tensor-core pass, every dtype -----------------------------------------
 
-template <Dot D, int K, int BM, int BN, int WM, bool CLUSTER>
+template <Dot D, int K, int BM, int BN, int WM, bool CLUSTER, Store ST>
 __global__ void __launch_bounds__(MMA_NT, 2)
-act_conv1d_mma_kernel(const float* __restrict__ x,
+act_conv1d_mma_kernel(const StoreT<ST>* __restrict__ x,
                       const float* __restrict__ alpha,
                       const float* __restrict__ beta,
                       const typename MmaOps<D>::WT* __restrict__ wp,
                       const float* __restrict__ bias,
-                      const float* __restrict__ r0,
-                      const float* __restrict__ r1,
-                      const float* __restrict__ r2, float* __restrict__ y,
-                      int Cin, int Cout, int cin_p, int cout_p, int T,
-                      int dil, int logscale, float out_scale) {
+                      const StoreT<ST>* __restrict__ r0,
+                      const StoreT<ST>* __restrict__ r1,
+                      const StoreT<ST>* __restrict__ r2,
+                      StoreT<ST>* __restrict__ y, int Cin, int Cout,
+                      int cin_p, int cout_p, int T, int dil, int logscale,
+                      float out_scale) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int t0 = blockIdx.x * BN;
   const int co0 = blockIdx.y * BM;
@@ -76,29 +79,30 @@ act_conv1d_mma_kernel(const float* __restrict__ x,
     if (t >= T) return;
     const long long o = ob + (long long)co * T + t;
     float v = acc + (bias != nullptr ? bias[co] : 0.0f);
-    if (r0 != nullptr) v += r0[o];
-    if (r1 != nullptr) v += r1[o];
-    if (r2 != nullptr) v += r2[o];
-    y[o] = v * out_scale;
+    if (r0 != nullptr) v += load_f32(r0 + o);
+    if (r1 != nullptr) v += load_f32(r1 + o);
+    if (r2 != nullptr) v += load_f32(r2 + o);
+    store_f32(y + o, v * out_scale);
   };
   act_conv_mma<D, K, BM, BN, WM, D == Dot::F32, 2, CLUSTER>(
-      GlobalSrc{x + b * Cin * T, T}, epi, smem_mma, alpha, beta, logscale, wp,
+      GlobalSrc<ST>{x + b * Cin * T, T}, epi, smem_mma, alpha, beta, logscale, wp,
       Cin, Cout, cin_p, cout_p, co0, T, t0, dil);
 }
 
 // I8: as above, with sw, the [Cout] weight scales, and part, the
 // pre-pass's partial maxima (n_groups a window)
-template <int K, int BM, int BN, int WM, bool CLUSTER>
+template <int K, int BM, int BN, int WM, bool CLUSTER, Store ST>
 __global__ void __launch_bounds__(MMA_NT, 2)
-act_conv1d_s8_kernel(const float* __restrict__ x,
+act_conv1d_s8_kernel(const StoreT<ST>* __restrict__ x,
                      const float* __restrict__ alpha,
                      const float* __restrict__ beta,
                      const signed char* __restrict__ wp,
                      const float* __restrict__ sw,
                      const float* __restrict__ bias,
-                     const float* __restrict__ r0,
-                     const float* __restrict__ r1,
-                     const float* __restrict__ r2, float* __restrict__ y,
+                     const StoreT<ST>* __restrict__ r0,
+                     const StoreT<ST>* __restrict__ r1,
+                     const StoreT<ST>* __restrict__ r2,
+                     StoreT<ST>* __restrict__ y,
                      const float* __restrict__ part, int n_groups, int Cin,
                      int Cout, int cin_p, int cout_p, int T, int dil,
                      int logscale, float out_scale) {
@@ -117,13 +121,13 @@ act_conv1d_s8_kernel(const float* __restrict__ x,
     if (t >= T) return;
     const long long o = ob + (long long)co * T + t;
     float v = acc + (bias != nullptr ? bias[co] : 0.0f);
-    if (r0 != nullptr) v += r0[o];
-    if (r1 != nullptr) v += r1[o];
-    if (r2 != nullptr) v += r2[o];
-    y[o] = v * out_scale;
+    if (r0 != nullptr) v += load_f32(r0 + o);
+    if (r1 != nullptr) v += load_f32(r1 + o);
+    if (r2 != nullptr) v += load_f32(r2 + o);
+    store_f32(y + o, v * out_scale);
   };
   act_conv_mma<Dot::I8, K, BM, BN, WM, false, 2, CLUSTER>(
-      GlobalSrc{x + b * Cin * T, T}, epi, smem_mma, alpha, beta, logscale, wp,
+      GlobalSrc<ST>{x + b * Cin * T, T}, epi, smem_mma, alpha, beta, logscale, wp,
       Cin, Cout, cin_p, cout_p, co0, T, t0, dil, q, sw);
 }
 
@@ -168,35 +172,39 @@ struct MmaSmemQuery {
   }
 };
 
-template <Dot D>
+template <Dot D, Store ST>
 struct MmaLauncher {
-  const float *x, *alpha, *beta, *filt;
+  const void* x;
+  const float *alpha, *beta, *filt;
   const void* w;
-  const float *sw, *bias, *r0, *r1, *r2;
-  float *y, *part;
+  const float *sw, *bias;
+  const void *r0, *r1, *r2;
+  void* y;
+  float* part;
   int B, Cin, Cout, cin_p, cout_p, T, dil, logscale;
   float out_scale;
   cudaStream_t s;
   template <int K, int BM, int BN, int WM, bool CLUSTER>
   long long run() const {
+    using S = StoreT<ST>;
     const int pad = dil * (K - 1) / 2;
     const long long smem = mma_core_bytes(BM, BN, pad, D, CLUSTER);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
     cudaError_t e;
     if constexpr (D == Dot::I8)
-      e = cudaFuncSetAttribute(act_conv1d_s8_kernel<K, BM, BN, WM, CLUSTER>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+      e = cudaFuncSetAttribute(
+          act_conv1d_s8_kernel<K, BM, BN, WM, CLUSTER, ST>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     else
       e = cudaFuncSetAttribute(
-          act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER>,
+          act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER, ST>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess) e = set_taps(filt, s);
     const int n_groups = (Cin + AMAX_CH - 1) / AMAX_CH;
     if (e == cudaSuccess && D == Dot::I8)  // the windows' scales first
-      e = launch_act_amax(x, alpha, beta, logscale, part, B, Cin, T,
-                          (T + I8_WINDOW - 1) / I8_WINDOW, I8_WINDOW, -pad,
-                          I8_WINDOW + 2 * pad, s);
+      e = launch_act_amax<ST>(x, alpha, beta, logscale, part, B, Cin, T,
+                              (T + I8_WINDOW - 1) / I8_WINDOW, I8_WINDOW,
+                              -pad, I8_WINDOW + 2 * pad, s);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((T + BN - 1) / BN, (Cout + BM - 1) / BM, B);
@@ -210,26 +218,31 @@ struct MmaLauncher {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
+    const S* xs = static_cast<const S*>(x);
+    const S *r0s = static_cast<const S*>(r0), *r1s = static_cast<const S*>(r1),
+            *r2s = static_cast<const S*>(r2);
+    S* ys = static_cast<S*>(y);
     if constexpr (D == Dot::I8)
       e = cudaLaunchKernelEx(
-          &cfg, act_conv1d_s8_kernel<K, BM, BN, WM, CLUSTER>, x, alpha, beta,
-          static_cast<const signed char*>(w), sw, bias, r0, r1, r2, y,
-          static_cast<const float*>(part), n_groups, Cin, Cout, cin_p,
+          &cfg, act_conv1d_s8_kernel<K, BM, BN, WM, CLUSTER, ST>, xs, alpha,
+          beta, static_cast<const signed char*>(w), sw, bias, r0s, r1s, r2s,
+          ys, static_cast<const float*>(part), n_groups, Cin, Cout, cin_p,
           cout_p, T, dil, logscale, out_scale);
     else
       e = cudaLaunchKernelEx(
-          &cfg, act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER>, x, alpha,
-          beta, static_cast<const typename MmaOps<D>::WT*>(w), bias, r0, r1,
-          r2, y, Cin, Cout, cin_p, cout_p, T, dil, logscale, out_scale);
+          &cfg, act_conv1d_mma_kernel<D, K, BM, BN, WM, CLUSTER, ST>, xs,
+          alpha, beta, static_cast<const typename MmaOps<D>::WT*>(w), bias,
+          r0s, r1s, r2s, ys, Cin, Cout, cin_p, cout_p, T, dil, logscale,
+          out_scale);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
 };
 
-template <Dot D>
-int act_conv1d_mma(const float* x, const float* alpha, const float* beta,
+template <Dot D, Store ST = Store::F32>
+int act_conv1d_mma(const void* x, const float* alpha, const float* beta,
                    const float* filt, const void* w, const float* sw,
-                   const float* bias, const float* r0, const float* r1,
-                   const float* r2, float* y, float* part, int B, int Cin,
+                   const float* bias, const void* r0, const void* r1,
+                   const void* r2, void* y, float* part, int B, int Cin,
                    int Cout, int cin_p, int cout_p, int T, int K, int dil,
                    int logscale, float out_scale, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || dil <= 0 || B > 65535 ||
@@ -237,7 +250,7 @@ int act_conv1d_mma(const float* x, const float* alpha, const float* beta,
       cin_p % 16 != 0 || cout_p < Cout ||
       (D == Dot::I8 && (sw == nullptr || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const MmaLauncher<D> f{x,   alpha, beta, filt,   w,      sw,
+  const MmaLauncher<D, ST> f{x,   alpha, beta, filt,   w,      sw,
                          bias, r0,   r1,   r2,     y,      part,
                          B,   Cin,   Cout, cin_p,  cout_p, T,
                          dil, logscale, out_scale, (cudaStream_t)stream};
@@ -257,6 +270,10 @@ extern "C" long long act_conv1d_smem_bytes(int K, int dil, int Cout, int dot) {
                               : dispatch_mma<true>(K, Cout, f);
 }
 
+// The launch entry points on float32 maps build here; those on bf16 maps
+// build from act_conv1d_bf16io.cu, which defines FHT_BF16_MAPS and includes
+// this file, so that the two halves compile in parallel.
+#ifndef FHT_BF16_MAPS
 // Each returns cudaGetLastError() after the launch (or the error that kept
 // it from launching). beta, bias and r0..r2 may be null. w: kernel B's
 // prepared weights [K][cout_p][cin_p] (ops/conv.py:conv_weights), float32
@@ -306,3 +323,47 @@ extern "C" int act_conv1d_int8(const float* x, const float* alpha,
                                  r2, y, part, B, Cin, Cout, cin_p, cout_p, T,
                                  K, dil, logscale, out_scale, stream);
 }
+
+#else  // FHT_BF16_MAPS
+// The same three instances on bf16 maps: x, r0..r2 and y __nv_bfloat16
+// (the rest as above).
+extern "C" int act_conv1d_f32_bf16io(const void* x, const float* alpha,
+                                     const float* beta, const float* filt,
+                                     const void* w, const float* bias,
+                                     const void* r0, const void* r1,
+                                     const void* r2, void* y, int B, int Cin,
+                                     int Cout, int T, int K, int dil,
+                                     int logscale, int cin_p, int cout_p,
+                                     float out_scale, void* stream) {
+  return act_conv1d_mma<Dot::F32, Store::BF16>(
+      x, alpha, beta, filt, w, nullptr, bias, r0, r1, r2, y, nullptr, B, Cin,
+      Cout, cin_p, cout_p, T, K, dil, logscale, out_scale, stream);
+}
+
+extern "C" int act_conv1d_bf16_bf16io(const void* x, const float* alpha,
+                                      const float* beta, const float* filt,
+                                      const void* w, const float* bias,
+                                      const void* r0, const void* r1,
+                                      const void* r2, void* y, int B, int Cin,
+                                      int Cout, int T, int K, int dil,
+                                      int logscale, int cin_p, int cout_p,
+                                      float out_scale, void* stream) {
+  return act_conv1d_mma<Dot::BF16, Store::BF16>(
+      x, alpha, beta, filt, w, nullptr, bias, r0, r1, r2, y, nullptr, B, Cin,
+      Cout, cin_p, cout_p, T, K, dil, logscale, out_scale, stream);
+}
+
+extern "C" int act_conv1d_int8_bf16io(const void* x, const float* alpha,
+                                      const float* beta, const float* filt,
+                                      const void* w, const float* sw,
+                                      const float* bias, const void* r0,
+                                      const void* r1, const void* r2, void* y,
+                                      float* part, int B, int Cin, int Cout,
+                                      int T, int K, int dil, int logscale,
+                                      int cin_p, int cout_p, float out_scale,
+                                      void* stream) {
+  return act_conv1d_mma<Dot::I8, Store::BF16>(
+      x, alpha, beta, filt, w, sw, bias, r0, r1, r2, y, part, B, Cin, Cout,
+      cin_p, cout_p, T, K, dil, logscale, out_scale, stream);
+}
+#endif  // FHT_BF16_MAPS

@@ -76,6 +76,15 @@
 // The activation is written as the dot of D stages it, after the zero
 // mask (packed.py:829, :1188, :1199): f32 (split into TF32 parts), rounded
 // to bf16, or quantised.
+//
+// bf16 feature maps (Store::BF16, dot_dtype.cuh): src in device memory is
+// staged by cp.async as the 4-byte word holding each value, into the same
+// f32 raw stages, and widened in place by the thread that staged it once
+// its group has landed, before the barrier that precedes the activation
+// (GlobalSrc::widen; mma_sm90.cuh: cp_async_bf16_word); the pre-pass reads
+// it through registers. So the staging stays asynchronous, and the shared
+// memory and the arithmetic are the F32-storage instance's. The callers'
+// epilogues load residuals into f32 and round the one stored map.
 
 #pragma once
 
@@ -86,14 +95,29 @@
 
 namespace {
 
-// src in device memory: x[c, clamp(g)] of one batch row [C, T], by cp.async.
+// src in device memory: x[c, clamp(g)] of one batch row [C, T], by cp.async;
+// bf16 maps as the word holding the value, which widen() turns into the f32
+// value in place once it has landed (WIDEN).
+template <Store ST>
 struct GlobalSrc {
-  const float* x;
+  static constexpr bool WIDEN = ST == Store::BF16;
+  const StoreT<ST>* x;
   int T;
+  __device__ __forceinline__ const StoreT<ST>* at(int c, int g) const {
+    return x + (long long)c * T + min(max(g, 0), T - 1);
+  }
   __device__ __forceinline__ void stage(float* dst, int c, int g,
                                         bool ok) const {
-    const int gc = min(max(g, 0), T - 1);
-    cp_async4_zfill(dst, ok ? x + (long long)c * T + gc : x, ok);
+    if constexpr (WIDEN)
+      cp_async_bf16_word(dst, ok ? at(c, g) : x, ok);
+    else
+      cp_async4_zfill(dst, ok ? at(c, g) : x, ok);
+  }
+  __device__ __forceinline__ void widen(float* dst, int c, int g) const {
+    if constexpr (WIDEN)
+      *dst = bf16_half_to_f32(
+          *dst, bf16_parity(x, (unsigned)c * (unsigned)T +
+                                   (unsigned)min(max(g, 0), T - 1)));
   }
 };
 
@@ -102,6 +126,7 @@ struct GlobalSrc {
 // block does not hold are clamped into it; they feed only outputs that are
 // thrown away.
 struct SmemSrc {
+  static constexpr bool WIDEN = false;
   const float* buf;
   int n, base, T;
   __device__ __forceinline__ void stage(float* dst, int c, int g,
@@ -109,6 +134,7 @@ struct SmemSrc {
     const int p = min(max(min(max(g, 0), T - 1) - base, 0), n - 1);
     *dst = ok ? buf[c * n + p] : 0.0f;
   }
+  __device__ __forceinline__ void widen(float*, int, int) const {}
 };
 
 // e / len for the flat loops over CI x len elements below, without an
@@ -337,6 +363,21 @@ __device__ __forceinline__ void act_conv_mma(
     }
   };
 
+  // bf16 maps: this thread's words of chunk c's raw stage, widened in place
+  // once they have landed (before the barrier that precedes the activation)
+  auto widen_raw = [&](int c) {
+    if constexpr (Src::WIDEN) {
+      const int c0 = c * KC;
+      float* xr = xr0 + (c & 1) * KC * xw;
+      const int g0 = tstart - pad - 6;
+#pragma unroll 1
+      for (int e = tid; e < KC * xw; e += MMA_NT) {
+        const int ci = split(e, inv_xw);
+        if (c0 + ci < Cin) src.widen(xr + e, c0 + ci, g0 + e - ci * xw);
+      }
+    }
+  };
+
   // one commit group a step s (chunk s / K, tap s % K): the step's weights
   // into ring stage s % RING and, with a chunk's first tap, src of the
   // next chunk (its stage was last read by the activation of chunk c - 1,
@@ -503,6 +544,7 @@ __device__ __forceinline__ void act_conv_mma(
 #pragma unroll 1
   for (int s = 0; s < AHEAD; ++s) issue(s);
   cp_async_wait<AHEAD>();  // chunk 0's src
+  if constexpr (Src::WIDEN) widen_raw(0);
   __syncthreads();
 
 #pragma unroll 1
@@ -522,6 +564,10 @@ __device__ __forceinline__ void act_conv_mma(
     for (int k = 0; k < K; ++k) {
       const int s = c * K + k;
       cp_async_wait<AHEAD - 1>();  // step s's group (and older) landed
+      // bf16 maps: chunk c + 1's src (step c K's group), visible to every
+      // thread from the next tap's barrier on (K >= 3)
+      if constexpr (Src::WIDEN)
+        if (k == 0 && c + 1 < n_chunks) widen_raw(c + 1);
       __syncthreads();             // ... for every thread; step s - 1 done
       issue(s + AHEAD);
       const WT* ws = ws0 + (s % RING) * BM * 2 * EPS;
@@ -610,8 +656,10 @@ __host__ __device__ constexpr long long amax_smem_bytes(int width) {
 // of x's channels [8 g, 8 g + 8) over positions [w stride + lo, w stride +
 // lo + width) ∩ [0, T) (zero outside). Grid (windows, ceil(Cin / 8), B);
 // width even. The taps are c_taps (set_taps first).
+template <Store ST>
 __global__ void __launch_bounds__(MMA_NT)
-act_amax_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
+act_amax_kernel(const StoreT<ST>* __restrict__ x,
+                const float* __restrict__ alpha,
                 const float* __restrict__ beta, int logscale,
                 float* __restrict__ part, int Cin, int T, int stride, int lo,
                 int width) {
@@ -623,12 +671,13 @@ act_amax_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
   float* xr = smem_amax;
   float* sig = xr + AMAX_CH * xw;
   float* ab = sig + AMAX_CH * 2 * sn;
-  const float* xb = x + (long long)blockIdx.z * Cin * T;
+  const StoreT<ST>* xb = x + (long long)blockIdx.z * Cin * T;
   const float inv_xw = 1.0f / xw;
   for (int e = tid; e < AMAX_CH * xw; e += MMA_NT) {
     const int ci = split(e, inv_xw);
     const int g = min(max(p0 - 6 + e - ci * xw, 0), T - 1);
-    xr[e] = c0 + ci < Cin ? xb[(long long)(c0 + ci) * T + g] : 0.0f;
+    xr[e] = c0 + ci < Cin ? load_f32(xb + (long long)(c0 + ci) * T + g)
+                          : 0.0f;
   }
   if (tid < AMAX_CH) {  // as act_conv_mma's stage_raw
     const int ch = c0 + tid;
@@ -655,7 +704,8 @@ act_amax_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
 }
 
 // The pre-pass over n_win windows (after set_taps on the same stream)
-inline cudaError_t launch_act_amax(const float* x, const float* alpha,
+template <Store ST>
+inline cudaError_t launch_act_amax(const void* x, const float* alpha,
                                    const float* beta, int logscale,
                                    float* part, int B, int Cin, int T,
                                    int n_win, int stride, int lo, int width,
@@ -664,12 +714,13 @@ inline cudaError_t launch_act_amax(const float* x, const float* alpha,
   if (smem > 232448 || n_win <= 0 || width % 2 != 0)
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      act_amax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      act_amax_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(n_win, (Cin + AMAX_CH - 1) / AMAX_CH, B);
-  act_amax_kernel<<<grid, MMA_NT, smem, s>>>(x, alpha, beta, logscale, part,
-                                             Cin, T, stride, lo, width);
+  act_amax_kernel<ST><<<grid, MMA_NT, smem, s>>>(
+      static_cast<const StoreT<ST>*>(x), alpha, beta, logscale, part, Cin, T,
+      stride, lo, width);
   return cudaGetLastError();
 }
 

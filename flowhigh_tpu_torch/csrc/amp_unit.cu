@@ -17,7 +17,11 @@
 // counterpart.
 //
 // Layout: x, e0, e1, y [B, C, T]; w1, w2 [C, C, K]; alpha/beta [C]; all
-// float32 and contiguous.
+// contiguous. x, e0, e1 and y are in the storage type (float32, or bf16 for
+// the JAX package's bf16 feature maps: widened to f32 on load, y rounded
+// once at the store; act_conv_core.cuh); conv1's output t stays f32 in
+// shared memory whatever the storage, as in the JAX kernel
+// (packed.py:1139-1148). The rest is float32.
 //
 // Bound (a 10 s clip, 27 launches at C = 192, 96 and 48): operations.
 // F32 runs each product as three TF32 products on the tensor cores
@@ -93,13 +97,18 @@ namespace {
 
 // blocks an SM: two where a pass has at most 96 x 128 outputs (at most 128
 // registers a thread), else one (up to 255)
-__host__ __device__ constexpr int unit_min_blocks(int BM, int BN) {
-  return BM * BN <= 96 * 128 ? 2 : 1;
+// F32 on bf16 maps keeps one: widening the staged words in place (while
+// the accumulators are live) spilled 4-56 bytes at 128 registers.
+__host__ __device__ constexpr int unit_min_blocks(int BM, int BN,
+                                                  bool f32_on_bf16) {
+  return BM * BN <= 96 * 128 && !f32_on_bf16 ? 2 : 1;
 }
 
-template <Dot D, int K, int BM, int BN, int WM>
-__global__ void __launch_bounds__(MMA_NT, unit_min_blocks(BM, BN))
-amp_unit_mma_kernel(const float* __restrict__ x, const float* __restrict__ a1,
+template <Dot D, int K, int BM, int BN, int WM, Store ST>
+__global__ void __launch_bounds__(
+    MMA_NT, unit_min_blocks(BM, BN, D == Dot::F32 && ST == Store::BF16))
+amp_unit_mma_kernel(const StoreT<ST>* __restrict__ x,
+                    const float* __restrict__ a1,
                     const float* __restrict__ be1,
                     const float* __restrict__ a2,
                     const float* __restrict__ be2,
@@ -107,8 +116,9 @@ amp_unit_mma_kernel(const float* __restrict__ x, const float* __restrict__ a1,
                     const float* __restrict__ bias1,
                     const typename MmaOps<D>::WT* __restrict__ w2,
                     const float* __restrict__ bias2,
-                    const float* __restrict__ e0, const float* __restrict__ e1,
-                    float* __restrict__ y, int C, int T, int cin_p,
+                    const StoreT<ST>* __restrict__ e0,
+                    const StoreT<ST>* __restrict__ e1,
+                    StoreT<ST>* __restrict__ y, int C, int T, int cin_p,
                     int cout_p, int dil, int logscale, float out_scale) {
   constexpr int H = (K - 1) / 2 + 6;
   constexpr int TT = BN - 2 * H;
@@ -117,7 +127,8 @@ amp_unit_mma_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   // one spilled 4-28 bytes there, and LEAN did not help), LEAN at two
   // blocks an SM (128)
   constexpr int NP = D == Dot::F32 && BM * BN > 96 * 256 ? 1 : 2;
-  constexpr bool LEAN = D == Dot::F32 && unit_min_blocks(BM, BN) == 2;
+  constexpr bool LEAN =
+      D == Dot::F32 && unit_min_blocks(BM, BN, ST == Store::BF16) == 2;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   float* t1 = reinterpret_cast<float*>(smem_mma);  // [C][BN], from t0 - H
   unsigned char* work = smem_mma + (long long)C * BN * 4;
@@ -129,7 +140,7 @@ amp_unit_mma_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   };
   for (int co0 = 0; co0 < C; co0 += BM)
     act_conv_mma<D, K, BM, BN, WM, LEAN, NP, false>(
-        GlobalSrc{x + b * C * T, T}, epi1, work, a1, be1, logscale, w1, C, C,
+        GlobalSrc<ST>{x + b * C * T, T}, epi1, work, a1, be1, logscale, w1, C, C,
         cin_p, cout_p, co0, T, t0 - H, dil);
 
   // each pass starts with a barrier: phase 1's writes of t1 are complete
@@ -140,10 +151,10 @@ amp_unit_mma_kernel(const float* __restrict__ x, const float* __restrict__ a1,
     if (l >= TT || t >= T) return;
     const long long o = ob + (long long)co * T + t;
     float v = acc + (bias2 != nullptr ? bias2[co] : 0.0f);
-    v += x[o];
-    if (e0 != nullptr) v += e0[o];
-    if (e1 != nullptr) v += e1[o];
-    y[o] = v * out_scale;
+    v += load_f32(x + o);
+    if (e0 != nullptr) v += load_f32(e0 + o);
+    if (e1 != nullptr) v += load_f32(e1 + o);
+    store_f32(y + o, v * out_scale);
   };
   for (int co0 = 0; co0 < C; co0 += BM)
     act_conv_mma<D, K, BM, BN, WM, LEAN, NP, false>(
@@ -188,21 +199,24 @@ struct MmaSmemQuery {
   }
 };
 
-template <Dot D>
+template <Dot D, Store ST>
 struct MmaLauncher {
-  const float *x, *a1, *be1, *a2, *be2, *filt;
+  const void* x;
+  const float *a1, *be1, *a2, *be2, *filt;
   const void* w1;
   const float* bias1;
   const void* w2;
-  const float *bias2, *e0, *e1;
-  float* y;
+  const float* bias2;
+  const void *e0, *e1;
+  void* y;
   int B, C, T, cin_p, cout_p, dil, logscale;
   float out_scale;
   cudaStream_t s;
   template <int K, int BM, int BN, int WM>
   long long run() const {
     using WT = typename MmaOps<D>::WT;
-    auto kern = amp_unit_mma_kernel<D, K, BM, BN, WM>;
+    using S = StoreT<ST>;
+    auto kern = amp_unit_mma_kernel<D, K, BM, BN, WM, ST>;
     const long long smem =
         mma_smem_bytes<K, BM, BN, WM>(C, dil, MmaOps<D>::BF);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
@@ -213,24 +227,25 @@ struct MmaLauncher {
     constexpr int TT = BN - 2 * ((K - 1) / 2 + 6);
     dim3 grid((T + TT - 1) / TT, B);
     kern<<<grid, MMA_NT, smem, s>>>(
-        x, a1, be1, a2, be2, static_cast<const WT*>(w1), bias1,
-        static_cast<const WT*>(w2), bias2, e0, e1, y, C, T, cin_p, cout_p, dil,
-        logscale, out_scale);
+        static_cast<const S*>(x), a1, be1, a2, be2,
+        static_cast<const WT*>(w1), bias1, static_cast<const WT*>(w2), bias2,
+        static_cast<const S*>(e0), static_cast<const S*>(e1),
+        static_cast<S*>(y), C, T, cin_p, cout_p, dil, logscale, out_scale);
     return (int)cudaGetLastError();
   }
 };
 
-template <Dot D>
-int amp_unit_mma(const float* x, const float* a1, const float* be1,
+template <Dot D, Store ST = Store::F32>
+int amp_unit_mma(const void* x, const float* a1, const float* be1,
                  const float* a2, const float* be2, const float* filt,
                  const void* w1, const float* bias1, const void* w2,
-                 const float* bias2, const float* e0, const float* e1,
-                 float* y, int B, int C, int T, int K, int dil, int logscale,
+                 const float* bias2, const void* e0, const void* e1,
+                 void* y, int B, int C, int T, int K, int dil, int logscale,
                  int cin_p, int cout_p, float out_scale, void* stream) {
   if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535 || cin_p < C ||
       cin_p % 16 != 0 || cout_p < C)
     return (int)cudaErrorInvalidValue;
-  const MmaLauncher<D> f{x,     a1, be1,   a2,     be2, filt,     w1,
+  const MmaLauncher<D, ST> f{x,     a1, be1,   a2,     be2, filt,     w1,
                          bias1, w2, bias2, e0,     e1,  y,        B,
                          C,     T,  cin_p, cout_p, dil, logscale, out_scale,
                          (cudaStream_t)stream};
@@ -267,9 +282,10 @@ __host__ __device__ constexpr long long s8_unit_bytes(int C, int BM,
 // One unit tile, as a cluster (grid (n, tiles, B), cluster (n, 1, 1)). w1,
 // w2: the prepared int8 weights [K][cout_p][cin_p], sw1, sw2 their [C]
 // scales; part: act1's pre-pass maxima, n_groups a tile
-template <int K, int BM>
+template <int K, int BM, Store ST>
 __global__ void __launch_bounds__(s8_threads(BM), BM == 48 ? 2 : 1)
-amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
+amp_unit_s8_kernel(const StoreT<ST>* __restrict__ x,
+                   const float* __restrict__ a1,
                    const float* __restrict__ be1,
                    const float* __restrict__ a2,
                    const float* __restrict__ be2,
@@ -279,8 +295,9 @@ amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
                    const signed char* __restrict__ w2,
                    const float* __restrict__ sw2,
                    const float* __restrict__ bias2,
-                   const float* __restrict__ e0, const float* __restrict__ e1,
-                   float* __restrict__ y, const float* __restrict__ part,
+                   const StoreT<ST>* __restrict__ e0,
+                   const StoreT<ST>* __restrict__ e1,
+                   StoreT<ST>* __restrict__ y, const float* __restrict__ part,
                    int n_groups, int C, int T, int cin_p, int cout_p, int dil,
                    int logscale, float out_scale) {
   namespace cg = cooperative_groups;
@@ -322,11 +339,22 @@ amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
 
   // 8 channels of src from channel c (n_valid of them; zeros after) and
   // their snake parameters (channel pc ...) into stage st, xw samples from
-  // position g0
+  // position g0; with ``widen``, once they have landed, this thread's words
+  // of bf16 maps widened in place instead (GlobalSrc::widen)
   auto stage = [&](const auto& src, int st, int c, int n_valid, int pc,
-                   const float* alpha, const float* beta, int g0, int xw) {
+                   const float* alpha, const float* beta, int g0, int xw,
+                   bool widen) {
     float* xr = xr0 + st * SUB * xw;
     const float inv_xw = 1.0f / xw;
+    if (widen) {
+      if constexpr (std::decay_t<decltype(src)>::WIDEN)
+#pragma unroll 1
+        for (int e = tid; e < SUB * xw; e += NT) {
+          const int ci = split(e, inv_xw);
+          if (ci < n_valid) src.widen(xr + e, c + ci, g0 + e - ci * xw);
+        }
+      return;
+    }
     for (int e = tid; e < SUB * xw; e += NT) {
       const int ci = split(e, inv_xw);
       src.stage(xr + e, c + ci, g0 + e - ci * xw, ci < n_valid);
@@ -349,14 +377,15 @@ amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   // n sub-passes: staging of i + 1 (stage_i) overlaps the snake of i
   // (compute_i); ends with every thread done with the stages and sig
   auto sub_passes = [&](int n, const auto& stage_i, const auto& compute_i) {
-    if (n > 0) stage_i(0, 0);
+    if (n > 0) stage_i(0, 0, false);
     cp_async_commit();
 #pragma unroll 1
     for (int i = 0; i < n; ++i) {
-      if (i + 1 < n) stage_i(i + 1, (i + 1) & 1);
+      if (i + 1 < n) stage_i(i + 1, (i + 1) & 1, false);
       cp_async_commit();
-      cp_async_wait<1>();  // stage i landed ...
-      __syncthreads();     // ... for every thread; sub-pass i - 1 is done
+      cp_async_wait<1>();     // stage i landed ...
+      stage_i(i, i & 1, true);  // (bf16 maps: widened by its stager)
+      __syncthreads();  // ... for every thread; sub-pass i - 1 is done
       compute_i(i, i & 1);
     }
     cp_async_wait<0>();
@@ -371,13 +400,13 @@ amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
                  : 4 * (my_ch - 1) +
                        min(4, (C - 32 * (rank + n_ranks * (my_ch - 1)) + 7) /
                                   8);
-  const GlobalSrc src1{x + b * C * T, T};
+  const GlobalSrc<ST> src1{x + b * C * T, T};
   sub_passes(
       n_sub1,
-      [&](int i, int st) {
+      [&](int i, int st, bool widen) {
         const int c = 32 * (rank + n_ranks * (i >> 2)) + 8 * (i & 3);
         stage(src1, st, c, min(SUB, C - c), c, a1, be1, t0 - H - pad1 - 6,
-              xw1);
+              xw1, widen);
       },
       [&](int i, int st) {
         const int ch = rank + n_ranks * (i >> 2), c8 = 8 * (i & 3);
@@ -468,9 +497,9 @@ amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
   float m2 = 0.0f;
   sub_passes(
       n_sub2,
-      [&](int i, int st) {
+      [&](int i, int st, bool widen) {
         stage(src2, st, 8 * i, min(SUB, own - 8 * i), co0 + 8 * i, a2, be2,
-              t0 - H, BN);
+              t0 - H, BN, widen);
       },
       [&](int i, int st) {
         const float* ab = ab0 + st * 2 * SUB;
@@ -514,10 +543,10 @@ amp_unit_s8_kernel(const float* __restrict__ x, const float* __restrict__ a1,
     if (l >= TT || tt >= T) return;
     const long long o = ob + (long long)co * T + tt;
     v += bias2 != nullptr ? bias2[co] : 0.0f;
-    v += x[o];
-    if (e0 != nullptr) v += e0[o];
-    if (e1 != nullptr) v += e1[o];
-    y[o] = v * out_scale;
+    v += load_f32(x + o);
+    if (e0 != nullptr) v += load_f32(e0 + o);
+    if (e1 != nullptr) v += load_f32(e1 + o);
+    store_f32(y + o, v * out_scale);
   });
 }
 
@@ -547,19 +576,24 @@ struct S8SmemQuery {
   }
 };
 
+template <Store ST>
 struct S8Launcher {
-  const float *x, *a1, *be1, *a2, *be2, *filt;
+  const void* x;
+  const float *a1, *be1, *a2, *be2, *filt;
   const void* w1;
   const float *sw1, *bias1;
   const void* w2;
-  const float *sw2, *bias2, *e0, *e1;
-  float *y, *part;
+  const float *sw2, *bias2;
+  const void *e0, *e1;
+  void* y;
+  float* part;
   int B, C, T, dil, logscale, cin_p, cout_p;
   float out_scale;
   cudaStream_t s;
   template <int K, int BM>
   long long run() const {
-    auto kern = amp_unit_s8_kernel<K, BM>;
+    using S = StoreT<ST>;
+    auto kern = amp_unit_s8_kernel<K, BM, ST>;
     const int pad = dil * (K - 1) / 2, n = (C + BM - 1) / BM;
     constexpr int H = (K - 1) / 2 + 6, TT = I8_WINDOW - 2 * H;
     const long long smem = s8_unit_bytes(C, BM, pad);
@@ -569,8 +603,8 @@ struct S8Launcher {
     if (e == cudaSuccess) e = set_taps(filt, s);
     const int n_tiles = (T + TT - 1) / TT;
     if (e == cudaSuccess)  // act1's window scales first
-      e = launch_act_amax(x, a1, be1, logscale, part, B, C, T, n_tiles, TT,
-                          -H - pad, I8_WINDOW + 2 * pad, s);
+      e = launch_act_amax<ST>(x, a1, be1, logscale, part, B, C, T, n_tiles,
+                              TT, -H - pad, I8_WINDOW + 2 * pad, s);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(n, n_tiles, B);
@@ -585,10 +619,13 @@ struct S8Launcher {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     e = cudaLaunchKernelEx(
-        &cfg, kern, x, a1, be1, a2, be2, static_cast<const signed char*>(w1),
-        sw1, bias1, static_cast<const signed char*>(w2), sw2, bias2, e0, e1,
-        y, static_cast<const float*>(part), (C + AMAX_CH - 1) / AMAX_CH, C, T,
-        cin_p, cout_p, dil, logscale, out_scale);
+        &cfg, kern, static_cast<const S*>(x), a1, be1, a2, be2,
+        static_cast<const signed char*>(w1), sw1, bias1,
+        static_cast<const signed char*>(w2), sw2, bias2,
+        static_cast<const S*>(e0), static_cast<const S*>(e1),
+        static_cast<S*>(y), static_cast<const float*>(part),
+        (C + AMAX_CH - 1) / AMAX_CH, C, T, cin_p, cout_p, dil, logscale,
+        out_scale);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
   }
 };
@@ -605,6 +642,30 @@ extern "C" long long amp_unit_smem_bytes(int K, int dil, int C, int dot) {
              : dispatch_mma<false>(K, C, MmaSmemQuery{C, dil, false});
 }
 
+template <Store ST>
+int amp_unit_s8(const void* x, const float* a1, const float* be1,
+                const float* a2, const float* be2, const float* filt,
+                const void* w1, const float* sw1, const float* bias1,
+                const void* w2, const float* sw2, const float* bias2,
+                const void* e0, const void* e1, void* y, float* part, int B,
+                int C, int T, int K, int dil, int logscale, int cin_p,
+                int cout_p, float out_scale, void* stream) {
+  if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535 || cin_p < C ||
+      cin_p % 32 != 0 || cout_p < C || sw1 == nullptr || sw2 == nullptr ||
+      part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const S8Launcher<ST> f{x,   a1,    be1,   a2,    be2,      filt,   w1,
+                         sw1, bias1, w2,    sw2,   bias2,    e0,     e1,
+                         y,   part,  B,     C,     T,        dil,    logscale,
+                         cin_p, cout_p, out_scale, (cudaStream_t)stream};
+  const long long err = dispatch_s8(K, C, f);
+  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+}
+
+// The launch entry points on float32 maps build here; those on bf16 maps
+// build from amp_unit_bf16io.cu, which defines FHT_BF16_MAPS and includes
+// this file, so that the two halves compile in parallel.
+#ifndef FHT_BF16_MAPS
 // Each returns cudaGetLastError() after the launch (or the error that kept
 // it from launching). be1, be2, bias1, bias2, e0 and e1 may be null. w1,
 // w2: kernel B's prepared weights [K][cout_p][cin_p]
@@ -652,14 +713,57 @@ extern "C" int amp_unit_int8(const float* x, const float* a1,
                              float* part, int B, int C, int T, int K,
                              int dil, int logscale, int cin_p, int cout_p,
                              float out_scale, void* stream) {
-  if (B <= 0 || C <= 0 || T <= 0 || dil <= 0 || B > 65535 || cin_p < C ||
-      cin_p % 32 != 0 || cout_p < C || sw1 == nullptr || sw2 == nullptr ||
-      part == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const S8Launcher f{x,   a1,    be1,   a2,    be2,      filt,   w1,
-                     sw1, bias1, w2,    sw2,   bias2,    e0,     e1,
-                     y,   part,  B,     C,     T,        dil,    logscale,
-                     cin_p, cout_p, out_scale, (cudaStream_t)stream};
-  const long long err = dispatch_s8(K, C, f);
-  return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
+  return amp_unit_s8<Store::F32>(x, a1, be1, a2, be2, filt, w1, sw1, bias1,
+                                 w2, sw2, bias2, e0, e1, y, part, B, C, T, K,
+                                 dil, logscale, cin_p, cout_p, out_scale,
+                                 stream);
 }
+
+#else  // FHT_BF16_MAPS
+// The same three instances on bf16 maps: x, e0, e1 and y __nv_bfloat16
+// (the rest as above).
+extern "C" int amp_unit_f32_bf16io(const void* x, const float* a1,
+                                   const float* be1, const float* a2,
+                                   const float* be2, const float* filt,
+                                   const void* w1, const float* bias1,
+                                   const void* w2, const float* bias2,
+                                   const void* e0, const void* e1, void* y,
+                                   int B, int C, int T, int K, int dil,
+                                   int logscale, int cin_p, int cout_p,
+                                   float out_scale, void* stream) {
+  return amp_unit_mma<Dot::F32, Store::BF16>(
+      x, a1, be1, a2, be2, filt, w1, bias1, w2, bias2, e0, e1, y, B, C, T, K,
+      dil, logscale, cin_p, cout_p, out_scale, stream);
+}
+
+extern "C" int amp_unit_bf16_bf16io(const void* x, const float* a1,
+                                    const float* be1, const float* a2,
+                                    const float* be2, const float* filt,
+                                    const void* w1, const float* bias1,
+                                    const void* w2, const float* bias2,
+                                    const void* e0, const void* e1, void* y,
+                                    int B, int C, int T, int K, int dil,
+                                    int logscale, int cin_p, int cout_p,
+                                    float out_scale, void* stream) {
+  return amp_unit_mma<Dot::BF16, Store::BF16>(
+      x, a1, be1, a2, be2, filt, w1, bias1, w2, bias2, e0, e1, y, B, C, T, K,
+      dil, logscale, cin_p, cout_p, out_scale, stream);
+}
+
+extern "C" int amp_unit_int8_bf16io(const void* x, const float* a1,
+                                    const float* be1, const float* a2,
+                                    const float* be2, const float* filt,
+                                    const void* w1, const float* sw1,
+                                    const float* bias1, const void* w2,
+                                    const float* sw2, const float* bias2,
+                                    const void* e0, const void* e1, void* y,
+                                    float* part, int B, int C, int T, int K,
+                                    int dil, int logscale, int cin_p,
+                                    int cout_p, float out_scale,
+                                    void* stream) {
+  return amp_unit_s8<Store::BF16>(x, a1, be1, a2, be2, filt, w1, sw1, bias1,
+                                  w2, sw2, bias2, e0, e1, y, part, B, C, T, K,
+                                  dil, logscale, cin_p, cout_p, out_scale,
+                                  stream);
+}
+#endif  // FHT_BF16_MAPS

@@ -8,8 +8,10 @@
 // with up to three residuals and the folded MRF average (out_scale = 1/3),
 // and conv_post (Cout = 1).
 //
-// Layout: x [B, Cin, T], residuals and y [B, Cout, T], float32, contiguous.
-// The weights come in the layout of their route (below).
+// Layout: x [B, Cin, T], residuals and y [B, Cout, T], contiguous, in the
+// storage type (dot_dtype.cuh: float32, or bf16 for the JAX package's bf16
+// feature maps: loaded into f32, the epilogue in f32, y rounded once at the
+// store). The weights come in the layout of their route (below).
 //
 // Two routes:
 //
@@ -50,7 +52,12 @@
 //      to bf16 rows read by ldmatrix (BF16) or quantises to int8 rows read
 //      by ldmatrix (I8: rint(x * 127 / amax), four channels a 32-bit
 //      store, i8_offset) the values it staged. Two stages: the next chunk
-//      loads while this one multiplies, one barrier a chunk;
+//      loads while this one multiplies, one barrier a chunk. With bf16
+//      maps a value cannot move alone by cp.async (4 bytes are two bf16 of
+//      one channel, and the layout puts channels side by side): each is
+//      staged as the 4-byte word that holds it, into its f32 slot, and the
+//      thread that staged it widens it in place once it has landed, before
+//      the steps above (mma_sm90.cuh: cp_async_bf16_word);
 //    - the accumulators pass through shared memory (I8 dequantised), and
 //      the epilogue (bias, residuals, scale, in the plain version's order)
 //      leaves as 16-byte row stores.
@@ -67,8 +74,11 @@
 //    is not a multiple of 4), two stages, so that the next chunk's copies
 //    are in flight while this one computes; each thread computes 4 outputs
 //    (t0 + tid + 128 j, so a warp's shared-memory reads are consecutive) on
-//    the FMA units. Weights: [Cout][Cin][K] f32 (bf16 values for BF16).
-//    int8 has no narrow route: the vocoder keeps conv_post float32.
+//    the FMA units. With bf16 maps the copies move 8 bytes (four values)
+//    where T % 4 == 0, else one 4-byte word a value, and each thread widens
+//    the values it staged in place once they have landed. Weights:
+//    [Cout][Cin][K] f32 (bf16 values for BF16). int8 has no narrow route:
+//    the vocoder keeps conv_post float32.
 
 #include "dot_dtype.cuh"
 #include "mma_sm90.cuh"
@@ -155,22 +165,27 @@ __host__ __device__ constexpr bool split_x_once(Dot D, int K, int WM) {
 // against 2 blocks with the spills: 1.351 / 1.277 ms (768 channels, K 11,
 // d 5), 0.894 / 0.850 (384, K 7), 0.553 / 0.517 (48, K 11) on an H100
 // 80GB HBM3 (scripts/port_conv_variants.py).
-__host__ __device__ constexpr int mma_min_blocks(Dot D, int K) {
-  return D == Dot::F32 && K != 3 ? 1 : 2;
+// On bf16 maps the F32 K = 3 instances keep 1 too: widening the staged
+// words in place (while the accumulators are live) spilled 8 bytes at 128.
+__host__ __device__ constexpr int mma_min_blocks(Dot D, int K, Store ST) {
+  return D == Dot::F32 && (K != 3 || ST == Store::BF16) ? 1 : 2;
 }
 
 // The block's tile (see the top of this file); I8 also takes its window's
 // scale q and the [Cout] weight scales sw.
-template <Dot D, int K, int WM, int MT>
+template <Dot D, int K, int WM, int MT, Store ST>
 __device__ __forceinline__ void conv1d_gemm(
-    unsigned char* smem, const float* __restrict__ x,
+    unsigned char* smem, const StoreT<ST>* __restrict__ x,
     const typename Gemm<D, WM, MT>::WT* __restrict__ wp,
-    const float* __restrict__ bias, const float* __restrict__ r0,
-    const float* __restrict__ r1, const float* __restrict__ r2,
-    float* __restrict__ y, int Cin, int Cout, int T, int dil,
+    const float* __restrict__ bias, const StoreT<ST>* __restrict__ r0,
+    const StoreT<ST>* __restrict__ r1, const StoreT<ST>* __restrict__ r2,
+    StoreT<ST>* __restrict__ y, int Cin, int Cout, int T, int dil,
     float out_scale, Quant q = {0.0f, 0.0f},
     const float* __restrict__ sw = nullptr) {
   using G = Gemm<D, WM, MT>;
+  using S = StoreT<ST>;
+  // bf16 maps: x as words, widened in place (see the top of this file)
+  constexpr bool WIDEN = ST == Store::BF16;
   using WT = typename G::WT;
   constexpr int KC = G::KC, EPS = G::EPS, XS = G::XS, XSB = G::XSB,
                 NT8 = G::NT8, TILE_CO = G::TILE_CO;
@@ -187,7 +202,7 @@ __device__ __forceinline__ void conv1d_gemm(
   const int cout_p = (Cout + COUT_ALIGN - 1) / COUT_ALIGN * COUT_ALIGN;
   const int xr_n = G::x_rows(K, dil);
   const int stage = G::stage_bytes(K, dil);
-  const float* xb = x + b * (long long)Cin * T;
+  const S* xb = x + b * (long long)Cin * T;
 
   auto w_stage = [&](int s) {
     return reinterpret_cast<WT*>(smem + s * stage);
@@ -234,19 +249,60 @@ __device__ __forceinline__ void conv1d_gemm(
         for (int j = 0; j < 4; ++j) {
           const int ci = c0 + 4 * warp + j;
           const bool valid = tvalid && ci < Cin;
-          cp_async4_zfill(xd + u * XS + j,
-                          valid ? xb + (long long)ci * T + gt : xb, valid);
+          if constexpr (WIDEN)
+            cp_async_bf16_word(xd + u * XS + j,
+                               valid ? xb + (long long)ci * T + gt : xb,
+                               valid);
+          else
+            cp_async4_zfill(xd + u * XS + j,
+                            valid ? xb + (long long)ci * T + gt : xb, valid);
         }
       }
       return;
     }
     float* xd = x_stage(s) + xci;
     const bool cvalid = c0 + xci < Cin;
-    const float* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
+    const S* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
     for (int u = xu; u < xr_n; u += XSTEP) {
       const int gt = t0 - pad + u;
       const bool valid = cvalid && (unsigned)gt < (unsigned)T;
-      cp_async4_zfill(xd + u * XS, valid ? xs + gt : xb, valid);
+      if constexpr (WIDEN)
+        cp_async_bf16_word(xd + u * XS, valid ? xs + gt : xb, valid);
+      else
+        cp_async4_zfill(xd + u * XS, valid ? xs + gt : xb, valid);
+    }
+  };
+  // bf16 maps: the words this thread staged for chunk c0, widened in place
+  // once they have landed (the same elements as load's)
+  auto widen_own = [&](int c0, int s) {
+    if constexpr (!WIDEN) {
+      return;
+    } else if constexpr (G::I8) {
+      float* xd = x_stage(s) + 4 * warp;
+#pragma unroll 1
+      for (int u = lane; u < xr_n; u += 32) {
+        const int gt = t0 - pad + u;
+        if ((unsigned)gt >= (unsigned)T) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ci = c0 + 4 * warp + j;
+          if (ci < Cin)
+            xd[u * XS + j] = bf16_half_to_f32(
+                xd[u * XS + j],
+                bf16_parity(xb, (unsigned)ci * (unsigned)T + (unsigned)gt));
+        }
+      }
+    } else {
+      if (c0 + xci >= Cin) return;
+      float* xd = x_stage(s) + xci;
+      const unsigned row = (unsigned)(c0 + xci) * (unsigned)T;
+#pragma unroll 1
+      for (int u = xu; u < xr_n; u += XSTEP) {
+        const int gt = t0 - pad + u;
+        if ((unsigned)gt < (unsigned)T)
+          xd[u * XS] = bf16_half_to_f32(
+              xd[u * XS], bf16_parity(xb, row + (unsigned)gt));
+      }
     }
   };
 
@@ -267,6 +323,7 @@ __device__ __forceinline__ void conv1d_gemm(
   cp_async_commit();
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<0>();
+    if constexpr (WIDEN) widen_own(c * KC, c & 1);
     if constexpr (G::I8) {  // the values this thread staged, quantised
       const float* xf = x_stage(0) + 4 * warp;
       unsigned char* xq = x8_stage(c & 1);
@@ -379,7 +436,8 @@ __device__ __forceinline__ void conv1d_gemm(
   __syncthreads();
 
   // whole rows out, in the epilogue's order: + bias, + r0, + r1, + r2,
-  // x out_scale; 16-byte accesses where y's rows are 16-byte aligned
+  // x out_scale; four-element accesses (16 bytes f32, 8 bf16) where y's
+  // rows are aligned to them
   const int cols = min(BN, T - t0);
   const bool vec = T % 4 == 0;
   constexpr int V = BN / 4;
@@ -392,9 +450,9 @@ __device__ __forceinline__ void conv1d_gemm(
     const float* src = os + row * G::OS + col;
     if (vec) {
       float4 v = *reinterpret_cast<const float4*>(src);
-      auto add = [&](const float* r) {
+      auto add = [&](const S* r) {
         if (r == nullptr) return;
-        const float4 q = *reinterpret_cast<const float4*>(r + o);
+        const float4 q = load4_f32(r + o);
         v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
       };
       v.x += bv; v.y += bv; v.z += bv; v.w += bv;
@@ -402,52 +460,56 @@ __device__ __forceinline__ void conv1d_gemm(
       add(r1);
       add(r2);
       v.x *= out_scale; v.y *= out_scale; v.z *= out_scale; v.w *= out_scale;
-      *reinterpret_cast<float4*>(y + o) = v;
+      store4_f32(y + o, v);
     } else {
       for (int j = 0; j < 4 && col + j < cols; ++j) {
         float v = src[j] + bv;
-        if (r0 != nullptr) v += r0[o + j];
-        if (r1 != nullptr) v += r1[o + j];
-        if (r2 != nullptr) v += r2[o + j];
-        y[o + j] = v * out_scale;
+        if (r0 != nullptr) v += load_f32(r0 + o + j);
+        if (r1 != nullptr) v += load_f32(r1 + o + j);
+        if (r2 != nullptr) v += load_f32(r2 + o + j);
+        store_f32(y + o + j, v * out_scale);
       }
     }
   }
 }
 
 // F32 and BF16
-template <Dot D, int K, int WM, int MT>
-__global__ void __launch_bounds__(NT, mma_min_blocks(D, K))
-conv1d_mma_kernel(const float* __restrict__ x,
+template <Dot D, int K, int WM, int MT, Store ST>
+__global__ void __launch_bounds__(NT, mma_min_blocks(D, K, ST))
+conv1d_mma_kernel(const StoreT<ST>* __restrict__ x,
                   const typename Gemm<D, WM, MT>::WT* __restrict__ wp,
                   const float* __restrict__ bias,
-                  const float* __restrict__ r0, const float* __restrict__ r1,
-                  const float* __restrict__ r2, float* __restrict__ y,
-                  int Cin, int Cout, int T, int dil, float out_scale) {
+                  const StoreT<ST>* __restrict__ r0,
+                  const StoreT<ST>* __restrict__ r1,
+                  const StoreT<ST>* __restrict__ r2,
+                  StoreT<ST>* __restrict__ y, int Cin, int Cout, int T,
+                  int dil, float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  conv1d_gemm<D, K, WM, MT>(smem, x, wp, bias, r0, r1, r2, y, Cin, Cout, T,
-                            dil, out_scale);
+  conv1d_gemm<D, K, WM, MT, ST>(smem, x, wp, bias, r0, r1, r2, y, Cin, Cout,
+                                T, dil, out_scale);
 }
 
 // I8: the block's tile is its window; its scale from the pre-pass's
 // partial maxima ``part`` (n_groups a window, conv1d_amax_kernel)
-template <int K, int WM, int MT>
+template <int K, int WM, int MT, Store ST>
 __global__ void __launch_bounds__(NT, 2)
-conv1d_s8_kernel(const float* __restrict__ x,
+conv1d_s8_kernel(const StoreT<ST>* __restrict__ x,
                  const signed char* __restrict__ wp,
                  const float* __restrict__ sw,
                  const float* __restrict__ part, int n_groups,
                  const float* __restrict__ bias,
-                 const float* __restrict__ r0, const float* __restrict__ r1,
-                 const float* __restrict__ r2, float* __restrict__ y,
-                 int Cin, int Cout, int T, int dil, float out_scale) {
+                 const StoreT<ST>* __restrict__ r0,
+                 const StoreT<ST>* __restrict__ r1,
+                 const StoreT<ST>* __restrict__ r2,
+                 StoreT<ST>* __restrict__ y, int Cin, int Cout, int T,
+                 int dil, float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[32];
   const Quant q = window_quant(
       part + ((long long)blockIdx.z * gridDim.x + blockIdx.x) * n_groups,
       n_groups, red);
-  conv1d_gemm<Dot::I8, K, WM, MT>(smem, x, wp, bias, r0, r1, r2, y, Cin,
-                                  Cout, T, dil, out_scale, q, sw);
+  conv1d_gemm<Dot::I8, K, WM, MT, ST>(smem, x, wp, bias, r0, r1, r2, y, Cin,
+                                      Cout, T, dil, out_scale, q, sw);
 }
 
 // The I8 pre-pass: part[b][w][g] = the largest |x| of channels [8 g, 8 g +
@@ -457,8 +519,9 @@ conv1d_s8_kernel(const float* __restrict__ x,
 // grid (windows, ceil(Cin / 64), B). Reads x once, plus the windows' halos.
 constexpr int AMAX_CH = 8;  // channels a partial maximum
 
+template <Store ST>
 __global__ void __launch_bounds__(NT)
-conv1d_amax_kernel(const float* __restrict__ x, float* __restrict__ part,
+conv1d_amax_kernel(const StoreT<ST>* __restrict__ x, float* __restrict__ part,
                    int Cin, int T, int pad) {
   const int lane = threadIdx.x & 31;
   const int grp = blockIdx.y * (NT / 32) + (threadIdx.x >> 5);
@@ -467,11 +530,11 @@ conv1d_amax_kernel(const float* __restrict__ x, float* __restrict__ part,
   const int c0 = grp * AMAX_CH, nc = min(AMAX_CH, Cin - c0);
   const int lo = max((int)blockIdx.x * BN - pad, 0);
   const int width = min((int)blockIdx.x * BN + BN + pad, T) - lo;
-  const float* xb = x + ((long long)blockIdx.z * Cin + c0) * T + lo;
+  const StoreT<ST>* xb = x + ((long long)blockIdx.z * Cin + c0) * T + lo;
   float m = 0.0f;
   for (int c = 0; c < nc; ++c)
     for (int g = lane; g < width; g += 32)
-      m = fmaxf(m, fabsf(xb[(long long)c * T + g]));
+      m = fmaxf(m, fabsf(load_f32(xb + (long long)c * T + g)));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
@@ -480,30 +543,34 @@ conv1d_amax_kernel(const float* __restrict__ x, float* __restrict__ part,
         m;
 }
 
-template <Dot D, int K, int WM, int MT>
-int launch_mma(const float* x, const void* w, const float* sw, float* part,
-               const float* bias, const float* r0, const float* r1,
-               const float* r2, float* y, int B, int Cin, int Cout, int T,
+template <Dot D, int K, int WM, int MT, Store ST>
+int launch_mma(const void* xv, const void* w, const float* sw, float* part,
+               const float* bias, const void* r0v, const void* r1v,
+               const void* r2v, void* yv, int B, int Cin, int Cout, int T,
                int dil, float out_scale, cudaStream_t stream) {
   using G = Gemm<D, WM, MT>;
+  using S = StoreT<ST>;
+  const S *x = static_cast<const S*>(xv), *r0 = static_cast<const S*>(r0v),
+          *r1 = static_cast<const S*>(r1v), *r2 = static_cast<const S*>(r2v);
+  S* y = static_cast<S*>(yv);
   const int smem = G::smem(K, dil);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   dim3 grid((T + BN - 1) / BN, (Cout + G::TILE_CO - 1) / G::TILE_CO, B);
   const auto* wp = static_cast<const typename G::WT*>(w);
   if constexpr (D == Dot::I8) {
-    auto kernel = conv1d_s8_kernel<K, WM, MT>;  // with 128 static bytes
+    auto kernel = conv1d_s8_kernel<K, WM, MT, ST>;  // with 128 static bytes
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return (int)attr;
     const int n_groups = (Cin + AMAX_CH - 1) / AMAX_CH;
-    conv1d_amax_kernel<<<dim3(grid.x, (n_groups + NT / 32 - 1) / (NT / 32),
-                              B),
-                         NT, 0, stream>>>(x, part, Cin, T, dil * (K - 1) / 2);
+    conv1d_amax_kernel<ST>
+        <<<dim3(grid.x, (n_groups + NT / 32 - 1) / (NT / 32), B), NT, 0,
+           stream>>>(x, part, Cin, T, dil * (K - 1) / 2);
     kernel<<<grid, NT, smem, stream>>>(x, wp, sw, part, n_groups, bias, r0,
                                        r1, r2, y, Cin, Cout, T, dil,
                                        out_scale);
   } else {
-    auto kernel = conv1d_mma_kernel<D, K, WM, MT>;
+    auto kernel = conv1d_mma_kernel<D, K, WM, MT, ST>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (attr != cudaSuccess) return (int)attr;
@@ -516,16 +583,16 @@ int launch_mma(const float* x, const void* w, const float* sw, float* part,
 // TILE_CO = 48 where 48 divides Cout and 64 does not, else 64
 inline bool narrow_tile(int Cout) { return Cout % 48 == 0 && Cout % 64 != 0; }
 
-template <Dot D, int K>
-int launch_mma_k(const float* x, const void* w, const float* sw, float* part,
-                 const float* bias, const float* r0, const float* r1,
-                 const float* r2, float* y, int B, int Cin, int Cout, int T,
+template <Dot D, int K, Store ST>
+int launch_mma_k(const void* x, const void* w, const float* sw, float* part,
+                 const float* bias, const void* r0, const void* r1,
+                 const void* r2, void* y, int B, int Cin, int Cout, int T,
                  int dil, float out_scale, cudaStream_t s) {
   if (narrow_tile(Cout))
-    return launch_mma<D, K, 1, 3>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
-                                  Cout, T, dil, out_scale, s);
-  return launch_mma<D, K, 2, 2>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
-                                Cout, T, dil, out_scale, s);
+    return launch_mma<D, K, 1, 3, ST>(x, w, sw, part, bias, r0, r1, r2, y, B,
+                                      Cin, Cout, T, dil, out_scale, s);
+  return launch_mma<D, K, 2, 2, ST>(x, w, sw, part, bias, r0, r1, r2, y, B,
+                                    Cin, Cout, T, dil, out_scale, s);
 }
 
 // Shared memory one block of the GEMM route takes (mirrored by
@@ -560,15 +627,19 @@ inline int narrow_smem(int K, int dil) {
   return 2 * NCC * narrow_width(K, dil) * 4;
 }
 
-// vec: x's rows are 16-byte aligned (T % 4 == 0 and x 16-byte aligned)
-template <Dot D>
+// vec: x's rows are aligned to four elements (T % 4 == 0 and x 16-byte
+// aligned for f32, 8-byte for bf16)
+template <Dot D, Store ST>
 __global__ void __launch_bounds__(NNT)
-conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
+conv1d_narrow_kernel(const StoreT<ST>* __restrict__ x,
+                     const float* __restrict__ w,
                      const float* __restrict__ bias,
-                     const float* __restrict__ r0, const float* __restrict__ r1,
-                     const float* __restrict__ r2, float* __restrict__ y,
-                     int Cin, int Cout, int T, int K, int dil, float out_scale,
-                     int vec) {
+                     const StoreT<ST>* __restrict__ r0,
+                     const StoreT<ST>* __restrict__ r1,
+                     const StoreT<ST>* __restrict__ r2,
+                     StoreT<ST>* __restrict__ y, int Cin, int Cout, int T,
+                     int K, int dil, float out_scale, int vec) {
+  using S = StoreT<ST>;
   extern __shared__ __align__(16) float xsm[];
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * NB;
@@ -577,13 +648,14 @@ conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int pad = dil * (K - 1) / 2;
   const int halo = narrow_halo(K, dil);
   const int W = narrow_width(K, dil);  // window positions t0 - halo ..
-  const float* xb = x + b * (long long)Cin * T;
+  const S* xb = x + b * (long long)Cin * T;
   const float* wr = w + (long long)co * Cin * K;
   const int n_chunks = (Cin + NCC - 1) / NCC;
 
   // stage s <- channels c0 .. c0 + NCC of the window, zero outside [0, T)
-  // and beyond Cin; BF16 rounds the values this thread staged once they
-  // have landed (round_own below)
+  // and beyond Cin (bf16 maps: through registers, widened to f32); BF16
+  // dots on f32 maps round the values this thread staged once they have
+  // landed (round_own below)
   auto load = [&](int c0, int s) {
     float* dst = xsm + s * NCC * W;
     if (vec) {
@@ -592,18 +664,47 @@ conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int ci = e / w4, p = (e - ci * w4) * 4;
         const int gt = t0 - halo + p;
         const bool ok = c0 + ci < Cin && gt >= 0 && gt < T;
-        const float* src = ok ? xb + (long long)(c0 + ci) * T + gt : xb;
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                         smem_addr(dst + ci * W + p)),
-                     "l"(src), "r"(ok ? 16 : 0));
+        const S* src = ok ? xb + (long long)(c0 + ci) * T + gt : xb;
+        if constexpr (ST == Store::BF16)  // four values into the slot's half
+          cp_async8_zfill(dst + ci * W + p, src, ok);
+        else
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                           "r"(smem_addr(dst + ci * W + p)),
+                       "l"(src), "r"(ok ? 16 : 0));
       }
     } else {
       for (int e = tid; e < NCC * W; e += NNT) {
         const int ci = e / W, p = e - ci * W;
         const int gt = t0 - halo + p;
         const bool ok = c0 + ci < Cin && gt >= 0 && gt < T;
-        cp_async4_zfill(dst + ci * W + p,
-                        ok ? xb + (long long)(c0 + ci) * T + gt : xb, ok);
+        if constexpr (ST == Store::BF16)
+          cp_async_bf16_word(dst + ci * W + p,
+                             ok ? xb + (long long)(c0 + ci) * T + gt : xb,
+                             ok);
+        else
+          cp_async4_zfill(dst + ci * W + p,
+                          ok ? xb + (long long)(c0 + ci) * T + gt : xb, ok);
+      }
+    }
+  };
+  auto widen_own = [&](int c0, int s) {  // bf16 maps: load's elements
+    if constexpr (ST == Store::BF16) {
+      float* dst = xsm + s * NCC * W;
+      if (vec) {  // four values in the low 8 bytes of each 16-byte slot
+        const int w4 = W / 4;
+        for (int e = tid; e < NCC * w4; e += NNT) {
+          float4* slot = reinterpret_cast<float4*>(dst) + e;
+          *slot = unpack_bf16x4(*reinterpret_cast<const uint2*>(slot));
+        }
+      } else {
+        for (int e = tid; e < NCC * W; e += NNT) {
+          const int ci = e / W, p = e - ci * W;
+          const int gt = t0 - halo + p;
+          if (c0 + ci < Cin && gt >= 0 && gt < T)
+            dst[e] = bf16_half_to_f32(
+                dst[e], bf16_parity(xb, (unsigned)(c0 + ci) * (unsigned)T +
+                                            (unsigned)gt));
+        }
       }
     }
   };
@@ -619,7 +720,8 @@ conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
   cp_async_commit();
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<0>();
-    if constexpr (D == Dot::BF16) round_own(c & 1);
+    if constexpr (ST == Store::BF16) widen_own(c * NCC, c & 1);
+    if constexpr (D == Dot::BF16 && ST == Store::F32) round_own(c & 1);
     __syncthreads();
     if (c + 1 < n_chunks) load((c + 1) * NCC, (c + 1) & 1);
     cp_async_commit();
@@ -645,28 +747,33 @@ conv1d_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (t >= T) continue;
     const long long o = (b * Cout + co) * (long long)T + t;
     float v = acc[j] + bv;
-    if (r0 != nullptr) v += r0[o];
-    if (r1 != nullptr) v += r1[o];
-    if (r2 != nullptr) v += r2[o];
-    y[o] = v * out_scale;
+    if (r0 != nullptr) v += load_f32(r0 + o);
+    if (r1 != nullptr) v += load_f32(r1 + o);
+    if (r2 != nullptr) v += load_f32(r2 + o);
+    store_f32(y + o, v * out_scale);
   }
 }
 
-template <Dot D>
-int launch_narrow(const float* x, const float* w, const float* bias,
-                  const float* r0, const float* r1, const float* r2, float* y,
+template <Dot D, Store ST>
+int launch_narrow(const void* xv, const float* w, const float* bias,
+                  const void* r0, const void* r1, const void* r2, void* y,
                   int B, int Cin, int Cout, int T, int K, int dil,
                   float out_scale, cudaStream_t s) {
-  auto kernel = conv1d_narrow_kernel<D>;
+  using S = StoreT<ST>;
+  const S* x = static_cast<const S*>(xv);
+  auto kernel = conv1d_narrow_kernel<D, ST>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
   const int smem = narrow_smem(K, dil);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const int vec = T % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
+  const int vec =
+      T % 4 == 0 && reinterpret_cast<size_t>(x) % (4 * sizeof(S)) == 0;
   dim3 grid((T + NB - 1) / NB, Cout, B);
-  kernel<<<grid, NNT, smem, s>>>(x, w, bias, r0, r1, r2, y, Cin, Cout, T, K,
-                                 dil, out_scale, vec);
+  kernel<<<grid, NNT, smem, s>>>(
+      x, w, bias, static_cast<const S*>(r0), static_cast<const S*>(r1),
+      static_cast<const S*>(r2), static_cast<S*>(y), Cin, Cout, T, K, dil,
+      out_scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -682,10 +789,10 @@ int supported(int K, int Cout, int dil, int dot) {
   return gemm && mma_smem(K, Cout, dil, dot) <= SMEM_MAX;
 }
 
-template <Dot D>
-int conv1d_same(const float* x, const void* w, const float* sw, float* part,
-                const float* bias, const float* r0, const float* r1,
-                const float* r2, float* y, int B, int Cin, int Cout, int T,
+template <Dot D, Store ST = Store::F32>
+int conv1d_same(const void* x, const void* w, const float* sw, float* part,
+                const float* bias, const void* r0, const void* r1,
+                const void* r2, void* y, int B, int Cin, int Cout, int T,
                 int K, int dil, float out_scale, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535 ||
       Cout > 65535 || !supported(K, Cout, dil, (int)D) ||
@@ -694,19 +801,20 @@ int conv1d_same(const float* x, const void* w, const float* sw, float* part,
   cudaStream_t s = (cudaStream_t)stream;
   if constexpr (D != Dot::I8) {
     if (Cout < 16)
-      return launch_narrow<D>(x, static_cast<const float*>(w), bias, r0, r1,
-                              r2, y, B, Cin, Cout, T, K, dil, out_scale, s);
+      return launch_narrow<D, ST>(x, static_cast<const float*>(w), bias, r0,
+                                  r1, r2, y, B, Cin, Cout, T, K, dil,
+                                  out_scale, s);
   }
   switch (K) {
     case 3:
-      return launch_mma_k<D, 3>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
-                                Cout, T, dil, out_scale, s);
+      return launch_mma_k<D, 3, ST>(x, w, sw, part, bias, r0, r1, r2, y, B,
+                                    Cin, Cout, T, dil, out_scale, s);
     case 7:
-      return launch_mma_k<D, 7>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
-                                Cout, T, dil, out_scale, s);
+      return launch_mma_k<D, 7, ST>(x, w, sw, part, bias, r0, r1, r2, y, B,
+                                    Cin, Cout, T, dil, out_scale, s);
     default:
-      return launch_mma_k<D, 11>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
-                                 Cout, T, dil, out_scale, s);
+      return launch_mma_k<D, 11, ST>(x, w, sw, part, bias, r0, r1, r2, y, B,
+                                     Cin, Cout, T, dil, out_scale, s);
   }
 }
 
@@ -732,6 +840,10 @@ extern "C" int conv1d_same_smem_bytes(int K, int Cout, int dil, int dot) {
   return mma_smem(K, Cout, dil, dot);
 }
 
+// The launch entry points on float32 maps build here; those on bf16 maps
+// build from conv1d_same_bf16io.cu, which defines FHT_BF16_MAPS and includes
+// this file, so that the two halves compile in parallel.
+#ifndef FHT_BF16_MAPS
 // Each returns cudaGetLastError() after the launch (or the error that kept
 // it from launching). bias and r0..r2 may be null. w: for Cout >= 16 the
 // prepared weights [K][Cout_p][Cin_p] (ops/conv.py:conv_weights), float32
@@ -768,3 +880,40 @@ extern "C" int conv1d_same_int8(const float* x, const void* w,
   return conv1d_same<Dot::I8>(x, w, sw, part, bias, r0, r1, r2, y, B, Cin,
                               Cout, T, K, dil, out_scale, stream);
 }
+
+#else  // FHT_BF16_MAPS
+// The same three instances on bf16 maps: x, r0..r2 and y __nv_bfloat16
+// (the rest as above).
+extern "C" int conv1d_same_f32_bf16io(const void* x, const void* w,
+                                      const float* bias, const void* r0,
+                                      const void* r1, const void* r2, void* y,
+                                      int B, int Cin, int Cout, int T, int K,
+                                      int dil, float out_scale, void* stream) {
+  return conv1d_same<Dot::F32, Store::BF16>(x, w, nullptr, nullptr, bias, r0,
+                                            r1, r2, y, B, Cin, Cout, T, K, dil,
+                                            out_scale, stream);
+}
+
+extern "C" int conv1d_same_bf16_bf16io(const void* x, const void* w,
+                                       const float* bias, const void* r0,
+                                       const void* r1, const void* r2,
+                                       void* y, int B, int Cin, int Cout,
+                                       int T, int K, int dil, float out_scale,
+                                       void* stream) {
+  return conv1d_same<Dot::BF16, Store::BF16>(x, w, nullptr, nullptr, bias, r0,
+                                             r1, r2, y, B, Cin, Cout, T, K,
+                                             dil, out_scale, stream);
+}
+
+extern "C" int conv1d_same_int8_bf16io(const void* x, const void* w,
+                                       const float* sw, float* part,
+                                       const float* bias, const void* r0,
+                                       const void* r1, const void* r2,
+                                       void* y, int B, int Cin, int Cout,
+                                       int T, int K, int dil, float out_scale,
+                                       void* stream) {
+  return conv1d_same<Dot::I8, Store::BF16>(x, w, sw, part, bias, r0, r1, r2,
+                                           y, B, Cin, Cout, T, K, dil,
+                                           out_scale, stream);
+}
+#endif  // FHT_BF16_MAPS

@@ -17,6 +17,17 @@
 //
 // The tensor-core kernels (B's GEMM route, C, D, E) stage bf16 and int8
 // operands in their own types.
+//
+// The storage type of the feature maps (vocoder_storage_dtype), a second
+// parameter beside Dot: the JAX kernels load their rows and residuals into
+// f32 and store in the input's dtype (flowhigh_tpu/ops/packed.py:668-670,
+// :684-689; ops/fused_act.py io_dtype). Kernels A, B, D and E take
+//   F32   float maps;
+//   BF16  __nv_bfloat16 maps: every load widens to f32 (exact), the kernel
+//         computes and accumulates in f32 as the F32 instance does, and the
+//         one stored map rounds to nearest even (__float2bfloat16_rn).
+// So an instance with BF16 storage is its F32-storage instance on the
+// widened inputs, rounded once at the store.
 
 #pragma once
 
@@ -28,9 +39,66 @@
 namespace {
 
 enum class Dot { F32 = 0, BF16 = 1, I8 = 2 };
+enum class Store { F32 = 0, BF16 = 1 };
+
+template <Store S>
+using StoreT =
+    typename std::conditional<S == Store::BF16, __nv_bfloat16, float>::type;
 
 template <Dot D>
 using Acc = typename std::conditional<D == Dot::I8, int, float>::type;
+
+// --- loads and stores of a map element, in f32 --------------------------------
+
+__device__ __forceinline__ float bf16_bits(unsigned short u) {
+  return __uint_as_float((unsigned)u << 16);
+}
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return bf16_bits(*reinterpret_cast<const unsigned short*>(p));
+}
+// through the read-only cache
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Four consecutive elements at p, which is aligned to four elements (16
+// bytes f32, 8 bytes bf16).
+__device__ __forceinline__ float4 unpack_bf16x4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4_f32(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_f32(const __nv_bfloat16* p) {
+  return unpack_bf16x4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 ldg4_f32(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4_f32(const __nv_bfloat16* p) {
+  return unpack_bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+// lo and hi rounded to bf16, lo in the low half
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void store4_f32(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4_f32(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
+}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

@@ -67,6 +67,41 @@ __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+// 8 bytes, both addresses 8-byte aligned; zeros when !valid
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+// bf16 feature maps: cp.async moves 4 bytes at least, two bf16 values. One
+// value is staged as the aligned 4-byte word that holds it, into its f32
+// slot (zeros when !valid), and widened in place, by the thread that staged
+// it, once it has landed: bf16_half_to_f32 takes the half that the value's
+// address names (its bit 1: bf16_parity of the row's base and the element
+// index, in 32-bit arithmetic, of which only the low bit counts). So the
+// copy stays asynchronous and takes no registers while it is in flight.
+__device__ __forceinline__ void cp_async_bf16_word(float* dst,
+                                                   const __nv_bfloat16* src,
+                                                   bool valid) {
+  cp_async4_zfill(dst,
+                  reinterpret_cast<const void*>(
+                      reinterpret_cast<unsigned long long>(src) & ~3ull),
+                  valid);
+}
+// 1 where element ``index`` of the bf16 array at ``base`` is a word's high
+// half
+__device__ __forceinline__ unsigned bf16_parity(const __nv_bfloat16* base,
+                                                unsigned index) {
+  return ((unsigned)(reinterpret_cast<unsigned long long>(base) >> 1) +
+          index) & 1u;
+}
+__device__ __forceinline__ float bf16_half_to_f32(float word, unsigned hi) {
+  const unsigned u = __float_as_uint(word);
+  return __uint_as_float(hi ? (u & 0xffff0000u) : (u << 16));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

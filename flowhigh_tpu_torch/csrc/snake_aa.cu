@@ -5,8 +5,10 @@
 // flowhigh_tpu/ops/packed.py:packed_snake_activation1d (the same function
 // on space-to-depth packed rows; the card needs no packing).
 //
-// Layout: x, y are [rows = B*C, T] float32 (PyTorch's [B, C, T]); alpha,
-// beta are [C]; h is the 12-tap Kaiser-sinc half-band filter
+// Layout: x, y are [rows = B*C, T] (PyTorch's [B, C, T]) in the storage
+// type (dot_dtype.cuh: float, or bf16 for the JAX package's bf16 feature
+// maps, loaded into f32 and rounded once at the store); alpha, beta are [C]
+// float32; h is the 12-tap Kaiser-sinc half-band filter
 // kaiser_sinc_filter1d(0.25, 0.3, 12). With we = 2 h[0::2], wo = 2 h[1::2]:
 //
 //   s[2m]   = snake(sum_k we[k] x[clamp(m - 3 + k)])        k = 0..5
@@ -19,7 +21,8 @@
 // lengths with no multiple-of-8 tile, pads x and patches the padded
 // length's edge instead; the port keeps the composition.)
 //
-// Bound: device memory. Each element is read once and written once (8 B);
+// Bound: device memory. Each element is read once and written once (8 B,
+// 4 B with bf16 maps);
 // its ~24 FIR multiply-adds and two snakes (snake.cuh: a sine by a
 // polynomial, no slow path) stay below the card's FMA rate.
 //
@@ -27,17 +30,18 @@
 // consecutive outputs n0 .. n0 + R - 1; a warp 32 strips, a block WARPS
 // warps (TILE outputs of one row); the grid is one-dimensional over
 // (row, tile), so any B*C. The thread
-//   1. reads x[n0 - 4, n0 + R + 4) (16-byte loads on interior tiles),
+//   1. reads x[n0 - 4, n0 + R + 4) (four elements a load on interior
+//      tiles: 16 bytes f32, 8 bytes bf16),
 //   2. computes its own 2R samples of the 2x-rate signal s, once,
 //   3. takes the 5 samples of s to its left and the 5 to its right from its
 //      neighbouring lanes (__shfl_up_sync / __shfl_down_sync); the warp's
 //      two outer halos (10 samples) are computed by lanes 0..9, one sample
 //      each, and handed to lanes 0 and 31 by shuffles,
 //   4. runs the 12-tap down FIR in registers and stores its R outputs
-//      (16-byte stores on interior tiles).
+//      (four elements a store on interior tiles).
 // Interior tiles run without index clamps. The first and last tiles of a
 // row, every tile of a row shorter than a tile, and every tile when T % 4
-// or the pointers rule out 16-byte access, take the clamped path: scalar
+// or the pointers rule out four-element access, take the clamped path: scalar
 // loads at clamped indices, s positions outside [0, 2T) replaced by the
 // down stage's edge samples, stores guarded by T. The taps arrive by value
 // (kernel parameters: constant-bank operands, no registers).
@@ -52,6 +56,7 @@
 
 #include <cuda_runtime.h>
 
+#include "dot_dtype.cuh"
 #include "snake.cuh"
 
 namespace {
@@ -76,8 +81,8 @@ __device__ __forceinline__ float act(float v, float a, float inv_b) {
 
 // s at 2x-rate index idx (any integer; x read at clamped indices when
 // kClamp): s[2m] = se(m), s[2m + 1] = so(m).
-template <bool kSnake, bool kClamp>
-__device__ __forceinline__ float s_at(const float* __restrict__ xr, int T,
+template <bool kSnake, bool kClamp, class S>
+__device__ __forceinline__ float s_at(const S* __restrict__ xr, int T,
                                       int idx, const Taps& tp, float a,
                                       float inv_b) {
   const int m = idx >> 1, par = idx & 1;
@@ -86,15 +91,15 @@ __device__ __forceinline__ float s_at(const float* __restrict__ xr, int T,
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     const int g = kClamp ? min(max(base + k, 0), T - 1) : base + k;
-    acc = fmaf(par ? tp.up[2 * k + 1] : tp.up[2 * k], __ldg(xr + g), acc);
+    acc = fmaf(par ? tp.up[2 * k + 1] : tp.up[2 * k], ldg_f32(xr + g), acc);
   }
   return act<kSnake>(acc, a, inv_b);
 }
 
 // One thread's strip: outputs n0 = w0 + lane * R .. n0 + R - 1 of a row.
-template <bool kSnake, bool kEdge>
-__device__ __forceinline__ void strip(const float* __restrict__ xr,
-                                      float* __restrict__ yr, int T, int w0,
+template <bool kSnake, bool kEdge, class S>
+__device__ __forceinline__ void strip(const S* __restrict__ xr,
+                                      S* __restrict__ yr, int T, int w0,
                                       int lane, const Taps& tp, float a,
                                       float inv_b) {
   const int n0 = w0 + lane * R;
@@ -103,12 +108,11 @@ __device__ __forceinline__ void strip(const float* __restrict__ xr,
   if (kEdge) {
 #pragma unroll
     for (int j = 0; j < XW; ++j)
-      xw[j] = __ldg(xr + min(max(n0 - 4 + j, 0), T - 1));
+      xw[j] = ldg_f32(xr + min(max(n0 - 4 + j, 0), T - 1));
   } else {
-    const float4* xv = reinterpret_cast<const float4*>(xr + n0 - 4);
 #pragma unroll
     for (int q = 0; q < XW / 4; ++q) {
-      const float4 v = __ldg(xv + q);
+      const float4 v = ldg4_f32(xr + n0 - 4 + 4 * q);
       xw[4 * q] = v.x;
       xw[4 * q + 1] = v.y;
       xw[4 * q + 2] = v.z;
@@ -132,7 +136,7 @@ __device__ __forceinline__ void strip(const float* __restrict__ xr,
   // the warp's outer halos: lane j < 5 computes s[2 w0 - 5 + j], lane
   // 5 <= j < 10 s[2 (w0 + 32 R) + j - 5] (lanes 10..31 repeat lane 9)
   const int j = min(lane, 9);
-  const float e = s_at<kSnake, kEdge>(
+  const float e = s_at<kSnake, kEdge, S>(
       xr, T, j < 5 ? 2 * w0 - 5 + j : 2 * (w0 + 32 * R) + j - 5, tp, a,
       inv_b);
 
@@ -147,8 +151,8 @@ __device__ __forceinline__ void strip(const float* __restrict__ xr,
   }
 
   if (kEdge) {  // the down stage's replicate edges
-    const float s_lo = s_at<kSnake, true>(xr, T, 0, tp, a, inv_b);
-    const float s_hi = s_at<kSnake, true>(xr, T, 2 * T - 1, tp, a, inv_b);
+    const float s_lo = s_at<kSnake, true, S>(xr, T, 0, tp, a, inv_b);
+    const float s_hi = s_at<kSnake, true, S>(xr, T, 2 * T - 1, tp, a, inv_b);
 #pragma unroll
     for (int p = 0; p < SW; ++p) {
       const int idx = 2 * n0 - 5 + p;
@@ -168,26 +172,28 @@ __device__ __forceinline__ void strip(const float* __restrict__ xr,
   if (kEdge) {
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      if (n0 + i < T) yr[n0 + i] = out[i];
+      if (n0 + i < T) store_f32(yr + n0 + i, out[i]);
   } else {
-    float4* yv = reinterpret_cast<float4*>(yr + n0);
 #pragma unroll
     for (int q = 0; q < R / 4; ++q)
-      yv[q] = make_float4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
-                          out[4 * q + 3]);
+      store4_f32(yr + n0 + 4 * q,
+                 make_float4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
+                             out[4 * q + 3]));
   }
 }
 
-template <bool kSnake>
+template <bool kSnake, Store ST>
 __global__ void __launch_bounds__(THREADS)
-snake_aa_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
+snake_aa_kernel(const StoreT<ST>* __restrict__ x,
+                const float* __restrict__ alpha,
                 const float* __restrict__ beta, const Taps taps,
-                float* __restrict__ y, int channels, int T, int tiles,
+                StoreT<ST>* __restrict__ y, int channels, int T, int tiles,
                 int logscale, int vec) {
+  using S = StoreT<ST>;
   const int row = (int)(blockIdx.x / (unsigned)tiles);
   const int tile = (int)blockIdx.x - row * tiles;
-  const float* xr = x + (long long)row * T;
-  float* yr = y + (long long)row * T;
+  const S* xr = x + (long long)row * T;
+  S* yr = y + (long long)row * T;
 
   float a = 0.0f, inv_b = 0.0f;
   if (kSnake) {
@@ -204,17 +210,18 @@ snake_aa_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
   const int w0 = tile * TILE + (threadIdx.x >> 5) * 32 * R;
   const int lane = threadIdx.x & 31;
   // interior: every read of x (x[t0 - 5, t0 + TILE + 5)) and every s
-  // position in range, 16-byte access allowed
+  // position in range, four-element access allowed
   if (vec && tile > 0 && (long long)(tile + 1) * TILE + 8 <= T)
-    strip<kSnake, false>(xr, yr, T, w0, lane, taps, a, inv_b);
+    strip<kSnake, false, S>(xr, yr, T, w0, lane, taps, a, inv_b);
   else
-    strip<kSnake, true>(xr, yr, T, w0, lane, taps, a, inv_b);
+    strip<kSnake, true, S>(xr, yr, T, w0, lane, taps, a, inv_b);
 }
 
-template <bool kSnake>
-int launch(const float* x, const float* alpha, const float* beta,
-           const float* taps_host, float* y, int rows, int channels, int T,
+template <bool kSnake, Store ST>
+int launch(const void* x, const float* alpha, const float* beta,
+           const float* taps_host, void* y, int rows, int channels, int T,
            int logscale, void* stream) {
+  using S = StoreT<ST>;
   if (rows <= 0 || T <= 0 || channels <= 0 || taps_host == nullptr)
     return (int)cudaErrorInvalidValue;
   const int tiles = (T + TILE - 1) / TILE;
@@ -226,10 +233,12 @@ int launch(const float* x, const float* alpha, const float* beta,
   }
   const int vec = T % 4 == 0 &&
                   ((reinterpret_cast<unsigned long long>(x) |
-                    reinterpret_cast<unsigned long long>(y)) & 15) == 0;
-  snake_aa_kernel<kSnake>
+                    reinterpret_cast<unsigned long long>(y)) &
+                   (4 * sizeof(S) - 1)) == 0;
+  snake_aa_kernel<kSnake, ST>
       <<<(unsigned)(rows * tiles), THREADS, 0, (cudaStream_t)stream>>>(
-          x, alpha, beta, taps, y, channels, T, tiles, logscale, vec);
+          static_cast<const S*>(x), alpha, beta, taps, static_cast<S*>(y),
+          channels, T, tiles, logscale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -243,13 +252,22 @@ extern "C" int snake_aa_f32(const float* x, const float* alpha,
                             const float* beta, const float* taps_host,
                             float* y, int rows, int channels, int T,
                             int logscale, void* stream) {
-  return launch<true>(x, alpha, beta, taps_host, y, rows, channels, T,
-                      logscale, stream);
+  return launch<true, Store::F32>(x, alpha, beta, taps_host, y, rows,
+                                  channels, T, logscale, stream);
+}
+
+// The same on bf16 maps (x, y __nv_bfloat16; alpha, beta float32).
+extern "C" int snake_aa_f32_bf16io(const void* x, const float* alpha,
+                                   const float* beta, const float* taps_host,
+                                   void* y, int rows, int channels, int T,
+                                   int logscale, void* stream) {
+  return launch<true, Store::BF16>(x, alpha, beta, taps_host, y, rows,
+                                   channels, T, logscale, stream);
 }
 
 // The firs-only instance: y = down2(up2(x)) on [rows, T], same edges.
 extern "C" int snake_aa_firs_f32(const float* x, const float* taps_host,
                                  float* y, int rows, int T, void* stream) {
-  return launch<false>(x, nullptr, nullptr, taps_host, y, rows, 1, T, 0,
-                       stream);
+  return launch<false, Store::F32>(x, nullptr, nullptr, taps_host, y, rows, 1,
+                                   T, 0, stream);
 }

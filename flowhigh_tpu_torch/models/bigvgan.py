@@ -41,8 +41,27 @@ the JAX package's ``BigVGAN.conv_dtype``: the dot precision of every
 resblock conv (kernels B, D, E; ``ops/quant.py``). The stage-boundary
 convs follow the JAX package's ``_boundary_dtype``: bfloat16 for the
 upsamplers and ``conv_post`` under bfloat16, float32 under int8.
-``conv_pre`` and the snakes stay float32, and every feature map stays
-float32 in device memory.
+``conv_pre`` and the snakes stay float32.
+
+``storage_dtype`` (``None`` = float32, ``torch.bfloat16``) is the JAX
+package's ``BigVGAN.storage_dtype``: the dtype of the MRF feature maps in
+device memory. The port follows the dtype flow of the JAX package's fused
+vocoder (``fused_vocoder=True``: packed stages, Pallas convs) whatever its
+lowering switches say, as it does for routing:
+
+- ``conv_pre`` and each upsampler (kernel C) read and write float32; each
+  upsampler's output is rounded to ``storage_dtype`` right after it;
+- every launch of AMPBlock1 (kernels A, B, D, E) reads and stores bf16
+  maps, computing in f32 inside; the folded MRF residuals are the bf16
+  branch outputs; ``activation_post`` reads and stores bf16;
+- ``conv_post`` rounds its output to bf16 before the f32 ``tanh`` where the
+  JAX package runs it as a Pallas kernel (the last stage packs,
+  ``_pack_factor`` > 1: every stage of the published config from C = 192
+  on), and reads f32 where it takes XLA's conv;
+- AMPBlock2 follows the JAX flow of its stage: where the stage packs, its
+  conv (kernel B, dots at ``conv_dtype`` or bf16) rounds to bf16, then the
+  bias and x are added in bf16; at p = 1 the conv reads f32 and x's add
+  promotes the map to f32.
 """
 
 from __future__ import annotations
@@ -60,7 +79,7 @@ from torch import nn
 from ..config import VocoderConfig
 from ..ops import (act_conv1d, act_conv_plan, amp_unit, amp_unit_plan, conv1d,
                    conv_transpose1d, snake_activation1d)
-from ..ops.quant import check_dot_dtype
+from ..ops.quant import check_dot_dtype, resolve_storage_dtype
 from ..utils import cudnn_f32
 
 
@@ -267,10 +286,23 @@ class AMPBlock2(nn.Module):
             Activation1d(channels, activation, logscale)
             for _ in self.dilations])
 
-    def forward(self, x):
+    def forward(self, x, packed: bool = False):
+        """``packed``: the JAX package packs this stage (``_pack_factor`` >
+        1), which decides the dtype flow on bfloat16 maps (see the module
+        docstring); float32 maps take kernel B with x as its residual."""
         for d, act, conv in zip(self.dilations, self.activations, self.convs):
-            x = conv1d(act(x), conv.weight, conv.bias, dilation=d,
-                       residuals=(x,), dot_dtype=self.dot_dtype)
+            xt = act(x)
+            if x.dtype == torch.float32:
+                x = conv1d(xt, conv.weight, conv.bias, dilation=d,
+                           residuals=(x,), dot_dtype=self.dot_dtype)
+            elif packed:  # JAX's packed_conv1d: the conv, + bias, + x in bf16
+                dot = (torch.bfloat16 if self.dot_dtype == torch.float32
+                       else self.dot_dtype)
+                y = conv1d(xt, conv.weight, None, dilation=d, dot_dtype=dot)
+                x = (y + conv.bias.to(y.dtype)[:, None]) + x
+            else:  # JAX's f32 conv1d on xt; x's add promotes to f32
+                x = conv1d(xt.float(), conv.weight, conv.bias, dilation=d,
+                           residuals=(x.float(),), dot_dtype=self.dot_dtype)
         return x
 
 
@@ -282,11 +314,14 @@ class BigVGAN(nn.Module):
     library_upsamplers = 0
 
     def __init__(self, cfg: VocoderConfig = VocoderConfig(),
-                 fuse_act_conv=True, conv_dtype: Optional[torch.dtype] = None):
+                 fuse_act_conv=True, conv_dtype: Optional[torch.dtype] = None,
+                 storage_dtype: Optional[torch.dtype] = None):
         """``fuse_act_conv``: True | False | "auto" | "pairs"; ``conv_dtype``:
-        None (float32) | torch.bfloat16 | torch.int8 (see the module
-        docstring)."""
+        None (float32) | torch.bfloat16 | torch.int8; ``storage_dtype``:
+        None (float32) | torch.bfloat16 (see the module docstring)."""
         super().__init__()
+        self.storage_dtype = resolve_storage_dtype(storage_dtype,
+                                                   "storage_dtype")
         if cfg.resblock not in ("1", "2"):
             raise ValueError(f"resblock must be '1' or '2', got "
                              f"{cfg.resblock!r}")
@@ -329,16 +364,32 @@ class BigVGAN(nn.Module):
             return F.conv_transpose1d(x, up.weight, up.bias, stride=u,
                                       padding=(k - u) // 2)
 
+    @staticmethod
+    def _pack_factor(ch: int, t: int) -> int:
+        """The JAX package's packing of a stage in its fused vocoder
+        (``flowhigh_tpu/models/bigvgan.py:BigVGAN._pack_factor``): the
+        smallest power of two p with ch p >= 256, 1 when the stage is wide
+        enough or p does not divide t. The card packs nothing; the factor
+        decides only the dtype flow on bfloat16 maps."""
+        p = 1
+        while ch * p < 256:
+            p *= 2
+        return p if (p > 1 and t % p == 0) else 1
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, frames, n_mels] -> waveform [B, frames * prod(rates)]."""
         with cudnn_f32():
             x = self.conv_pre(mel.transpose(1, 2).contiguous())
         nk = self.num_kernels
+        p = 1
         for i, u in enumerate(self.cfg.upsample_rates):
-            x = self._upsample(x, self.ups[i][0], u)
+            x = self._upsample(x.float(), self.ups[i][0], u)  # C reads f32
+            p = self._pack_factor(x.shape[1], x.shape[-1])
+            if self.storage_dtype is not None:
+                x = x.to(self.storage_dtype)
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             if self.cfg.resblock == "2":  # the MRF average, summed apart
-                ys = [block(x) for block in blocks]
+                ys = [block(x, packed=p > 1) for block in blocks]
                 acc = ys[0]
                 for y in ys[1:]:
                     acc = acc + y
@@ -352,6 +403,8 @@ class BigVGAN(nn.Module):
                     ys.append(block(x))
             x = ys[-1]
         x = self.activation_post(x)
+        if p == 1:  # the JAX package's XLA conv, on f32
+            x = x.float()
         x = conv1d(x, self.conv_post.weight, self.conv_post.bias,
                    dot_dtype=self.boundary_dtype)
-        return torch.tanh(x)[:, 0, :]
+        return torch.tanh(x.float())[:, 0, :]

@@ -21,7 +21,8 @@ import torch
 from ..config import MelConfig, VocoderConfig
 from ..dsp import (apply_mel, log_compress, mel_filterbank, mel_filterbank_htk,
                    stft, stft_magnitude)
-from ..ops.quant import check_lowering_switches, resolve_conv_dtype
+from ..ops.quant import (check_lowering_switches, resolve_conv_dtype,
+                         resolve_storage_dtype)
 from ..utils import resolve_device
 from .bigvgan import BigVGAN
 
@@ -80,9 +81,10 @@ class MelVoco:
     ``init_vocoder_params``. ``conv_dtype`` (None | torch.bfloat16 |
     torch.int8 | "bfloat16" | "int8") and ``fuse_act_conv`` (False, the
     JAX package's default here: kernels A and B | True | "auto" |
-    "pairs") go to ``BigVGAN``. ``dtype`` must be float32, the port's only
-    compute dtype; ``storage_dtype`` is not ported (ROADMAP.md queue 1
-    item 15). ``fused_act``, ``packed``, ``pallas_convs`` and
+    "pairs") go to ``BigVGAN``, and so does ``storage_dtype`` (None |
+    torch.float32 | torch.bfloat16 or their names: the dtype of the feature
+    maps, kept in ``self.storage_dtype``). ``dtype`` must be float32, the
+    port's only compute dtype. ``fused_act``, ``packed``, ``pallas_convs`` and
     ``kernel_pipeline`` are the JAX package's TPU lowering switches:
     validated, and without effect on the card."""
 
@@ -103,10 +105,6 @@ class MelVoco:
                              f"{pallas_convs!r}")
         if dtype not in (torch.float32, "float32"):
             raise ValueError(f"dtype must be float32, got {dtype!r}")
-        if storage_dtype is not None:
-            raise NotImplementedError(
-                "storage_dtype (bf16 feature maps through kernels A-E) is "
-                "not ported (ROADMAP.md queue 1 item 15)")
         if vocoder != "bigvgan":
             raise ValueError(f"unsuitable vocoder name {vocoder!r}")
         if mel_cfg is None:
@@ -126,8 +124,11 @@ class MelVoco:
                 voc_cfg = VocoderConfig()
         self.mel_cfg, self.voc_cfg, self.log = mel_cfg, voc_cfg, log
         self.device = resolve_device(device)
+        self.storage_dtype = resolve_storage_dtype(storage_dtype,
+                                                   "storage_dtype")
         self.vocoder = BigVGAN(voc_cfg, fuse_act_conv,
-                               resolve_conv_dtype(conv_dtype)).eval()
+                               resolve_conv_dtype(conv_dtype),
+                               self.storage_dtype).eval()
         if vocoder_params is not None:
             from ..compat.jax_params import vocoder_state_from_jax
             self.vocoder.load_state_dict(

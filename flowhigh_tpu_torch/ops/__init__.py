@@ -18,6 +18,12 @@ VARIANTS = ((conv1d, torch.bfloat16), (conv1d, torch.int8),
             (conv_transpose1d, torch.bfloat16), (act_conv1d, torch.bfloat16),
             (act_conv1d, torch.int8), (amp_unit, torch.bfloat16),
             (amp_unit, torch.int8))
+# the instances on bfloat16 feature maps (``vocoder_storage_dtype``), by
+# (wrapper, dot_dtype); each counts its launches in
+# ``wrapper.storage_launches[dot_dtype]``
+STORAGE_VARIANTS = ((snake_activation1d, torch.float32),
+                    *((fn, dt) for fn in (conv1d, act_conv1d, amp_unit)
+                      for dt in (torch.float32, torch.bfloat16, torch.int8)))
 
 
 # the probe kernels (``ops/probes.py``), on no model path: G, H (its four
@@ -31,6 +37,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn, dot_dtype in VARIANTS:
         fn.variant_launches[dot_dtype] = 0
+    for fn, dot_dtype in STORAGE_VARIANTS:
+        fn.storage_launches[dot_dtype] = 0
     for inst in mxu_fir.instance_launches:
         mxu_fir.instance_launches[inst] = 0
 
@@ -42,6 +50,7 @@ __all__ = [
     "flash_attention", "flash_attention_plain",
     "snake_only", "snake_only_plain", "mxu_fir", "mxu_fir_plain",
     "act_firs_only", "act_firs_only_plain",
-    "act_conv_plan", "amp_unit_plan", "KERNELS", "VARIANTS", "PROBES",
+    "act_conv_plan", "amp_unit_plan", "KERNELS", "VARIANTS",
+    "STORAGE_VARIANTS", "PROBES",
     "reset_launch_counts",
 ]

@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``build/flowhigh_tpu_torch/<name>-<hash>.so``
-beside the package (the hash is of the source and of the shared headers
-``csrc/*.cuh``, so an edited kernel is rebuilt). All sources compile at
-once, one ``nvcc`` process each, at the first launch of any kernel; the
-libraries are loaded with ``ctypes``.
+beside the package (the hash is of the source, of the ``.cu`` files it
+includes and of the shared headers ``csrc/*.cuh``, so an edited kernel is
+rebuilt). All sources compile at once, one ``nvcc`` process each, at the
+first launch of any kernel; the libraries are loaded with ``ctypes``.
+Kernels B, D and E build their instances on bf16 feature maps from a
+second source each (``<name>_bf16io.cu``, which includes ``<name>.cu``),
+so that the two halves compile in parallel.
 Importing this module needs neither ``nvcc`` nor a card.
 """
 
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,8 +26,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "flowhigh_tpu_torch"
-SOURCES = ("snake_aa", "conv1d_same", "conv_transpose1d", "act_conv1d",
-           "amp_unit", "flash_attn", "probe_snake", "probe_fir")
+SOURCES = ("snake_aa", "conv1d_same", "conv1d_same_bf16io",
+           "conv_transpose1d", "act_conv1d", "act_conv1d_bf16io", "amp_unit",
+           "amp_unit_bf16io", "flash_attn", "probe_snake", "probe_fir")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,25 +44,29 @@ _UNIT_MMA = [_P] * 13 + [_I] * 8 + [_F, _P]
 # each int8 instance takes one more pointer per weight tensor (its scales)
 # and one for the pre-pass's scratch
 SIGNATURES = {
-    "snake_aa": {"snake_aa_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "snake_aa": {**{name: [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+                    for name in ("snake_aa_f32", "snake_aa_f32_bf16io")},
                  "snake_aa_firs_f32": [_P, _P, _P, _I, _I, _P]},
-    "conv1d_same": {"conv1d_same_f32": _CONV, "conv1d_same_bf16": _CONV,
-                    "conv1d_same_int8": [_P, _P] + _CONV,
-                    "conv1d_same_supported": [_I, _I, _I, _I],
-                    "conv1d_same_weight_align": [_I],
-                    "conv1d_same_smem_bytes": [_I] * 4},
+    # kernels A, B, D and E: each instance also on bf16 feature maps
+    # (``<entry>_bf16io``, the same arguments; B, D, E in their own library)
+    **{f"conv1d_same{io}": {
+        "conv1d_same_f32" + io: _CONV, "conv1d_same_bf16" + io: _CONV,
+        "conv1d_same_int8" + io: [_P, _P] + _CONV,
+        "conv1d_same_supported": [_I, _I, _I, _I],
+        "conv1d_same_weight_align": [_I],
+        "conv1d_same_smem_bytes": [_I] * 4} for io in ("", "_bf16io")},
     "conv_transpose1d": {
         "conv_transpose1d_f32": _CONVT, "conv_transpose1d_bf16": _CONVT,
         "conv_transpose1d_supported": [_I, _I],
         "conv_transpose1d_weight_align": [_I]},
-    "act_conv1d": {
-        "act_conv1d_f32": _PAIR_MMA, "act_conv1d_bf16": _PAIR_MMA,
-        "act_conv1d_int8": [_P, _P] + _PAIR_MMA,
-        "act_conv1d_smem_bytes": [_I] * 4},
-    "amp_unit": {
-        "amp_unit_f32": _UNIT_MMA, "amp_unit_bf16": _UNIT_MMA,
-        "amp_unit_int8": [_P] * 3 + _UNIT_MMA,
-        "amp_unit_smem_bytes": [_I] * 4},
+    **{f"act_conv1d{io}": {
+        "act_conv1d_f32" + io: _PAIR_MMA, "act_conv1d_bf16" + io: _PAIR_MMA,
+        "act_conv1d_int8" + io: [_P, _P] + _PAIR_MMA,
+        "act_conv1d_smem_bytes": [_I] * 4} for io in ("", "_bf16io")},
+    **{f"amp_unit{io}": {
+        "amp_unit_f32" + io: _UNIT_MMA, "amp_unit_bf16" + io: _UNIT_MMA,
+        "amp_unit_int8" + io: [_P] * 3 + _UNIT_MMA,
+        "amp_unit_smem_bytes": [_I] * 4} for io in ("", "_bf16io")},
     "flash_attn": {"flash_attn_f32": [_P] * 5 + [_I] * 5 + [_F, _P],
                    "flash_attn_supported": [_I]},
     "probe_snake": {"snake_only_f32": [_P, _P, _P, _L, _I, _P]},
@@ -87,7 +96,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for inc in re.findall(rb'#include "(\w+\.cu)"', src):
+        h.update((CSRC_DIR / inc.decode()).read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -25,8 +25,11 @@ raises.
 
 ``dot_dtype`` (``ops/quant.py``) picks the kernel's instance: float32 (the
 default), bfloat16 (B and C) or int8 (B, over the windows of
-``quant.conv1d_int8``, which are its tiles; Cout >= 16). Inputs and
-outputs stay float32.
+``quant.conv1d_int8``, which are its tiles; Cout >= 16). Kernel B also
+takes bfloat16 feature maps (the storage dtype, ``ops/quant.py``): x and
+the residuals in bf16, y returned in bf16, each dot dtype on the widened
+values (its ``*_bf16io`` instances). Kernel C's maps stay float32: the
+vocoder feeds its upsamplers f32 as the JAX package does.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ CONV_CIN_ALIGN, CONV_COUT_ALIGN = 16, 64
 # MmaOps<Dot::I8>::KC)
 INT8_CIN_ALIGN = 32
 SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
+# the feature maps' storage dtypes: the suffix of each instance's C entry
+# point (csrc: Store::F32, Store::BF16)
+STORE_NAME = {torch.float32: "", torch.bfloat16: "_bf16io"}
 
 
 def _check(what: str, x: torch.Tensor, *tensors) -> None:
@@ -70,6 +76,49 @@ def _check(what: str, x: torch.Tensor, *tensors) -> None:
                 or not v.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous float32 "
                              f"tensors on {x.device}")
+
+
+def _check_maps(what: str, x: torch.Tensor, maps: Sequence[torch.Tensor],
+                params: Sequence[Optional[torch.Tensor]]) -> torch.dtype:
+    """x and the feature maps (residuals) contiguous on x's device in one
+    storage dtype (float32 or bfloat16), which it returns; the parameters
+    (weights, biases, snake parameters) contiguous float32 there."""
+    if x.dtype not in STORE_NAME:
+        raise ValueError(f"{what}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    for v in (x,) + tuple(maps):
+        if v.device != x.device or v.dtype != x.dtype \
+                or not v.is_contiguous():
+            raise ValueError(f"{what}: x and the residuals must be contiguous "
+                             f"{x.dtype} tensors on {x.device}")
+    for v in params:
+        if v is not None and (v.device != x.device or v.dtype != torch.float32
+                              or not v.is_contiguous()):
+            raise ValueError(f"{what}: weights and parameters must be "
+                             f"contiguous float32 tensors on {x.device}")
+    return x.dtype
+
+
+def in_f32(fn):
+    """A plain version that takes bfloat16 feature maps: ``fn`` on the
+    maps widened to float32 (exact), its result rounded once to the input's
+    dtype (nearest even), where the kernel stores. Tensors other than
+    ``x`` are widened where they are bfloat16 (the residuals); the
+    parameters are float32 anyway."""
+    def wide(v):
+        if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            return v.float()
+        if isinstance(v, (tuple, list)):
+            return type(v)(wide(u) for u in v)
+        return v
+
+    @functools.wraps(fn)
+    def plain(x, *args, **kw):
+        if x.dtype == torch.float32:
+            return fn(x, *args, **kw)
+        return fn(x.float(), *wide(args), **{k: wide(v) for k, v in
+                                             kw.items()}).to(x.dtype)
+    return plain
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -84,21 +133,29 @@ def weight_ptrs(w: torch.Tensor, dot_dtype: torch.dtype) -> tuple:
     return (w.data_ptr(),)
 
 
-def count_launch(fn, dot_dtype: torch.dtype) -> None:
-    """One launch of ``fn``'s instance for ``dot_dtype``: ``fn.launches``
-    counts the float32 instance, ``fn.variant_launches[dtype]`` the others."""
-    if dot_dtype == torch.float32:
+def count_launch(fn, dot_dtype: torch.dtype,
+                 store: torch.dtype = torch.float32) -> None:
+    """One launch of ``fn``'s instance for ``dot_dtype`` and the storage
+    dtype ``store``: on float32 maps ``fn.launches`` counts the float32
+    instance, ``fn.variant_launches[dtype]`` the others; on bfloat16 maps
+    ``fn.storage_launches[dtype]``."""
+    if store == torch.bfloat16:
+        fn.storage_launches[dot_dtype] += 1
+    elif dot_dtype == torch.float32:
         fn.launches += 1
     else:
         fn.variant_launches[dot_dtype] += 1
 
 
+@in_f32
 def conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  *, dilation: int = 1, residuals: Sequence[torch.Tensor] = (),
                  out_scale: float = 1.0, dot_dtype: torch.dtype = torch.float32,
                  tile: int = CONV_TILE) -> torch.Tensor:
     """x [B, Cin, T], w [Cout, Cin, K] (K odd) -> [B, Cout, T]. ``tile`` is
-    the int8 partition (``ops/quant.py``)."""
+    the int8 partition (``ops/quant.py``). bfloat16 x and residuals: the
+    same on their float32 values, rounded to bfloat16 at the end
+    (``in_f32``)."""
     if check_dot_dtype(dot_dtype) == torch.int8:
         y = conv1d_int8(x, w, dilation=dilation, tile=tile)
         if b is not None:
@@ -187,15 +244,15 @@ def conv1d_amax_plain(x: torch.Tensor, k: int, dilation: int
     of ``quant.conv1d_int8`` ([256 w - pad, 256 w + 256 + pad) ∩ [0, T),
     pad = d (K - 1) / 2) and each 8 channels."""
     pad = dilation * (k - 1) // 2
-    return window_amax(x, -pad, CONV_TILE + 2 * pad, CONV_TILE,
+    return window_amax(x.float(), -pad, CONV_TILE + 2 * pad, CONV_TILE,
                        -(-x.shape[-1] // CONV_TILE), AMAX_CH)
 
 
 @functools.cache
-def _conv_library():
-    """Kernel B's library, once its weight layouts are checked against
-    ``conv_weight_layout``'s."""
-    lib = _build.library("conv1d_same")
+def _conv_library(store: torch.dtype = torch.float32):
+    """Kernel B's library of the instances on ``store`` maps, once its
+    weight layouts are checked against ``conv_weight_layout``'s."""
+    lib = _build.library("conv1d_same" + STORE_NAME[store])
     if tuple(lib.conv1d_same_weight_align(i) for i in range(3)) != (
             CONV_CIN_ALIGN, CONV_COUT_ALIGN, INT8_CIN_ALIGN):
         raise RuntimeError("conv1d: the kernel's weight layout differs from "
@@ -207,7 +264,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
            dilation: int = 1, residuals: Sequence[torch.Tensor] = (),
            out_scale: float = 1.0,
            dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Dilated "same" conv with fused bias, residuals and scale (kernel B)."""
+    """Dilated "same" conv with fused bias, residuals and scale (kernel B).
+    x and the residuals float32 or bfloat16 (the feature maps' storage
+    dtype); y comes in x's dtype."""
     residuals = tuple(residuals)
     check_dot_dtype(dot_dtype)
     if x.device.type == "cpu":
@@ -224,8 +283,8 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
         raise ValueError("conv1d: bias must have shape [Cout]")
     if any(r.shape != (bsz, cout, t) for r in residuals):
         raise ValueError("conv1d: residuals must have the output's shape")
-    _check("conv1d", x, w, b, *residuals)
-    lib = _conv_library()
+    store = _check_maps("conv1d", x, residuals, (w, b))
+    lib = _conv_library(store)
     if not lib.conv1d_same_supported(k, cout, dilation, DOT_CODE[dot_dtype]):
         raise ValueError(f"conv1d: no kernel instance for K={k}, Cout={cout}, "
                          f"dilation={dilation}, dot_dtype={dot_dtype}")
@@ -237,20 +296,22 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
         part = torch.empty((bsz, -(-t // CONV_TILE), -(-cin // AMAX_CH)),
                            device=x.device, dtype=torch.float32)
         wp += (int8_weights(w)[1].data_ptr(), part.data_ptr())
-    y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
+    y = torch.empty((bsz, cout, t), device=x.device, dtype=store)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
-    err = getattr(lib, f"conv1d_same_{DOT_NAME[dot_dtype]}")(
+    entry = f"conv1d_same_{DOT_NAME[dot_dtype]}{STORE_NAME[store]}"
+    err = getattr(lib, entry)(
         x.data_ptr(), *wp,
         b.data_ptr() if b is not None else None, rp[0], rp[1], rp[2],
         y.data_ptr(), bsz, cin, cout, t, k, dilation, float(out_scale),
         _stream(x))
     _build.check(err, "conv1d_same")
-    count_launch(conv1d, dot_dtype)
+    count_launch(conv1d, dot_dtype, store)
     return y
 
 
 conv1d.launches = 0
 conv1d.variant_launches = {torch.bfloat16: 0, torch.int8: 0}
+conv1d.storage_launches = {torch.float32: 0, torch.bfloat16: 0, torch.int8: 0}
 
 
 def _check_convt_dtype(dot_dtype: torch.dtype) -> None:

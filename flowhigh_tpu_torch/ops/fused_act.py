@@ -8,7 +8,9 @@ packed C = 192, 96, 48 stages and ``activation_post``). It computes
 down2(snake(up2(x))) in one pass: each thread's strip of outputs and its
 2x-rate samples stay in registers, the halos pass between lanes by
 shuffles. Bound: device memory, 8 bytes per element (one read, one
-write). Any B*C.
+write; 4 on bfloat16 maps). Any B*C. x may be float32 or bfloat16 (the
+feature maps' storage dtype, ``ops/quant.py``): y comes in x's dtype,
+computed in f32 on the widened values and rounded once.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .conv import STORE_NAME, _check_maps, count_launch, in_f32
 
 _filters: dict[torch.device, torch.Tensor] = {}
 
@@ -41,10 +44,12 @@ def taps_host() -> ctypes.Array:
     return (ctypes.c_float * 12)(*kaiser_sinc_filter1d(0.25, 0.3, 12).tolist())
 
 
+@in_f32
 def snake_activation1d_plain(x: torch.Tensor, alpha: torch.Tensor,
                              beta: Optional[torch.Tensor],
                              logscale: bool = True) -> torch.Tensor:
-    """[B, C, T] -> [B, C, T]: upsample1d -> snake(beta) -> downsample1d."""
+    """[B, C, T] -> [B, C, T]: upsample1d -> snake(beta) -> downsample1d
+    (bfloat16 x: on its float32 values, rounded at the end)."""
     from ..models.bigvgan import downsample1d, snake, snake_beta, upsample1d
     u = upsample1d(x, 2, 12)
     s = (snake_beta(u, alpha, beta, logscale) if beta is not None
@@ -96,31 +101,28 @@ def snake_activation1d_ordered(x: torch.Tensor, alpha: torch.Tensor,
 def snake_activation1d(x: torch.Tensor, alpha: torch.Tensor,
                        beta: Optional[torch.Tensor],
                        logscale: bool = True) -> torch.Tensor:
-    """[B, C, T] float32 -> [B, C, T]. ``beta=None`` is plain snake. A CPU
-    tensor takes the plain version; a CUDA tensor launches kernel A."""
+    """[B, C, T] float32 or bfloat16 -> [B, C, T] in x's dtype.
+    ``beta=None`` is plain snake. A CPU tensor takes the plain version; a
+    CUDA tensor launches kernel A."""
     if x.device.type == "cpu":
         return snake_activation1d_plain(x, alpha, beta, logscale)
     if x.device.type != "cuda":
         raise ValueError(f"snake_activation1d: unsupported device {x.device}")
     bsz, c, t = x.shape
-    for name, v in (("x", x), ("alpha", alpha)) + (
-            (("beta", beta),) if beta is not None else ()):
-        if v.device != x.device or v.dtype != torch.float32 \
-                or not v.is_contiguous():
-            raise ValueError(f"snake_activation1d: {name} must be a contiguous "
-                             f"float32 tensor on {x.device}")
+    store = _check_maps("snake_activation1d", x, (), (alpha, beta))
     if alpha.shape != (c,) or (beta is not None and beta.shape != (c,)):
         raise ValueError("snake_activation1d: alpha/beta must have shape [C]")
     y = torch.empty_like(x)
     lib = _build.library("snake_aa")
-    err = lib.snake_aa_f32(
+    err = getattr(lib, f"snake_aa_f32{STORE_NAME[store]}")(
         x.data_ptr(), alpha.data_ptr(),
         beta.data_ptr() if beta is not None else None, taps_host(),
         y.data_ptr(), bsz * c, c, t, int(logscale),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "snake_aa")
-    snake_activation1d.launches += 1
+    count_launch(snake_activation1d, torch.float32, store)
     return y
 
 
 snake_activation1d.launches = 0
+snake_activation1d.storage_launches = {torch.float32: 0}

@@ -27,6 +27,13 @@ a pre-pass first, the window scales' kernel (``act_amax_plain`` is its
 plain version): the largest |activation| of each int8 window, in partial
 maxima of 8 channels, into scratch that the wrapper allocates.
 
+Both kernels also take bfloat16 feature maps (the storage dtype,
+``ops/quant.py``): x and the residuals in bf16, y returned in bf16, every
+dot dtype computed on the values widened to f32 and the output rounded
+once (the ``*_bf16io`` instances; E's conv1 output stays f32 on chip). The
+kernels stage the widened values in the f32 layout, so the shared memory,
+and with it the plans below, do not depend on the storage dtype.
+
 The plans decide, from shapes alone, where the vocoder routes a unit or a
 pair (``models/bigvgan.py:AMPBlock1``). They are capacity rules for one
 thread block's shared memory on the H100 (227 KB), mirrored from the
@@ -41,8 +48,8 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .conv import (DOT_NAME, SMEM_PER_BLOCK, _check, _stream, conv1d_plain,
-                   conv_weights, count_launch)
+from .conv import (DOT_NAME, SMEM_PER_BLOCK, STORE_NAME, _check_maps,
+                   _stream, conv1d_plain, conv_weights, count_launch, in_f32)
 from .fused_act import (_filter, snake_activation1d_ordered,
                         snake_activation1d_plain)
 from .quant import (DOT_DTYPES, check_dot_dtype, int8_conv_windows,
@@ -235,6 +242,7 @@ def amp_unit_plan(k: int, dilation: int, c: int, t: int,
 
 # --- plain versions ------------------------------------------------------------
 
+@in_f32
 def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
                      beta: Optional[torch.Tensor], logscale: bool,
                      w: torch.Tensor, b: Optional[torch.Tensor], *,
@@ -245,7 +253,8 @@ def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
     """x [B, Cin, T], w [Cout, Cin, K] -> [B, Cout, T]:
     conv1d_plain(snake_activation1d_plain(x)) with the epilogue; ``tile``
     is the int8 partition (``ops/quant.py``). int8 takes the activation in
-    the kernel's order (``snake_activation1d_ordered``)."""
+    the kernel's order (``snake_activation1d_ordered``). bfloat16 x and
+    residuals: on their float32 values, rounded at the end (``in_f32``)."""
     act = (snake_activation1d_ordered if check_dot_dtype(dot_dtype)
            == torch.int8 else snake_activation1d_plain)
     return conv1d_plain(act(x, alpha, beta, logscale),
@@ -253,6 +262,7 @@ def act_conv1d_plain(x: torch.Tensor, alpha: torch.Tensor,
                         out_scale=out_scale, dot_dtype=dot_dtype, tile=tile)
 
 
+@in_f32
 def amp_unit_plain(x: torch.Tensor, a1: torch.Tensor,
                    b1: Optional[torch.Tensor], a2: torch.Tensor,
                    b2: Optional[torch.Tensor], logscale: bool,
@@ -266,7 +276,8 @@ def amp_unit_plain(x: torch.Tensor, a1: torch.Tensor,
     sum(extras)); conv1 is (K, dilation), conv2 (K, 1). ``tile`` (int8
     only; default kernel E's 256 - 2 ``unit_halo(K)``) is the partition of
     ``ops/quant.py``: float32 and bfloat16 have no windows, so there the
-    unit is its two pairs."""
+    unit is its two pairs. bfloat16 x and extras: on their float32 values,
+    conv1's output float32, the result rounded at the end (``in_f32``)."""
     if check_dot_dtype(dot_dtype) == torch.int8:
         return _amp_unit_int8(x, a1, b1, a2, b2, logscale, w1, bias1, w2,
                               bias2, dilation, tuple(extra_residuals),
@@ -337,7 +348,8 @@ def act_amax_plain(x: torch.Tensor, alpha: torch.Tensor,
     (zero where a window or a group holds no sample). Kernel D's windows:
     stride 256, lo = -pad, width 256 + 2 pad; kernel E's (act1): stride
     256 - 2 H, lo = -H - pad1, width 256 + 2 pad1."""
-    return window_amax(snake_activation1d_ordered(x, alpha, beta, logscale),
+    return window_amax(snake_activation1d_ordered(x.float(), alpha, beta,
+                                                  logscale),
                        lo, width, stride, n_win, AMAX_CH)
 
 
@@ -368,10 +380,9 @@ def _scratch(x: torch.Tensor, n_win: int, dot_dtype: torch.dtype) -> list:
                         device=x.device, dtype=torch.float32)]
 
 
-def _check_act(what: str, x: torch.Tensor, c: int, alpha, beta) -> None:
+def _check_act(what: str, c: int, alpha, beta) -> None:
     if alpha.shape != (c,) or (beta is not None and beta.shape != (c,)):
         raise ValueError(f"{what}: alpha/beta must have shape [C] = [{c}]")
-    _check(what, x, alpha, beta)
 
 
 def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
@@ -381,7 +392,8 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
                out_scale: float = 1.0,
                dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Fused snake -> dilated "same" conv with bias, up to three residuals
-    and a scale (kernel D)."""
+    and a scale (kernel D). x and the residuals float32 or bfloat16; y
+    comes in x's dtype."""
     residuals = tuple(residuals)
     check_dot_dtype(dot_dtype)
     if x.device.type == "cpu":
@@ -399,29 +411,32 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
         raise ValueError("act_conv1d: bias must have shape [Cout]")
     if any(r.shape != (bsz, cout, t) for r in residuals):
         raise ValueError("act_conv1d: residuals must have the output's shape")
-    _check_act("act_conv1d", x, cin, alpha, beta)
-    _check("act_conv1d", x, w, b, *residuals)
+    _check_act("act_conv1d", cin, alpha, beta)
+    store = _check_maps("act_conv1d", x, residuals, (alpha, beta, w, b))
     if not act_conv_plan(k, dilation, cout, t):
         raise ValueError(f"act_conv1d: no kernel instance for K={k}, "
                          f"dilation={dilation}")
-    lib = _build.library("act_conv1d")
-    y = torch.empty((bsz, cout, t), device=x.device, dtype=torch.float32)
+    lib = _build.library("act_conv1d" + STORE_NAME[store])
+    y = torch.empty((bsz, cout, t), device=x.device, dtype=store)
     rp = [r.data_ptr() for r in residuals] + [None] * (3 - len(residuals))
     wp, pads = _weights(w, dot_dtype)
     part = _scratch(x, -(-t // INT8_TILE), dot_dtype)
-    err = getattr(lib, f"act_conv1d_{DOT_NAME[dot_dtype]}")(
+    entry = f"act_conv1d_{DOT_NAME[dot_dtype]}{STORE_NAME[store]}"
+    err = getattr(lib, entry)(
         x.data_ptr(), alpha.data_ptr(), _ptr(beta), _filter(x.device).data_ptr(),
         *wp, _ptr(b), rp[0], rp[1], rp[2], y.data_ptr(),
         *(v.data_ptr() for v in part),
         bsz, cin, cout, t, k, dilation, int(logscale), *pads,
         float(out_scale), _stream(x))
     _build.check(err, "act_conv1d")
-    count_launch(act_conv1d, dot_dtype)
+    count_launch(act_conv1d, dot_dtype, store)
     return y
 
 
 act_conv1d.launches = 0
 act_conv1d.variant_launches = {torch.bfloat16: 0, torch.int8: 0}
+act_conv1d.storage_launches = {torch.float32: 0, torch.bfloat16: 0,
+                               torch.int8: 0}
 
 
 def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
@@ -432,7 +447,8 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
              out_scale: float = 1.0,
              dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One AMPBlock1 dilation unit, act1 -> conv1 -> act2 -> conv2 -> +x
-    (+ up to two extras) x out_scale, in one launch (kernel E)."""
+    (+ up to two extras) x out_scale, in one launch (kernel E). x and the
+    extras float32 or bfloat16; y comes in x's dtype."""
     extras = tuple(extra_residuals)
     check_dot_dtype(dot_dtype)
     if x.device.type == "cpu":
@@ -453,29 +469,33 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
             raise ValueError("amp_unit: biases must have shape [C]")
     if any(r.shape != x.shape for r in extras):
         raise ValueError("amp_unit: extra residuals must have x's shape")
-    _check_act("amp_unit", x, c, a1, b1)
-    _check_act("amp_unit", x, c, a2, b2)
-    _check("amp_unit", x, w1, w2, bias1, bias2, *extras)
+    _check_act("amp_unit", c, a1, b1)
+    _check_act("amp_unit", c, a2, b2)
+    store = _check_maps("amp_unit", x, extras,
+                        (a1, b1, a2, b2, w1, w2, bias1, bias2))
     if not amp_unit_plan(k, dilation, c, t):
         raise ValueError(f"amp_unit: no kernel instance for K={k}, "
                          f"dilation={dilation}, C={c} (see amp_unit_plan)")
-    lib = _build.library("amp_unit")
+    lib = _build.library("amp_unit" + STORE_NAME[store])
     y = torch.empty_like(x)
     ep = [r.data_ptr() for r in extras] + [None] * (2 - len(extras))
     wp1, pads = _weights(w1, dot_dtype)
     wp2, _ = _weights(w2, dot_dtype)
     part = _scratch(x, -(-t // amp_unit_plan(k, dilation, c, t, dot_dtype)),
                     dot_dtype)
-    err = getattr(lib, f"amp_unit_{DOT_NAME[dot_dtype]}")(
+    entry = f"amp_unit_{DOT_NAME[dot_dtype]}{STORE_NAME[store]}"
+    err = getattr(lib, entry)(
         x.data_ptr(), a1.data_ptr(), _ptr(b1), a2.data_ptr(), _ptr(b2),
         _filter(x.device).data_ptr(), *wp1, _ptr(bias1), *wp2, _ptr(bias2),
         ep[0], ep[1], y.data_ptr(), *(v.data_ptr() for v in part),
         bsz, c, t, k, dilation, int(logscale), *pads, float(out_scale),
         _stream(x))
     _build.check(err, "amp_unit")
-    count_launch(amp_unit, dot_dtype)
+    count_launch(amp_unit, dot_dtype, store)
     return y
 
 
 amp_unit.launches = 0
 amp_unit.variant_launches = {torch.bfloat16: 0, torch.int8: 0}
+amp_unit.storage_launches = {torch.float32: 0, torch.bfloat16: 0,
+                             torch.int8: 0}

@@ -6,6 +6,14 @@ card's windows.
 
 ``torch.float32`` (the default) is the exact f32 conv.
 
+The storage dtype of the feature maps (``vocoder_storage_dtype``,
+``resolve_storage_dtype``) is another switch, beside the dot dtype: the
+JAX package's ``BigVGAN.storage_dtype``. With ``torch.bfloat16`` the
+vocoder keeps its MRF maps in bf16 between kernels; kernels A, B, D and E
+widen them to f32 on load (exact), compute as on f32 maps, and round the
+one map they store (nearest even). Every dot dtype below applies
+unchanged on the widened values.
+
 ``torch.bfloat16``: both operands of every product are rounded to bf16
 (round to nearest even) and the products summed in f32. A bf16 x bf16
 product is exact in f32, so this is ``round_bf16`` of both operands, then
@@ -84,6 +92,30 @@ def resolve_conv_dtype(value) -> Optional[torch.dtype]:
         raise ValueError("vocoder_conv_dtype must be None, torch.bfloat16, "
                          f"torch.int8, 'bfloat16' or 'int8', got {value!r}"
                          ) from None
+
+
+# vocoder_storage_dtype: None (float32 maps) or torch.bfloat16, also by
+# name ("bfloat16", "float32"), which is how the JAX package's
+# jnp.bfloat16 / jnp.float32 arrive (the port imports no JAX)
+STORAGE_DTYPES = {None: None, torch.float32: None, torch.bfloat16:
+                  torch.bfloat16, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def resolve_storage_dtype(value, name: str = "vocoder_storage_dtype"
+                          ) -> Optional[torch.dtype]:
+    """``vocoder_storage_dtype`` -> None (float32 feature maps) or
+    torch.bfloat16. Takes None, torch.float32, torch.bfloat16, their names
+    and any object named so (the JAX package's ``jnp.bfloat16``); ``name``
+    is the caller's keyword for the message."""
+    key = value
+    if not isinstance(value, (str, torch.dtype)) and value is not None:
+        key = getattr(value, "__name__", value)
+    try:
+        return STORAGE_DTYPES[key]
+    except (KeyError, TypeError):
+        raise ValueError(f"{name} must be None, torch.float32, "
+                         f"torch.bfloat16, 'float32' or 'bfloat16', got "
+                         f"{value!r}") from None
 
 
 def check_lowering_switches(fused, packed, kernel_pipeline,

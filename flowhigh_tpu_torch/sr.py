@@ -34,7 +34,8 @@ from .compat.jax_params import (seeded_init_, vector_field_state_from_jax,
 from .config import CFMConfig, FlowHighConfig, ModelConfig
 from .dsp import resample_poly
 from .models import BigVGAN, VectorFieldNet, forward_with_cond_scale, mel_encode
-from .ops.quant import check_lowering_switches, resolve_conv_dtype
+from .ops.quant import (check_lowering_switches, resolve_conv_dtype,
+                        resolve_storage_dtype)
 from .postprocessing import post_process
 from .utils import resolve_device
 
@@ -142,7 +143,11 @@ class FlowHighSR:
         ``vocoder_conv_dtype`` (None | torch.bfloat16 | torch.int8 |
         "bfloat16" | "int8") is the dot precision of the vocoder's convs, as
         the JAX package's switch of the same name; every entry point below
-        inherits it. ``vocoder_storage_dtype`` is not ported.
+        inherits it. ``vocoder_storage_dtype`` (None | torch.float32 |
+        torch.bfloat16, or their names: the JAX package's ``jnp.bfloat16``)
+        is the dtype of the vocoder's feature maps in device memory, the JAX
+        package's switch of the same name (``models/bigvgan.py``); the
+        attribute holds None (float32) or torch.bfloat16.
         ``fused_vocoder`` (a bool), ``packed_vocoder`` (None or a bool) and
         ``vocoder_kernel_pipeline`` (an int >= 1) are the JAX constructor's
         TPU lowering switches: accepted and validated so that its calls
@@ -177,15 +182,14 @@ class FlowHighSR:
             raise ValueError(f"prior_semantics must be 'reference' or 'paper', "
                              f"got {prior_semantics!r}")
         self.prior_semantics = prior_semantics
-        if vocoder_storage_dtype is not None:
-            raise NotImplementedError(
-                "vocoder_storage_dtype (bf16 feature maps through kernels A-E) "
-                "is not ported (ROADMAP.md queue 1 item 15)")
         self.vocoder_conv_dtype = resolve_conv_dtype(vocoder_conv_dtype)
+        self.vocoder_storage_dtype = resolve_storage_dtype(
+            vocoder_storage_dtype)
 
         self.net = VectorFieldNet(config.model).eval()
         self.vocoder = BigVGAN(config.vocoder, fuse_act_conv,
-                               self.vocoder_conv_dtype).eval()
+                               self.vocoder_conv_dtype,
+                               self.vocoder_storage_dtype).eval()
         if params is not None:
             self.net.load_state_dict(
                 vector_field_state_from_jax(params, config.model))

@@ -330,8 +330,38 @@ def test_vocoder_conv_dtype_refuses_others(bad):
 
 
 def test_vocoder_storage_dtype_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlowHighSR(vocoder_storage_dtype=torch.bfloat16, device="cpu")
+    """``vocoder_storage_dtype`` is ported: the JAX package's values are
+    accepted (by name for ``jnp.bfloat16``), any other is refused, and the
+    bf16 maps reach every block of the vocoder."""
+    for value, want in ((None, None), (torch.float32, None),
+                        (torch.bfloat16, torch.bfloat16),
+                        ("bfloat16", torch.bfloat16), (jnp.bfloat16,
+                                                       torch.bfloat16),
+                        (jnp.float32, None)):
+        sr = FlowHighSR(vocoder_storage_dtype=value, device="cpu")
+        assert sr.vocoder_storage_dtype == sr.vocoder.storage_dtype == want
+    for bad in (torch.float16, torch.int8, "int8", jnp.int8, 16):
+        with pytest.raises(ValueError, match="vocoder_storage_dtype"):
+            FlowHighSR(vocoder_storage_dtype=bad, device="cpu")
+    voc_cfg = pcfg.VocoderConfig(num_mels=8, upsample_initial_channel=32,
+                                 upsample_rates=(4, 2),
+                                 upsample_kernel_sizes=(8, 4),
+                                 resblock_kernel_sizes=(3, 7),
+                                 resblock_dilation_sizes=((1, 3), (1,)))
+    voc = seeded_init_(BigVGAN(voc_cfg, storage_dtype=torch.bfloat16).eval(),
+                       0)
+    seen = {}
+    for name, mod in voc.named_modules():
+        if name.startswith("resblocks.") and name.count(".") == 1 \
+                or name == "activation_post":
+            mod.register_forward_hook(
+                lambda m, i, o, n=name: seen.__setitem__(n, (i[0].dtype,
+                                                             o.dtype)))
+    with torch.no_grad():
+        out = voc(torch.zeros(1, 6, 8))
+    assert out.dtype == torch.float32 and out.shape == (1, 48)
+    assert len(seen) == len(voc.resblocks) + 1
+    assert set(seen.values()) == {(torch.bfloat16, torch.bfloat16)}
 
 
 def test_cpu_tensors_take_the_plain_versions(rng):

@@ -706,6 +706,168 @@ def test_reduced_precision_vocoder_on_card_matches_cpu(cuda, gen, dot_dtype):
     assert chip_smoke.rel_l2(got, want) <= max(1e-2, 2 * floor)
 
 
+# --- the instances on bf16 feature maps (storage_dtype bfloat16) -----------------
+
+# Each takes bf16 x and residuals and returns bf16, computing as its
+# float32-map instance on the widened values; its plain version rounds the
+# same f32 function once. Where the two f32 results straddle a bf16 rounding
+# boundary they come out one bf16 step apart (chip_smoke.BF16_FLIP_SHARE);
+# the int8 instances give the same f32 bits, so the same bf16 bits. Odd T,
+# T below one tile, B = 2, every route.
+BF = torch.bfloat16
+
+
+def _bf(gen, device, *shape, scale=1.0):
+    return _randn(gen, device, *shape, scale=scale).to(BF)
+
+
+def _storage_launches(fn, dot_dtype):
+    return fn.storage_launches[dot_dtype]
+
+
+def _close_bf16_maps(name, key, got, want, dot_dtype):
+    assert got.dtype == want.dtype == BF
+    if dot_dtype == torch.int8:
+        assert torch.equal(got, want)
+        return
+    cs = _chip_smoke()
+    cs._compare(name + cs.suffix(dot_dtype) + cs.BF16_MAPS, key, got, want)
+
+
+@pytest.mark.parametrize("b,c,t", [(2, 48, 3001), (1, 768, 5000), (1, 4, 5),
+                                   (1, 8, 1025), (1, 8, 3 * 1024 + 9),
+                                   (1, 96, 4100), (86, 768, 13)])
+def test_snake_kernel_on_bf16_maps_matches_plain(cuda, gen, b, c, t):
+    x = _bf(gen, cuda, b, c, t)
+    a, beta = _randn(gen, cuda, c, scale=0.3), _randn(gen, cuda, c, scale=0.3)
+    n0 = _storage_launches(ops.snake_activation1d, torch.float32)
+    got = ops.snake_activation1d(x, a, beta)
+    assert _storage_launches(ops.snake_activation1d, torch.float32) == n0 + 1
+    _close_bf16_maps("snake_aa", (b, c, t), got,
+                     ops.snake_activation1d_plain(x, a, beta), torch.float32)
+    # a row view one element in: no four-element access, the clamped path
+    base = _bf(gen, cuda, 1 + 8 * 4100)
+    xv = base[1:].view(1, 8, 4100)
+    a8, b8 = _randn(gen, cuda, 8, scale=0.3), _randn(gen, cuda, 8, scale=0.3)
+    _close_bf16_maps("snake_aa", "view", ops.snake_activation1d(xv, a8, b8),
+                     ops.snake_activation1d_plain(xv, a8, b8), torch.float32)
+
+
+# (B, Cin, Cout, T, K, d, n_res): the GEMM route (Cout >= 16) and the
+# narrow one (conv_post, T % 4 == 0 and not)
+BF16_MAP_CONVS = [(2, 48, 48, 777, 11, 5, 3), (1, 384, 384, 2001, 3, 1, 1),
+                  (1, 96, 96, 3001, 7, 3, 2), (1, 40, 70, 257, 7, 3, 1),
+                  (2, 48, 1, 4801, 7, 1, 0), (1, 48, 1, 4800, 7, 1, 0),
+                  (1, 20, 3, 5, 5, 2, 1)]
+
+
+# int8 has no narrow route: the vocoder keeps conv_post float32 under int8
+@pytest.mark.parametrize("dot_dtype,b,cin,cout,t,k,d,n_res", [
+    (dt,) + case for dt in (torch.float32, torch.bfloat16, torch.int8)
+    for case in BF16_MAP_CONVS if dt != torch.int8 or case[2] >= 16])
+def test_conv1d_on_bf16_maps_matches_plain(cuda, gen, dot_dtype, b, cin, cout,
+                                           t, k, d, n_res):
+    x = _bf(gen, cuda, b, cin, t)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = tuple(_bf(gen, cuda, b, cout, t) for _ in range(n_res))
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3,
+              dot_dtype=dot_dtype)
+    n0 = _storage_launches(ops.conv1d, dot_dtype)
+    got = ops.conv1d(x, w, bias, **kw)
+    assert _storage_launches(ops.conv1d, dot_dtype) == n0 + 1
+    _close_bf16_maps("conv1d_same", (b, cin, cout, t, k, d, n_res), got,
+                     ops.conv1d_plain(x, w, bias, **kw), dot_dtype)
+
+
+# (Cin, Cout, T, K, d, B) of kernel D at its tiles (256 x 64 in clusters,
+# 128 x 128, 64 x 128) and (C, T, K, d, B) of kernel E (192 x 192, 96 and
+# 48 x BN, 64 x 192 with a partial block)
+BF16_MAP_PAIRS = [(768, 768, 293, 11, 5, 1), (384, 384, 777, 7, 3, 2),
+                  (100, 96, 129, 11, 1, 1), (52, 48, 1, 3, 3, 1)]
+BF16_MAP_UNITS = [(192, 293, 11, 5, 1), (96, 777, 7, 3, 2), (48, 3, 3, 1, 1),
+                  (200, 777, 7, 3, 1)]
+
+
+@pytest.mark.parametrize("cin,cout,t,k,d,b", BF16_MAP_PAIRS)
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_act_conv1d_on_bf16_maps_matches_plain(cuda, gen, dot_dtype, cin,
+                                               cout, t, k, d, b):
+    x = _bf(gen, cuda, b, cin, t)
+    a, be = _randn(gen, cuda, cin, scale=0.3), _randn(gen, cuda, cin, scale=0.3)
+    w = _randn(gen, cuda, cout, cin, k, scale=(cin * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    res = (_bf(gen, cuda, b, cout, t),)
+    args = (x, a, be, True, w, bias)
+    kw = dict(dilation=d, residuals=res, out_scale=1.0 / 3,
+              dot_dtype=dot_dtype)
+    n0 = _storage_launches(ops.act_conv1d, dot_dtype)
+    got = ops.act_conv1d(*args, **kw)
+    assert _storage_launches(ops.act_conv1d, dot_dtype) == n0 + 1
+    _close_bf16_maps("act_conv1d", (cin, cout, t, k, d, b), got,
+                     ops.act_conv1d_plain(*args, **kw), dot_dtype)
+
+
+@pytest.mark.parametrize("c,t,k,d,b", BF16_MAP_UNITS)
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_amp_unit_on_bf16_maps_matches_plain(cuda, gen, dot_dtype, c, t, k, d,
+                                             b):
+    x = _bf(gen, cuda, b, c, t, scale=0.5)
+    acts = [_randn(gen, cuda, c, scale=0.3) for _ in range(4)]
+    w1 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    w2 = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    b1, b2 = _randn(gen, cuda, c, scale=0.1), _randn(gen, cuda, c, scale=0.1)
+    ex = (_bf(gen, cuda, b, c, t),)
+    args = (x, *acts, True, w1, b1, w2, b2)
+    kw = dict(dilation=d, extra_residuals=ex, out_scale=1.0 / 3,
+              dot_dtype=dot_dtype)
+    n0 = _storage_launches(ops.amp_unit, dot_dtype)
+    got = ops.amp_unit(*args, **kw)
+    assert _storage_launches(ops.amp_unit, dot_dtype) == n0 + 1
+    _close_bf16_maps("amp_unit", (c, t, k, d, b), got,
+                     ops.amp_unit_plain(*args, **kw), dot_dtype)
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_bf16_maps_vocoder_on_card_matches_cpu(cuda, gen, dot_dtype, fuse):
+    # the instances on bf16 maps launch as chip_smoke.py predicts, each
+    # launch agrees with its plain version on its own inputs, the maps
+    # between the kernels are bf16 tensors, and the output stays within the
+    # CPU's own change under a nudge of the mel by +-2^-16
+    chip_smoke = _chip_smoke()
+    cfg = VocoderConfig(upsample_initial_channel=1024)
+    dt = None if dot_dtype == torch.float32 else dot_dtype
+    voc = seeded_init_(BigVGAN(cfg, fuse_act_conv=fuse, conv_dtype=dt,
+                               storage_dtype=BF).eval(), 0)
+    mel = _randn(gen, "cpu", 1, 8, cfg.num_mels)
+    records, seen = [], set()
+    for m in voc.resblocks:
+        m.register_forward_hook(lambda mod, i, o: seen.add((i[0].dtype,
+                                                            o.dtype)))
+    with torch.inference_mode():
+        want = voc(mel)
+        floor = max(chip_smoke.rel_l2(voc(mel * (1 + s)), want)
+                    for s in (2.0 ** -16, -2.0 ** -16))
+        voc.to(cuda)
+        ops.reset_launch_counts()
+        seen.clear()
+        got = voc(mel.to(cuda)).cpu()
+        counts = chip_smoke.launch_counts()
+        with chip_smoke.replayed(records):
+            voc(mel.to(cuda))
+    assert seen == {(BF, BF)}
+    calls = chip_smoke.main_path_calls(cfg, 8, fuse, dt, BF)
+    assert counts == {k: sum(calls.get(k, {}).values()) for k in counts}
+    assert all(counts[k] > 0 for k in calls if k.endswith("@bf16"))
+    assert len(records) == sum(counts.values())
+    assert torch.isfinite(got).all()
+    assert chip_smoke.rel_l2(got, want) <= max(1e-2, 2 * floor)
+
+
 # --- the probe kernels G, H and kernel A's firs-only instance ------------------
 
 @pytest.mark.parametrize("b,s,lanes", [(1, 600, 384), (2, 37, 64), (1, 9, 10)])

@@ -198,7 +198,9 @@ def test_melvoco_reference_keywords(tmp_path, rng):
     torch.testing.assert_close(m.decode(mel), want, atol=1e-4, rtol=0)
     assert (m.encode_torchaudio(np.zeros((1, 640), np.float32)) == 0).all()
     assert MelVoco(device="cpu").latent_dim == 256
-    for kw, match in ((dict(storage_dtype=torch.bfloat16), "item 15"),
+    assert MelVoco(device="cpu", storage_dtype=torch.bfloat16
+                   ).vocoder.storage_dtype == torch.bfloat16
+    for kw, match in ((dict(storage_dtype=torch.float16), "storage_dtype"),
                       (dict(fused_act="yes"), "fused_act"),
                       (dict(kernel_pipeline=0), "kernel_pipeline"),
                       (dict(vocoder="hifigan"), "vocoder"),
