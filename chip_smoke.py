@@ -126,6 +126,26 @@ S. the rest of the inference surface, at full width with phase 2's
    FIR) at 16 and 44.1 kHz, ``encode_torchaudio`` and
    ``post_process_with_phase``, each card vs CPU on 1 s
    (``SURFACE_TOL``);
+V. the vector field's options, at full width with phase 2's seeded
+   vocoder on phase 2's 10 s clip: V1 ``ModelConfig(architecture=
+   "convnext")`` (8 blocks of 1,024 x 3,072, the reference's flow.py:124-
+   139); V2 the published transformer with 16 register tokens, U-Net skips
+   and GateLoop layers, dense and with ``attn_flash=True``; V3 the
+   published transformer at ``compute_dtype="bfloat16"``. For each: the
+   vocoder's launch counts of phase 2 (and kernel F twice, one a layer, on
+   the flash run), output shape and finiteness, median ms per clip of 5,
+   the vector field's device ms a call (CUDA events), and the dtype of
+   every conv-embedding, attention and feed-forward output in one field
+   call on the card, which must be the compute dtype (bf16 for V3, so
+   its products ran in bf16; ``field_stream_dtypes``); V3's rel L2 and LSD
+   against phase 2's float32 output (the same weights). On V2's flash run every launch of F is held
+   against F's plain version in float64 on its own register-padded q, k,
+   v and mask (``flash_replayed``, phase 1's tolerances) and timed at that
+   shape (the ``flash_attn@registers`` record), and the flash output
+   against the dense one within 1e-3. On 1 s, card against CPU within 1e-3
+   for V1 and V2; V3 statistically, as phase 3 holds phase P: rel L2
+   within max(1e-2, twice the CPU's own change under +-2^-16 input
+   nudges);
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    of scripts/bench_act_mxu.py): the probe script's run over its four
    cases with every launch count zeroed just before and read just after
@@ -153,8 +173,9 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    the unfused one for B.int8, which only that path runs; the probe
    kernels' launches from phase M's run, their times summed over the
    probe script's cases, one launch each; A, B and C's AMPBlock2 sums in
-   ``resblock2_path``), with phase S's paths (``paths``: name, launches,
-   ms), the card line and, last, the ``ok`` line.
+   ``resblock2_path``; kernel F's register-padded instance per phase V2
+   flash clip), with phase S's and phase V's paths (``paths``: name,
+   launches, ms), the card line and, last, the ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
 """
@@ -326,6 +347,8 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
     where the vocoder's dtype flow reads bf16 (the module docstring of
     models/bigvgan.py): AMPBlock1's launches and activation_post, conv_post
     where the last stage packs, and AMPBlock2 by its stage's packing.
+    AMPBlock2's convs and conv_post take float32 dots where their stage
+    does not pack, as in the JAX package.
     Keys: snake (C, T); conv and act_conv (Cin, Cout, T, K, d, n_res,
     out_scale); convt (Cin, Cout, T_in, u, K); amp_unit (C, T, K, d,
     n_extra, out_scale)."""
@@ -366,9 +389,12 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
                         add("snake_aa" + st, (ch, t))
                         add("conv1d_same" + (res or ".bf16") + st,
                             (ch, ch, t, rk, d, 0, 1.0))
-                    else:  # the first dilation's act on bf16 at p = 1
-                        add("snake_aa" + (st if m == 0 else ""), (ch, t))
+                    elif p > 1:
+                        add("snake_aa", (ch, t))
                         add("conv1d_same" + res, (ch, ch, t, rk, d, 1, 1.0))
+                    else:  # float32 dots; the first act on bf16 maps
+                        add("snake_aa" + (st if m == 0 else ""), (ch, t))
+                        add("conv1d_same", (ch, ch, t, rk, d, 1, 1.0))
                     continue
                 last = j == nk - 1 and m == len(rd) - 1
                 n_extra, scale = (nk - 1, 1.0 / nk) if last else (0, 1.0)
@@ -381,7 +407,8 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
     # at the end the map is bf16 unless AMPBlock2 promoted it at p = 1
     end = st if cfg.resblock == "1" or p > 1 else ""
     add("snake_aa" + end, (ch, t))
-    add("conv1d_same" + bnd + (end if p > 1 else ""), (ch, 1, t, 7, 1, 0, 1.0))
+    # conv_post: float32 dots and maps where the last stage does not pack
+    add("conv1d_same" + (bnd + end if p > 1 else ""), (ch, 1, t, 7, 1, 0, 1.0))
     return calls
 
 
@@ -791,6 +818,38 @@ def flash_work(valids, n: int) -> tuple[float, float, float]:
     return byt, 4.0 * FLASH_D * pairs, SOFTMAX_OPS * pairs
 
 
+def flash_row(peaks, q, k, v, mask, reps: int = REPS,
+              warmup: int = WARMUP) -> dict:
+    """Kernel F at one shape (``mask`` [B, N] bool): its bound (bytes and
+    operations of ``flash_work``, both products as 3xTF32, the softmax on
+    the FMA units; and the products as f32 FMAs) and the times of
+    the kernel, its plain version (float32) and SDPA's memory-efficient
+    backend with a boolean segment mask (it has no pad keys, so a masked
+    row's softmax differs from F's: a yardstick only)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flowhigh_tpu_torch import ops
+    flops, bw = peaks[:2]
+    valids = tuple(int(m.sum()) for m in mask)
+    byt, dots, other = flash_work(valids, q.shape[2])
+    same = (mask[:, None, :, None] == mask[:, None, None, :])
+
+    def lib():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=same,
+                                                  scale=FLASH_SCALE)
+    return {"bytes": byt, "ops": dots + other, "bytes_ms": byt / bw * 1e3,
+            "ops_ms": (dot_seconds(peaks, FLASH, dots) + other / flops) * 1e3,
+            "fma_ops_ms": dots / flops * 1e3,
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v, mask,
+                                                      FLASH_SCALE),
+                          reps, warmup),
+            "plain_ms": time_ms(lambda: ops.flash_attention_plain(
+                q, k, v, mask, FLASH_SCALE), reps, warmup),
+            "library_ms": time_ms(lib, reps, warmup)}
+
+
 def check_flash(peaks, long_frames: int) -> dict:
     """Phase 1, kernel F: against its plain version evaluated in float64
     over every row at ``FLASH_SHAPES`` (in float32 the plain version's own
@@ -798,53 +857,24 @@ def check_flash(peaks, long_frames: int) -> dict:
     on these inputs, on the CPU with the card's order of sums;
     tests/test_torch_flash_plan.py), and at the long-form shape (B = 1, N =
     long_frames, all valid) 256 random query rows per head against an exact
-    float64 softmax; times of the kernel, the plain version (float32) and
-    SDPA at each."""
+    float64 softmax; times and bound at each (``flash_row``)."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from flowhigh_tpu_torch import ops
     from flowhigh_tpu_torch.ops.flash_attn import flash_block
 
-    flops, bw = peaks[:2]
     rng = np.random.default_rng(2)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                 ).cuda()
 
-    def row(valids, n, err_max, err_mean, reps, warmup, fns):
-        byt, dots, other = flash_work(valids, n)
-        run, plain, lib = fns
-        return {"max_abs_err": err_max, "mean_abs_err": err_mean,
-                "bytes": byt, "ops": dots + other, "bytes_ms": byt / bw * 1e3,
-                "ops_ms": (dot_seconds(peaks, FLASH, dots)
-                           + other / flops) * 1e3,
-                # the bound of both products as f32 FMAs (PR 3's)
-                "fma_ops_ms": dots / flops * 1e3,
-                "ms": time_ms(run, reps, warmup),
-                "plain_ms": time_ms(plain, reps, warmup),
-                "library_ms": time_ms(lib, reps, warmup)}
-
     rows = {}
     for b, n, valids in FLASH_SHAPES + ((1, long_frames, (long_frames,)),):
         q, k, v = (randn(b, FLASH_H, n, FLASH_D) for _ in range(3))
         mask = (torch.arange(n, device="cuda")[None, :]
                 < torch.tensor(valids, device="cuda")[:, None])
-        # SDPA's mask: the pairs of one segment (it has no pad keys, so a
-        # masked row's softmax differs from F's; it is a yardstick only)
-        same = (mask[:, None, :, None] == mask[:, None, None, :])
-
-        def lib():
-            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=same, scale=FLASH_SCALE)
-
-        fns = (lambda: ops.flash_attention(q, k, v, mask, FLASH_SCALE),
-               lambda: ops.flash_attention_plain(q, k, v, mask, FLASH_SCALE),
-               lib)
-        got = fns[0]()
+        got = ops.flash_attention(q, k, v, mask, FLASH_SCALE)
         if n == long_frames:
             sel = torch.from_numpy(np.stack([rng.choice(n, 256, replace=False)
                                              for _ in range(FLASH_H)])).cuda()
@@ -875,12 +905,13 @@ def check_flash(peaks, long_frames: int) -> dict:
             raise AssertionError(f"flash_attn at {key} disagrees with its "
                                  "reference")
         del got, want, d
-        rows[key] = row(valids, n, err_max, err_mean, reps, warmup, fns)
+        rows[key] = {"max_abs_err": err_max, "mean_abs_err": err_mean,
+                     **flash_row(peaks, q, k, v, mask, reps, warmup)}
         r = rows[key]
         print(f"    {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, SDPA "
               f"{r['library_ms']:.3f}, bound {max(r['bytes_ms'], r['ops_ms']):.3f}"
               f" 3xTF32, {r['fma_ops_ms']:.3f} f32 FMA)", flush=True)
-        del q, k, v, mask, same, fns
+        del q, k, v, mask
     return rows
 
 
@@ -1703,6 +1734,241 @@ def surface_phase(config, calls: dict, audio10: np.ndarray) -> dict:
     return res
 
 
+# --- phase V: the vector field's options ----------------------------------------
+
+# phase V's models: ModelConfig fields over the published FlowHighConfig
+# (V1 the reference's ConvNeXt backbone, flow.py:124-139; V2 the published
+# transformer with its three options, dense and on kernel F; V3 the
+# published transformer computing in bf16)
+V_MODELS = {
+    "V1 convnext": dict(architecture="convnext"),
+    "V2 options": dict(num_register_tokens=16, use_unet_skip_connection=True,
+                       use_gateloop_layers=True),
+    "V2 options flash": dict(num_register_tokens=16,
+                             use_unet_skip_connection=True,
+                             use_gateloop_layers=True, attn_flash=True),
+    "V3 bf16": dict(compute_dtype="bfloat16"),
+}
+# the register-padded instance of kernel F in the kernels line
+FLASH_REGISTERS = FLASH + "@registers"
+
+
+@contextlib.contextmanager
+def flash_replayed(records: list):
+    """Every kernel-F launch of the transformer is also held against F's
+    plain version evaluated in float64 on the same q, k, v and mask, at
+    phase 1's tolerances (one block: atol 1e-4; several: max 5e-3, mean
+    1e-4); ``records`` gets (q, k, v, mask, max abs, mean abs) per launch."""
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.models import transformer
+    from flowhigh_tpu_torch.ops.flash_attn import flash_block
+    saved = transformer.flash_attention
+
+    def call(q, k, v, mask, scale):
+        got = saved(q, k, v, mask, scale)
+        want = ops.flash_attention_plain(q.double(), k.double(), v.double(),
+                                         mask, scale)
+        d = (got.double() - want).abs()
+        err_max, err_mean = float(d.max()), float(d.mean())
+        n = q.shape[2]
+        ok = (err_max <= 1e-4 if flash_block(n) >= n
+              else err_max < 5e-3 and err_mean < 1e-4)
+        if not ok or not bool(got.isfinite().all()):
+            raise AssertionError(f"kernel F on {tuple(q.shape)} (registers "
+                                 f"padded): max abs {err_max}, mean "
+                                 f"{err_mean}")
+        records.append((q, k, v, mask, err_max, err_mean))
+        return got
+
+    try:
+        transformer.flash_attention = call
+        yield records
+    finally:
+        transformer.flash_attention = saved
+
+
+def _field_call(sr, audio: np.ndarray):
+    """One call of the vector field on the card on the mel of ``audio``,
+    all frames valid (one Euler step's field), as a function of nothing."""
+    import torch
+
+    from flowhigh_tpu_torch.dsp import resample_poly
+    from flowhigh_tpu_torch.models import forward_with_cond_scale, mel_encode
+    x = resample_poly(torch.from_numpy(audio)[None].cuda(), 48000, IN_SR)
+    with torch.inference_mode():
+        mel = mel_encode(x / x.abs().max())
+    mask = torch.ones(mel.shape[:2], dtype=torch.bool, device="cuda")
+    t0 = torch.zeros((), device="cuda")
+
+    @torch.inference_mode()
+    def call():
+        return forward_with_cond_scale(sr.net, mel, times=t0, cond=mel,
+                                       mask=mask)
+    return call
+
+
+def field_device_ms(sr, audio: np.ndarray) -> float:
+    """Device ms (CUDA events, median of 5) of one call of the vector field
+    on the mel of ``audio`` (``_field_call``)."""
+    return time_ms(_field_call(sr, audio), 5, 2)
+
+
+def field_stream_dtypes(sr, audio: np.ndarray) -> dict:
+    """{module class: the dtypes of its outputs} over one call of the vector
+    field on the card (``_field_call``), for the modules whose outputs join
+    the residual stream: the conv embedding, each attention and each
+    feed-forward. Under ``compute_dtype="bfloat16"`` each must be bf16,
+    which only a bf16 product gives them (``transformer.dense``)."""
+    from flowhigh_tpu_torch.models.transformer import (Attention,
+                                                       ConvPositionEmbed,
+                                                       FeedForward)
+    seen: dict = {}
+
+    def hook(module, _args, out):
+        seen.setdefault(type(module).__name__, set()).add(str(out.dtype))
+
+    handles = [m.register_forward_hook(hook) for m in sr.net.modules()
+               if isinstance(m, (Attention, ConvPositionEmbed, FeedForward))]
+    try:
+        _field_call(sr, audio)()
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def flash_register_row(peaks, records: list) -> dict:
+    """Kernel F at the register-padded shape of ``records`` (phase V's
+    replay, one entry a launch): ``flash_row``'s times and bound over the
+    launches of one clip, and the replay's largest errors."""
+    import torch
+    q, k, v, mask = records[0][:4]
+    with torch.inference_mode():
+        r = flash_row(peaks, q, k, v, mask)
+    n_l = len(records)
+    return {"launches": n_l, "shape": list(q.shape),
+            "max_abs_err": max(x[4] for x in records),
+            "mean_abs_err": max(x[5] for x in records),
+            "ms": n_l * r["ms"], "plain_ms": n_l * r["plain_ms"],
+            "library_ms": n_l * r["library_ms"],
+            "bound_ms": n_l * max(r["bytes_ms"], r["ops_ms"]),
+            "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
+                         else "operations"),
+            "unfused_chain_ms": None}
+
+
+def options_phase(config, calls: dict, audio10: np.ndarray,
+                  f32_out: np.ndarray, peaks) -> dict:
+    """Phase V (see the module docstring); ``calls`` is phase 2's
+    ``main_path_calls``, ``f32_out`` its default-path output of
+    ``audio10``."""
+    import torch
+
+    from flowhigh_tpu_torch import log_spectral_distance
+    from flowhigh_tpu_torch.profiling import clip_signal
+
+    res: dict = {"paths": []}
+    short = clip_signal(1.0, IN_SR)
+    outs = {}
+    for name, opts in V_MODELS.items():
+        cfg = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, **opts))
+        flash = 2 if cfg.model.attn_flash else 0  # one launch a layer
+        sr = make_sr(cfg, "cuda")
+        out, counts = run_main_path(sr, audio10, IN_SR)
+        torch.cuda.synchronize()
+        if out.shape != (1, int(SECONDS * 48000)) or not np.isfinite(
+                out).all():
+            raise AssertionError(f"phase {name}: bad output {out.shape}")
+        check_launches(f"phase {name}", counts, calls, flash)
+        times = clip_ms_of(sr, audio10)
+        clip_ms = float(np.median(times))
+        field_ms = field_device_ms(sr, audio10)
+        dtypes = field_stream_dtypes(sr, audio10)
+        want = str(sr.net.dtype)
+        outs[name] = out
+        r = {"clip_ms": clip_ms, "clip_ms_all": times,
+             "field_device_ms": field_ms, "launches": counts,
+             "stream_dtypes": dtypes}
+        print(f"phase {name}: {clip_ms:.2f} ms per 10 s clip (median of 5: "
+              f"{[round(t, 2) for t in times]}); vector field "
+              f"{field_ms:.3f} device ms a call; vocoder launches as phase "
+              f"2; the residual stream's module outputs {dtypes} (want "
+              f"{want})", flush=True)
+        if not dtypes or any(v != [want] for v in dtypes.values()):
+            raise AssertionError(f"phase {name}: the field computed in "
+                                 f"{dtypes}, not {want}")
+        if cfg.model.compute_dtype != "float32":  # phase 2's weights
+            r["rel_l2_vs_f32"] = rel_l2(out, f32_out)
+            r["lsd_db_vs_f32"] = float(log_spectral_distance(f32_out,
+                                                             out)[0])
+            print(f"phase {name}: against phase 2's float32 output: rel L2 "
+                  f"{r['rel_l2_vs_f32']:.4e}, LSD {r['lsd_db_vs_f32']:.4f} "
+                  f"dB", flush=True)
+        if flash:  # every launch of F replayed on its own inputs
+            with flash_replayed([]) as records:
+                sr.generate(audio10, IN_SR, timestep=1)
+            if len(records) != flash:
+                raise AssertionError(f"phase {name}: {len(records)} F "
+                                     "launches replayed")
+            row = flash_register_row(peaks, records)
+            row["launches"] = counts[FLASH]  # the counted run's
+            print(f"phase {name}: kernel F on register-padded "
+                  f"{row['shape']}: {flash} launches each against its plain "
+                  f"version in float64, max abs {row['max_abs_err']:.3e} "
+                  f"mean abs {row['mean_abs_err']:.3e}; {row['ms']:.3f} ms "
+                  f"a clip (plain {row['plain_ms']:.3f}, SDPA "
+                  f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f} "
+                  f"{row['bound_by']})", flush=True)
+            res["flash_registers"] = row
+            dense = outs["V2 options"]
+            diff = float(np.abs(out - dense).max())
+            print(f"phase {name}: flash against dense generate max abs "
+                  f"{diff:.3e} (<= 1e-3)", flush=True)
+            if not diff <= 1e-3:
+                raise AssertionError(f"phase {name}: flash and dense differ "
+                                     f"by {diff}")
+            r["flash_vs_dense"] = diff
+        out_gpu = sr.generate(short, IN_SR, timestep=1)
+        del sr
+        if not flash:  # card against CPU, 1 s
+            sr_cpu = make_sr(cfg, "cpu")
+            t0 = time.perf_counter()
+            out_cpu = sr_cpu.generate(short, IN_SR, timestep=1)
+            cpu_s = time.perf_counter() - t0
+            if cfg.model.compute_dtype == "float32":
+                diff = float(np.abs(out_gpu - out_cpu).max())
+                print(f"phase {name}: 1 s card vs CPU max abs {diff:.3e} "
+                      f"(<= 1e-3; CPU run {cpu_s:.1f} s)", flush=True)
+                if out_gpu.shape != out_cpu.shape or not diff <= 1e-3:
+                    raise AssertionError(f"phase {name}: card and CPU "
+                                         f"differ by {diff}")
+                r["card_vs_cpu"] = diff
+            else:  # bf16 amplifies rounding: held as phase 3 holds phase P
+                floor = max(rel_l2(sr_cpu.generate(
+                    (short * np.float32(1 + s)).astype(np.float32), IN_SR,
+                    timestep=1), out_cpu) for s in (NUDGE, -NUDGE))
+                rel_cpu = rel_l2(out_gpu, out_cpu)
+                bound = max(1e-2, 2 * floor)
+                print(f"phase {name}: 1 s card vs CPU rel L2 {rel_cpu:.4e};"
+                      f" the CPU against itself with the input nudged by "
+                      f"+-2^-16: {floor:.4e}; bound max(1e-2, 2 x that) = "
+                      f"{bound:.4e}", flush=True)
+                if out_gpu.shape != out_cpu.shape or not rel_cpu <= bound:
+                    raise AssertionError(f"phase {name}: card and CPU "
+                                         f"disagree: {rel_cpu}")
+                r["card_vs_cpu_rel_l2"] = rel_cpu
+                r["nudge_floor_rel_l2"] = floor
+            del sr_cpu
+        res[name] = r
+        res["paths"].append({"name": f"FlowHighSR.generate, ModelConfig("
+                             + ", ".join(f"{k}={v!r}" for k, v in opts.items())
+                             + ")", "launches": {k: v for k, v in
+                                                 counts.items() if v},
+                             "ms": clip_ms})
+    return res
+
+
 # --- phase M: the probe kernels --------------------------------------------------
 
 # probe instance -> the probe script's row that launches it
@@ -2229,6 +2495,11 @@ def main() -> int:
     surface = surface_phase(config, calls, audio)
     print(f"phase S: done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase V: the vector field's options
+    t0 = time.perf_counter()
+    options = options_phase(config, calls, audio, out, peaks)
+    print(f"phase V: done in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # phase 4: the records
     kernels = []
     for k in ALL_KERNELS:
@@ -2272,6 +2543,15 @@ def main() -> int:
             entry["unfused_path"] = {f: unfused_t[k][f]
                                      for f in RECORD + ("f32_ms",)}
         kernels.append(entry)
+    r = options["flash_registers"]  # phase V2's flash run, per clip
+    src, replaces = SOURCES[FLASH]
+    kernels.append({"name": FLASH_REGISTERS, "route": "cuda", "source": src,
+                    "replaces": replaces + "; on register-padded q, k, v "
+                    "and mask (flowhigh_tpu/models/transformer.py:318-319)",
+                    **{f: r[f] for f in RECORD},
+                    "path": "ModelConfig(num_register_tokens=16, "
+                            "use_unet_skip_connection=True, "
+                            "use_gateloop_layers=True, attn_flash=True)"})
     for k, r in probes.items():  # phase M's run; ms etc. one per case
         src, replaces = SOURCES[k]
         kernels.append({"name": k, "route": "cuda", "source": src,
@@ -2300,9 +2580,10 @@ def main() -> int:
         "longform_path": long_tot,
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
-        "surface": surface, "resblock2_path": rb2_tot,
+        "surface": surface, "resblock2_path": rb2_tot, "options": options,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
-    print(json.dumps({"kernels": kernels, "paths": surface["paths"]}))
+    print(json.dumps({"kernels": kernels,
+                      "paths": surface["paths"] + options["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

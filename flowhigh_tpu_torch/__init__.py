@@ -12,6 +12,7 @@ every kernel wrapper takes its plain PyTorch version.
 
 from .config import (CFMConfig, DataConfig, FlowHighConfig, MelConfig,
                      ModelConfig, TrainConfig, VocoderConfig)
+from .cfm_wrapper import ConditionalFlowMatcherWrapper, FLowHigh, init_bigvgan
 from .metrics import boundary_lsd, log_spectral_distance
 from .sr import FlowHighSR
 from .streaming import StreamingSR
@@ -19,5 +20,6 @@ from .streaming import StreamingSR
 __all__ = [
     "FlowHighSR", "StreamingSR", "FlowHighConfig", "MelConfig",
     "VocoderConfig", "ModelConfig", "CFMConfig", "DataConfig", "TrainConfig",
-    "log_spectral_distance", "boundary_lsd",
+    "log_spectral_distance", "boundary_lsd", "FLowHigh",
+    "ConditionalFlowMatcherWrapper", "init_bigvgan",
 ]

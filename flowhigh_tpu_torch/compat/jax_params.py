@@ -20,7 +20,7 @@ from torch import nn
 
 from ..config import ModelConfig, VocoderConfig
 from ..models.bigvgan import kaiser_sinc_filter1d
-from ..models.transformer import LearnedSinusoidalPosEmb
+from ..models.transformer import LearnedSinusoidalPosEmb, Transformer
 
 
 def _np(x) -> np.ndarray:
@@ -55,7 +55,9 @@ def fold_state_dict(sd: dict) -> dict:
 
 
 def vector_field_state_from_jax(params: dict, cfg: ModelConfig) -> dict:
-    """JAX ``VectorFieldNet`` params -> ``VectorFieldNet`` state dict."""
+    """JAX ``VectorFieldNet`` params (either backbone, with the transformer's
+    register tokens, skip combiners and GateLoop layers) -> ``VectorFieldNet``
+    state dict."""
     p = _tree(params)
     sd = {
         "null_cond": _np(p["null_cond"]),
@@ -69,9 +71,37 @@ def vector_field_state_from_jax(params: dict, cfg: ModelConfig) -> dict:
         "sinu_pos_emb.1.bias": _np(p["time_mlp"]["bias"]),
         "to_pred.weight": _np(p["to_pred"]["kernel"]).T,
     }
+    if cfg.architecture == "convnext":
+        cn = p["convnext"]
+        for i in range(cfg.convnext_layers):
+            blk, L = cn[f"blocks_{i}"], f"convnext.{i}."
+            sd[L + "dwconv.weight"] = _np(blk["dwconv_kernel"]).transpose(2, 1, 0)
+            sd[L + "dwconv.bias"] = _np(blk["dwconv_bias"])
+            for part in ("scale", "shift"):
+                sd[f"{L}norm.{part}.weight"] = _np(blk["norm"][part]["kernel"]).T
+                sd[f"{L}norm.{part}.bias"] = _np(blk["norm"][part]["bias"])
+            for part in ("pwconv1", "pwconv2"):
+                sd[f"{L}{part}.weight"] = _np(blk[part]["kernel"]).T
+                sd[f"{L}{part}.bias"] = _np(blk[part]["bias"])
+            sd[L + "gamma"] = _np(blk["gamma"])
+        sd["final_layer_norm.weight"] = _np(cn["final_norm_scale"])
+        sd["final_layer_norm.bias"] = _np(cn["final_norm_bias"])
+        return {k: torch.tensor(v) for k, v in sd.items()}
     tr = p["transformer"]
+    if "register_tokens" in tr:
+        sd["transformer.register_tokens"] = _np(tr["register_tokens"])
     for i in range(cfg.depth):
         L = f"transformer.layers.{i}."
+        if f"layers_{i}_skip_combiner" in tr:  # slot 0
+            sk = tr[f"layers_{i}_skip_combiner"]
+            sd[L + "0.weight"] = _np(sk["kernel"]).T
+            sd[L + "0.bias"] = _np(sk["bias"])
+        if f"layers_{i}_gateloop" in tr:  # slot 1
+            gl = tr[f"layers_{i}_gateloop"]
+            sd[L + "1.norm.gamma"] = _np(gl["norm"]["gamma"])
+            sd[L + "1.to_qkva.weight"] = _np(gl["to_qkva"]["kernel"]).T
+            sd[L + "1.post_ln.weight"] = _np(gl["post_ln"]["scale"])
+            sd[L + "1.post_ln.bias"] = _np(gl["post_ln"]["bias"])
         an, at = tr[f"layers_{i}_attn_norm"], tr[f"layers_{i}_attn"]
         fn, ff = tr[f"layers_{i}_ff_norm"], tr[f"layers_{i}_ff"]
         for slot, norm in (("2", an), ("4", fn)):
@@ -141,9 +171,11 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     """In-place init from ``numpy.random.default_rng(seed)``:
     every >= 2-D Linear/Conv weight gets fan-in-scaled normals
     N(0, 1/fan_in) with fan_in = prod(shape[1:]); the sinusoidal time
-    embedding's frequencies get unit normals; Linear/Conv biases are 0 except
-    the adaptive norms' gamma bias (1); every other parameter (norm gains 1,
-    snake log-alpha/log-beta 0, null_cond 0) keeps its module's init."""
+    embedding's frequencies and the register tokens get unit normals;
+    Linear/Conv biases are 0 except the adaptive norms' gain biases
+    (``to_gamma``, ConvNeXt's ``norm.scale``: 1, identity at init); every
+    other parameter (norm gains 1, ConvNeXt's layer scale 1, snake
+    log-alpha/log-beta 0, null_cond 0) keeps its module's init."""
     rng = np.random.default_rng(seed)
     layers = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)
     with torch.no_grad():
@@ -151,6 +183,10 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
             if isinstance(mod, LearnedSinusoidalPosEmb):
                 mod.weights.copy_(torch.from_numpy(
                     rng.standard_normal(mod.weights.shape, dtype=np.float32)))
+            if isinstance(mod, Transformer) and mod.num_register_tokens:
+                reg = mod.register_tokens
+                reg.copy_(torch.from_numpy(
+                    rng.standard_normal(reg.shape, dtype=np.float32)))
             if not isinstance(mod, layers):
                 continue
             w = mod.weight
@@ -158,7 +194,7 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
             w.copy_(torch.from_numpy(
                 rng.standard_normal(w.shape, dtype=np.float32) * std))
             if mod.bias is not None:
-                in_ada_gamma = mod_name.endswith("to_gamma")
+                in_ada_gamma = mod_name.endswith(("to_gamma", "norm.scale"))
                 mod.bias.fill_(1.0 if in_ada_gamma else 0.0)
     return module
 

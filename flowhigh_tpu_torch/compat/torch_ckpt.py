@@ -69,12 +69,16 @@ def vocoder_state_from_reference(sd: dict, expected: dict) -> dict:
 
 def vector_field_state_from_reference(sd: dict, expected: dict) -> dict:
     """Reference ``FLowHigh`` state dict (``flowhigh.`` / ``module.``
-    prefixes optional) -> the port's ``VectorFieldNet`` state dict."""
+    prefixes optional) -> the port's ``VectorFieldNet`` state dict: either
+    backbone, register tokens and skip combiners included (the port's
+    modules carry the reference's names)."""
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
     if any(".1.to_qkva" in k or "gate_loop" in k for k in sd):
         raise NotImplementedError(
-            "checkpoint contains GateLoop layers, which are not ported "
-            "(ROADMAP.md queue 1 item 11(c))")
+            "checkpoint contains GateLoop layers (layers.N.1.*): the "
+            "reference's GateLoop weights come from the external "
+            "gateloop_transformer package and have no layout to map onto "
+            "this package's GateLoop (the JAX package refuses them too)")
     out = {k.removeprefix("flowhigh."): v for k, v in sd.items()
            if not k.startswith("flowhigh.audio_enc_dec.")}
     return _select(out, expected, "vector field")

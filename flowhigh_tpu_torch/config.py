@@ -67,7 +67,7 @@ class ModelConfig:
     use_gateloop_layers: bool = False
     convnext_layers: int = 8
     convnext_mult: int = 3
-    compute_dtype: str = "float32"  # this package computes in float32 only
+    compute_dtype: str = "float32"  # the vector field's: float32 | bfloat16
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,10 +38,15 @@ calls.
 
 ``conv_dtype`` (``None`` = float32, ``torch.bfloat16``, ``torch.int8``) is
 the JAX package's ``BigVGAN.conv_dtype``: the dot precision of every
-resblock conv (kernels B, D, E; ``ops/quant.py``). The stage-boundary
+AMPBlock1 conv (kernels B, D, E; ``ops/quant.py``). The stage-boundary
 convs follow the JAX package's ``_boundary_dtype``: bfloat16 for the
 upsamplers and ``conv_post`` under bfloat16, float32 under int8.
-``conv_pre`` and the snakes stay float32.
+``conv_pre`` and the snakes stay float32. Where the JAX package's fused
+vocoder does not pack a stage (``_pack_factor`` = 1: C >= 256, the
+published config's C = 768 and 384), it runs AMPBlock2's convs and
+``conv_post`` as XLA's float32 ``conv1d`` whatever ``conv_dtype`` says, so
+kernel B takes float32 dots there; where it packs, AMPBlock2's convs take
+``conv_dtype`` and int8 raises, as it does in the JAX package.
 
 ``storage_dtype`` (``None`` = float32, ``torch.bfloat16``) is the JAX
 package's ``BigVGAN.storage_dtype``: the dtype of the MRF feature maps in
@@ -288,21 +293,29 @@ class AMPBlock2(nn.Module):
 
     def forward(self, x, packed: bool = False):
         """``packed``: the JAX package packs this stage (``_pack_factor`` >
-        1), which decides the dtype flow on bfloat16 maps (see the module
-        docstring); float32 maps take kernel B with x as its residual."""
+        1), which decides the dots and the dtype flow (see the module
+        docstring). Packed, the convs run at ``dot_dtype`` (int8 raises, as
+        the JAX package's ``packed_conv1d`` does); not packed, the JAX
+        package runs them as XLA's float32 ``conv1d``, so kernel B takes
+        float32 dots whatever ``dot_dtype`` says."""
+        if packed and self.dot_dtype == torch.int8:
+            raise ValueError(
+                "int8 dots need per-channel scales, which AMPBlock2's "
+                "packed convs do not take (the JAX package's packed_conv1d "
+                "refuses conv_dtype=int8)")
         for d, act, conv in zip(self.dilations, self.activations, self.convs):
             xt = act(x)
-            if x.dtype == torch.float32:
+            if not packed:  # JAX's f32 conv1d on xt; x's add promotes to f32
+                x = conv1d(xt.float(), conv.weight, conv.bias, dilation=d,
+                           residuals=(x.float(),), dot_dtype=torch.float32)
+            elif x.dtype == torch.float32:
                 x = conv1d(xt, conv.weight, conv.bias, dilation=d,
                            residuals=(x,), dot_dtype=self.dot_dtype)
-            elif packed:  # JAX's packed_conv1d: the conv, + bias, + x in bf16
+            else:  # JAX's packed_conv1d: the conv, + bias, + x in bf16
                 dot = (torch.bfloat16 if self.dot_dtype == torch.float32
                        else self.dot_dtype)
                 y = conv1d(xt, conv.weight, None, dilation=d, dot_dtype=dot)
                 x = (y + conv.bias.to(y.dtype)[:, None]) + x
-            else:  # JAX's f32 conv1d on xt; x's add promotes to f32
-                x = conv1d(xt.float(), conv.weight, conv.bias, dilation=d,
-                           residuals=(x.float(),), dot_dtype=self.dot_dtype)
         return x
 
 
@@ -403,8 +416,8 @@ class BigVGAN(nn.Module):
                     ys.append(block(x))
             x = ys[-1]
         x = self.activation_post(x)
-        if p == 1:  # the JAX package's XLA conv, on f32
-            x = x.float()
-        x = conv1d(x, self.conv_post.weight, self.conv_post.bias,
-                   dot_dtype=self.boundary_dtype)
+        # p = 1: the JAX package's XLA conv, float32 maps and dots
+        x = conv1d(x if p > 1 else x.float(), self.conv_post.weight,
+                   self.conv_post.bias,
+                   dot_dtype=self.boundary_dtype if p > 1 else torch.float32)
         return torch.tanh(x.float())[:, 0, :]

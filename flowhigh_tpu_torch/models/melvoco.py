@@ -83,8 +83,8 @@ class MelVoco:
     JAX package's default here: kernels A and B | True | "auto" |
     "pairs") go to ``BigVGAN``, and so does ``storage_dtype`` (None |
     torch.float32 | torch.bfloat16 or their names: the dtype of the feature
-    maps, kept in ``self.storage_dtype``). ``dtype`` must be float32, the
-    port's only compute dtype. ``fused_act``, ``packed``, ``pallas_convs`` and
+    maps, kept in ``self.storage_dtype``). ``dtype`` must be float32: the
+    generator's compute dtype is not ported (ROADMAP.md queue 1 item 16). ``fused_act``, ``packed``, ``pallas_convs`` and
     ``kernel_pipeline`` are the JAX package's TPU lowering switches:
     validated, and without effect on the card."""
 
@@ -104,7 +104,8 @@ class MelVoco:
             raise ValueError(f"pallas_convs must be a bool, got "
                              f"{pallas_convs!r}")
         if dtype not in (torch.float32, "float32"):
-            raise ValueError(f"dtype must be float32, got {dtype!r}")
+            raise ValueError(f"dtype must be float32 (the vocoder's compute "
+                             f"dtype is not ported), got {dtype!r}")
         if vocoder != "bigvgan":
             raise ValueError(f"unsuitable vocoder name {vocoder!r}")
         if mel_cfg is None:

@@ -86,6 +86,73 @@ def _is_probably_audio(x: torch.Tensor) -> bool:
     return x.ndim == 2 or (x.ndim == 3 and x.shape[1] == 1)
 
 
+def row_field(net, cond_mel: torch.Tensor, mask: Optional[torch.Tensor],
+              cond_scale: float = 1.0):
+    """The ODE's right-hand side f(t, x) of the vector field ``net``, t []
+    or [B]. The field runs row by row: its matmuls at the height of one
+    clip sum in the same order whatever the batch, so a clip's output does
+    not depend on the clips batched with it (at full width batching moved
+    the 48 kHz output by up to 1.6e-4 on an H100; chip_smoke.py's serving
+    phase holds it to 1e-4). Each row gets its own time when the adaptive
+    solver passes one per item."""
+    def ode_fn(t, x):
+        return torch.cat([
+            forward_with_cond_scale(
+                net, x[i:i + 1], times=t[i:i + 1] if t.ndim else t,
+                cond=cond_mel[i:i + 1], cond_scale=cond_scale,
+                mask=None if mask is None else mask[i:i + 1])
+            for i in range(x.shape[0])])
+    return ode_fn
+
+
+def solve_ode(ode_fn, y0: torch.Tensor, time_steps: int, method: str,
+              atol: float, rtol: float, tableau: str):
+    """(sampled, stats): ``method`` "euler" | "midpoint" on the fixed grid of
+    ``time_steps`` steps (stats None), or "adaptive" (``odeint_adaptive``
+    with ``tableau`` at ``atol``/``rtol``; its ``AdaptiveStats``)."""
+    if method == "adaptive":
+        return odeint_adaptive(ode_fn, y0, atol, rtol, return_stats=True,
+                               tableau=tableau)
+    return odeint_fixed(ode_fn, y0, time_steps, method), None
+
+
+@torch.inference_mode()
+def sample_mel(net, cond, *, device, mel_cfg, model_method: str,
+               sigma: float, solve, time_steps: int = 4,
+               cond_scale: float = 1.0, std_1: Optional[float] = None,
+               std_2: Optional[float] = None, mel_pp: bool = False,
+               cfm_method: Optional[str] = None,
+               generator: Optional[torch.Generator] = None, mask=None,
+               eps=None) -> torch.Tensor:
+    """The sampling of ``FlowHighSR.sample`` and of
+    ``cfm_wrapper.ConditionalFlowMatcherWrapper.sample``: ``cond`` (audio,
+    mel-encoded with ``mel_cfg``, or a log-mel) -> the solved mel
+    [B, T, M] on ``device``. ``cfm_method`` outside the known four falls
+    back to ``model_method``; for any method but basic_cfm, unless both
+    stds are given, both are (1, ``sigma``). ``solve(ode_fn, y0,
+    time_steps)`` returns (sampled, stats)."""
+    if cfm_method not in CFMConfig.CFM_METHODS:
+        cfm_method = model_method
+    if cfm_method != "basic_cfm" and (std_1 is None or std_2 is None):
+        std_1, std_2 = 1.0, sigma
+    if std_1 is None:
+        std_1, std_2 = 1.0, 0.0  # unused by basic_cfm
+    cond = torch.as_tensor(cond, dtype=torch.float32, device=device)
+    if _is_probably_audio(cond):
+        cond = mel_encode(cond.reshape(cond.shape[0], -1), mel_cfg)
+    if mask is not None:
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=device)
+    cutoff = mel_cutoff_bins(cond)
+    y0 = sample_prior(generator, cfm_method, cond, float(std_1),
+                      float(std_2), cutoff, eps)
+    sampled, stats = solve(row_field(net, cond, mask, float(cond_scale)), y0,
+                           int(time_steps))
+    if mel_pp:
+        sampled = mel_replace(sampled, cond, cutoff)
+    _warn_if_unconverged(stats)
+    return sampled
+
+
 def _wire_int16(out: torch.Tensor) -> torch.Tensor:
     """Waveform -> int16 on the device, round(clip(x * 32767)) (the
     reference's wav scale), so the device-to-host copy moves half the bytes.
@@ -229,32 +296,11 @@ class FlowHighSR:
 
     # -- the clip pipeline ------------------------------------------------------
 
-    def _field(self, cond_mel: torch.Tensor, mask: Optional[torch.Tensor],
-               cond_scale: float = 1.0):
-        """The ODE's right-hand side f(t, x), t [] or [B]. The vector field
-        runs row by row: its matmuls at the height of one clip sum in the
-        same order whatever the batch, so a clip's output does not depend
-        on the clips batched with it (at full width batching moved the
-        48 kHz output by up to 1.6e-4 on an H100; chip_smoke.py's serving
-        phase holds it to 1e-4). Each row gets its own time when the
-        adaptive solver passes one per item."""
-        def ode_fn(t, x):
-            return torch.cat([
-                forward_with_cond_scale(
-                    self.net, x[i:i + 1], times=t[i:i + 1] if t.ndim else t,
-                    cond=cond_mel[i:i + 1], cond_scale=cond_scale,
-                    mask=None if mask is None else mask[i:i + 1])
-                for i in range(x.shape[0])])
-        return ode_fn
-
     def _solve(self, ode_fn, y0: torch.Tensor, time_steps: int):
         """(sampled, stats) by the model's ``ode_method``: the adaptive
         solver's ``AdaptiveStats``, or None on the fixed grid."""
-        if self.ode_method == "adaptive":
-            return odeint_adaptive(ode_fn, y0, self.ode_atol, self.ode_rtol,
-                                   return_stats=True,
-                                   tableau=self.ode_tableau)
-        return odeint_fixed(ode_fn, y0, time_steps, self.ode_method), None
+        return solve_ode(ode_fn, y0, time_steps, self.ode_method,
+                         self.ode_atol, self.ode_rtol, self.ode_tableau)
 
     def _prep_and_solve(self, audio: torch.Tensor, n_valid: torch.Tensor,
                         generator: torch.Generator, in_sr: int, target_sr: int,
@@ -287,8 +333,8 @@ class FlowHighSR:
         std_1, std_2 = self._default_stds()
         y0 = sample_prior(generator, self.cfm_method, cond_mel, std_1, std_2,
                           cutoff)
-        sampled, stats = self._solve(self._field(cond_mel, frame_mask), y0,
-                                     time_steps)
+        sampled, stats = self._solve(row_field(self.net, cond_mel, frame_mask),
+                                     y0, time_steps)
         return sampled, cond, n_valid48, stats
 
     def _align_and_splice(self, hr: torch.Tensor, cond: torch.Tensor,
@@ -431,27 +477,12 @@ class FlowHighSR:
         model's device: the waveform [B, T * hop] through ``self.vocoder``
         (the port's kernels on the card) with ``decode_to_audio``, else the
         mel [B, T, M]."""
-        if cfm_method not in CFMConfig.CFM_METHODS:
-            cfm_method = self.cfm_method
-        if cfm_method != "basic_cfm" and (std_1 is None or std_2 is None):
-            std_1, std_2 = 1.0, self.sigma
-        if std_1 is None:
-            std_1, std_2 = 1.0, 0.0  # unused by basic_cfm
-        if generator is None:
-            generator = self.generator(0)
-        cond = torch.as_tensor(cond, dtype=torch.float32, device=self.device)
-        if _is_probably_audio(cond):
-            cond = mel_encode(cond.reshape(cond.shape[0], -1), self.config.mel)
-        if mask is not None:
-            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        cutoff = mel_cutoff_bins(cond)
-        y0 = sample_prior(generator, cfm_method, cond, float(std_1),
-                          float(std_2), cutoff, eps)
-        sampled, stats = self._solve(self._field(cond, mask, float(cond_scale)),
-                                     y0, int(time_steps))
-        if mel_pp:
-            sampled = mel_replace(sampled, cond, cutoff)
-        _warn_if_unconverged(stats)
+        sampled = sample_mel(
+            self.net, cond, device=self.device, mel_cfg=self.config.mel,
+            model_method=self.cfm_method, sigma=self.sigma, solve=self._solve,
+            time_steps=time_steps, cond_scale=cond_scale, std_1=std_1,
+            std_2=std_2, mel_pp=mel_pp, cfm_method=cfm_method,
+            generator=generator or self.generator(0), mask=mask, eps=eps)
         return self.vocoder(sampled) if decode_to_audio else sampled
 
     # -- long-form single-pass mode ---------------------------------------------

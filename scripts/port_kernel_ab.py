@@ -2,7 +2,7 @@
 """Time the port's fused vocoder kernels on one CUDA card, for A/B runs.
 
     python3 scripts/port_kernel_ab.py [TREE] [--fused | --conv | --act |
-                                      --flash | --fir] [--int8]
+                                      --flash | --fir | --field] [--int8]
 
 Imports ``flowhigh_tpu_torch`` (and the tree's ``chip_smoke.py``) from
 TREE (default: this checkout), so two versions of a kernel compare in one
@@ -71,9 +71,22 @@ launches, CUDA events; a shape timed once and weighted by its launches):
   a parent tree and on the copies of ``scripts/port_fir_elim.py`` gives
   H's elimination split.
 
+- the vector field (``--field``, no kernel of this package: cuBLAS and
+  cuDNN) at full width with seeded weights on a 10 s clip's mel (1,000
+  frames, all valid): first ``sample dopri5 host``:
+  ``FlowHighSR.sample(decode_to_audio=False)`` with
+  ``ode_method="adaptive"`` on the clip at 48 kHz, the mel solve of
+  chip_smoke.py phase S1 without the vocoder (host ms with the read-back,
+  median of 5 after one warm-up run); then each configuration of
+  ``FIELDS`` that the tree ports (an older tree computes in float32 only
+  and lacks the options): CUDA events around one call (``field f32``,
+  median of 30 after 5 warm-up calls) and the host wall of 7 calls and a
+  synchronize (``field f32 loop7 host``, median of 10: one step of the
+  adaptive solver).
+
 ``--fused`` times D and E alone, ``--conv`` B alone, ``--act`` A alone
 (with its firs-only instance and G), ``--flash`` F alone, ``--fir`` H
-alone; ``--int8`` keeps
+alone, ``--field`` the vector field alone; ``--int8`` keeps
 the int8 instances alone (D.int8 and E.int8 with their A + B.int8 chains,
 and B.int8): ``--fused --int8`` D.int8 and E.int8, ``--conv --int8``
 B.int8. Inputs are seeded random tensors. Needs a CUDA card.
@@ -192,7 +205,8 @@ def _add(out: dict, name: str, c: int, k: int, d: int, ms: float,
             out[key] = out.get(key, 0.0) + v
 
 
-FLAGS = ("--fused", "--conv", "--act", "--flash", "--fir", "--int8")
+FLAGS = ("--fused", "--conv", "--act", "--flash", "--fir", "--field",
+         "--int8")
 
 
 def graph_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -405,6 +419,86 @@ def conv_per_clip(randn, sfxs=tuple(DOTS)) -> dict:
     return res
 
 
+# ``--field``'s configurations: ModelConfig fields over the published
+# defaults (chip_smoke.py phase 2's field and phase V's)
+FIELDS = {"f32": {}, "convnext": dict(architecture="convnext"),
+          "options": dict(num_register_tokens=16,
+                          use_unet_skip_connection=True,
+                          use_gateloop_layers=True),
+          "bf16": dict(compute_dtype="bfloat16")}
+
+
+def field_per_config() -> dict:
+    """The vector field's times (see the module docstring, ``--field``)."""
+    import time
+
+    import torch
+
+    from flowhigh_tpu_torch import FlowHighConfig, FlowHighSR
+    from flowhigh_tpu_torch.compat import seeded_init_
+    from flowhigh_tpu_torch.config import ModelConfig
+    from flowhigh_tpu_torch.dsp import resample_poly
+    from flowhigh_tpu_torch.models import (VectorFieldNet,
+                                           forward_with_cond_scale,
+                                           mel_encode)
+    from flowhigh_tpu_torch.profiling import clip_signal
+
+    def host_wall(fn, reps: int) -> float:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    audio = resample_poly(torch.from_numpy(clip_signal(10.0, 16000))[None]
+                          .cuda(), 48000, 16000)
+    audio = audio / audio.abs().max()
+    sr = FlowHighSR(FlowHighConfig(), cfm_method="independent_cfm_adaptive",
+                    ode_method="adaptive", device="cuda")
+    sr.init_params(0)
+
+    def solve():
+        return sr.sample(cond=audio, decode_to_audio=False).cpu()
+    solve()
+    res = {"sample dopri5 host": host_wall(solve, 5)}
+    del sr
+    with torch.inference_mode():
+        mel = mel_encode(audio)
+        mask = torch.ones(mel.shape[:2], dtype=torch.bool, device="cuda")
+        t = torch.zeros((), device="cuda")
+        for name, opts in FIELDS.items():
+            try:
+                net = VectorFieldNet(ModelConfig(**opts))
+            except NotImplementedError:  # an option the tree does not port
+                continue
+            if "compute_dtype" in opts and not hasattr(net, "dtype"):
+                continue  # a tree that computes in float32 only
+            net = seeded_init_(net.eval(), 0).cuda()
+
+            def call():
+                return forward_with_cond_scale(net, mel, times=t, cond=mel,
+                                               mask=mask)
+            for _ in range(5):
+                call()
+            ev = []
+            for _ in range(30):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                call()
+                b.record()
+                b.synchronize()
+                ev.append(a.elapsed_time(b))
+            res[f"field {name}"] = float(np.median(ev))
+            res[f"field {name} loop7 host"] = host_wall(
+                lambda: [call() for _ in range(7)], 10)
+            del net
+    return res
+
+
 def main() -> int:
     args = [a for a in sys.argv[1:] if a not in FLAGS]
     sfxs = (".int8",) if "--int8" in sys.argv[1:] else tuple(DOTS)
@@ -413,6 +507,7 @@ def main() -> int:
     act_only = "--act" in sys.argv[1:]
     flash_only = "--flash" in sys.argv[1:]
     fir_only = "--fir" in sys.argv[1:]
+    field_only = "--field" in sys.argv[1:]
     tree = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(tree))
@@ -432,6 +527,8 @@ def main() -> int:
                                 * np.float32(scale)).cuda()
 
     res = {}
+    if field_only:
+        return report(tree, field_per_config())
     if act_only:
         return report(tree, act_per_clip(tree, randn))
     if flash_only:

@@ -461,6 +461,28 @@ def test_flash_attention_kernel_matches_plain(cuda, gen, b, h, n, valids, dh):
     assert ops.flash_attention.launches == n0 + 2
 
 
+# kernel F on register-padded inputs (ModelConfig.num_register_tokens): r
+# leading key columns valid in every item, then each item's frames
+FLASH_REGISTERS = [(2, 16, 1000, (1000, 900), 64, 16),
+                   (2, 2, 130, (130, 77), 16, 3)]
+
+
+@pytest.mark.parametrize("b,h,n,valids,dh,r", FLASH_REGISTERS)
+def test_flash_attention_with_register_columns_matches_plain(
+        cuda, gen, b, h, n, valids, dh, r):
+    q, k, v = (_randn(gen, cuda, b, h, r + n, dh) for _ in range(3))
+    frames = (torch.arange(n, device=cuda)[None, :]
+              < torch.tensor(valids, device=cuda)[:, None])
+    mask = torch.cat([torch.ones(b, r, dtype=torch.bool, device=cuda),
+                      frames], dim=1)
+    got = ops.flash_attention(q, k, v, mask, 10.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.double(), ops.flash_attention_plain(
+            q.double(), k.double(), v.double(), mask, 10.0),
+        atol=1e-4, rtol=1e-4)
+
+
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
         cuda, gen):
     q = _randn(gen, cuda, 1, 2, 64, 48)
@@ -490,6 +512,33 @@ def test_flash_vector_field_on_card_matches_cpu(cuda, gen):
         got = net.to(cuda)(x.to(cuda), times=torch.tensor(0.3, device=cuda),
                            cond=cond.to(cuda), mask=mask.to(cuda)).cpu()
     assert ops.flash_attention.launches == 2  # one per layer
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+# the vector field's options (register tokens with kernel F, U-Net skips,
+# GateLoop; the ConvNeXt backbone) on the card against the CPU
+FIELD_OPTIONS = {
+    "all_flash": dict(num_register_tokens=16, use_unet_skip_connection=True,
+                      use_gateloop_layers=True, attn_flash=True),
+    "convnext": dict(architecture="convnext")}
+
+
+@pytest.mark.parametrize("name", FIELD_OPTIONS)
+def test_vector_field_options_on_card_match_cpu(cuda, gen, name):
+    from flowhigh_tpu_torch.config import ModelConfig
+    from flowhigh_tpu_torch.models import VectorFieldNet
+    cfg = ModelConfig(dim_in=32, dim=64, depth=2, heads=2, dim_head=16,
+                      **FIELD_OPTIONS[name])
+    net = seeded_init_(VectorFieldNet(cfg).eval(), 0)
+    x, cond = (_randn(gen, "cpu", 2, 600, 32) for _ in range(2))
+    mask = torch.ones(2, 600, dtype=torch.bool)
+    mask[1, 550:] = False
+    with torch.inference_mode():
+        want = net(x, times=torch.tensor(0.3), cond=cond, mask=mask)
+        ops.reset_launch_counts()
+        got = net.to(cuda)(x.to(cuda), times=torch.tensor(0.3, device=cuda),
+                           cond=cond.to(cuda), mask=mask.to(cuda)).cpu()
+    assert ops.flash_attention.launches == (2 if cfg.attn_flash else 0)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
 
 

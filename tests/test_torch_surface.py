@@ -315,3 +315,54 @@ def test_from_local_loads_a_resblock2_checkpoint(tmp_path, rng):
         np.float32))
     torch.testing.assert_close(MelVoco(device="cpu").encode(x),
                                mel_encode(x), rtol=0, atol=0)
+
+
+# AMPBlock2 and conv_post at an unpacked stage (C = 256: p = 1), where the
+# JAX package's fused vocoder runs XLA's float32 conv1d whatever conv_dtype
+# says; and at a packed stage (C = 16, 16 samples: p = 16), where its
+# packed_conv1d refuses int8
+P1_VOCODER2 = dict(num_mels=32, upsample_initial_channel=512,
+                   upsample_rates=(2,), upsample_kernel_sizes=(4,),
+                   resblock="2", resblock_kernel_sizes=(3,),
+                   resblock_dilation_sizes=((1, 3),))
+
+
+@pytest.mark.parametrize("dot", ["bfloat16", "int8"])
+def test_ampblock2_and_conv_post_dots_follow_the_jax_package(rng, dot):
+    cfg_j = jcfg.VocoderConfig(**P1_VOCODER2)
+    params = _jax_vocoder_params(JaxBigVGAN(cfg_j), 32, 5)
+    # fused_act stays off: the JAX fused snake departs from its own
+    # composition on channels >= 128 at C = 256 on the CPU (ROADMAP.md
+    # queue 3 item 18); the dot dtypes follow packed and pallas_convs
+    jvoc = JaxBigVGAN(cfg_j, packed=True, pallas_convs=True,
+                      fuse_act_conv=True, conv_dtype=getattr(jnp, dot))
+    mel = rng.standard_normal((1, 64, 32)).astype(np.float32)
+    want = np.asarray(jax.jit(jvoc.apply)(params, jnp.asarray(mel)))
+    cfg = pcfg.VocoderConfig(**P1_VOCODER2)
+    assert BigVGAN._pack_factor(256, 128) == 1
+    voc = BigVGAN(cfg, conv_dtype=getattr(torch, dot)).eval()
+    voc.load_state_dict(vocoder_state_from_jax(params, cfg))
+    with torch.no_grad():
+        got = voc(torch.from_numpy(mel)).numpy()
+    if dot == "int8":  # everything float32 (_boundary_dtype): the vocoder
+        # blocks' bound (tests/test_packed.py); dots at int8: 4.8e-2
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    else:  # the upsampler's bf16 dots (both sides) may round a few inputs
+        # a step apart: rel L2 2.2e-5 here; AMPBlock2 on bf16 dots: 4.0e-3
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel <= 1e-4, rel
+
+
+def test_int8_in_a_packed_ampblock2_stage_raises_as_in_jax():
+    packs = dict(P1_VOCODER2, upsample_initial_channel=32)
+    assert BigVGAN._pack_factor(16, 16) == 16
+    mel8 = jnp.zeros((1, 8, 32))
+    with pytest.raises(ValueError, match="int8"):
+        jax.eval_shape(JaxBigVGAN(
+            jcfg.VocoderConfig(**packs), packed=True, pallas_convs=True,
+            conv_dtype=jnp.int8).apply,
+            _jax_vocoder_params(JaxBigVGAN(jcfg.VocoderConfig(**packs)), 32,
+                                6), mel8)
+    with pytest.raises(ValueError, match="int8"), torch.no_grad():
+        BigVGAN(pcfg.VocoderConfig(**packs), conv_dtype=torch.int8)(
+            torch.zeros(1, 8, 32))
