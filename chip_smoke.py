@@ -146,6 +146,23 @@ V. the vector field's options, at full width with phase 2's seeded
    for V1 and V2; V3 statistically, as phase 3 holds phase P: rel L2
    within max(1e-2, twice the CPU's own change under +-2^-16 input
    nudges);
+T. the vector field's trainer (``flowhigh_tpu_torch.train.Trainer``). T1:
+   a small trainer (dim 64, float32, TF32 off) on the card and on the CPU
+   with one set of draws per update: update 1's loss and gradient within
+   rel L2 ``T1_GRAD_TOL``, the parameters after three updates within
+   ``T1_PARAM_TOL``. T2: the published field (dim 1,024, depth 2, 16 x 64
+   heads) at ``TrainConfig.batch_size`` 128 of 2-3 s, 48 kHz waves
+   (``train_batch``, already on the card), in bf16 compute (the default)
+   and float32: ms per update (median of 10 after 3, each ending in a
+   synchronize), peak memory, host launches of one update (torch
+   .profiler), no port kernel launched, and a loss that falls over 20
+   updates of the fixed batch; with ``grad_accum_every=2`` parameters move
+   on every second micro-step only. T3: ``attn_flash=True``: ``evaluate``
+   on two batches of 16 launches kernel F once a layer a batch (counted,
+   then each launch held against its plain version in float64,
+   ``flash_replayed``), its ``valid_loss`` within 1e-3 of the dense
+   ``evaluate``'s, and a ``train_step`` raises ``ValueError`` (F has no
+   backward, as in the JAX package);
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    of scripts/bench_act_mxu.py): the probe script's run over its four
    cases with every launch count zeroed just before and read just after
@@ -174,8 +191,10 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    kernels' launches from phase M's run, their times summed over the
    probe script's cases, one launch each; A, B and C's AMPBlock2 sums in
    ``resblock2_path``; kernel F's register-padded instance per phase V2
-   flash clip), with phase S's and phase V's paths (``paths``: name,
-   launches, ms), the card line and, last, the ``ok`` line.
+   flash clip; kernel F's launches in phase T3's ``evaluate`` in
+   ``evaluate_launches`` and ``evaluate_path``), with phase S's, phase V's
+   and phase T's paths (``paths``: name, launches, ms), phase T's summary
+   line (``train``), the card line and, last, the ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
 """
@@ -1969,6 +1988,286 @@ def options_phase(config, calls: dict, audio10: np.ndarray,
     return res
 
 
+# --- phase T: the vector field's trainer -----------------------------------------
+
+# T1's width (card against CPU), T3's batch, the waves' lengths (s); T2's
+# batch is TrainConfig.batch_size (128)
+T1_FIELD = dict(dim=64, depth=2, heads=2, dim_head=32)
+T3_BATCH, T_SECONDS = 16, (2.0, 3.0)
+T_WARMUP, T_TIMED, T_UPDATES = 3, 10, 20
+# T1's bounds: card against CPU in float32 (TF32 off), identical draws
+T1_GRAD_TOL, T1_PARAM_TOL = 1e-5, 1e-4
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
+def train_batch(b: int, seed: int, device: str) -> dict:
+    """``b`` waves at 48 kHz padded to ``T_SECONDS[1]``, valid lengths
+    uniform in ``T_SECONDS``: four tones and noise, zero past the length;
+    the condition is the wave with every bin above a random cutoff of 2-12
+    kHz zeroed (a band-limited input, as the training data degrades it).
+    Made on ``device`` from ``seed``."""
+    import torch
+    kw = dict(generator=torch.Generator(device=device).manual_seed(seed),
+              device=device)
+    f64 = dict(dtype=torch.float64, **kw)
+    n = int(T_SECONDS[1] * 48000)
+    lengths = torch.randint(int(T_SECONDS[0] * 48000), n + 1, (b,), **kw)
+    t = torch.arange(n, device=device, dtype=torch.float64) / 48000
+    freqs = 100.0 + 19900.0 * torch.rand(b, 4, 1, **f64)
+    wave = (0.1 * torch.sin(2 * np.pi * freqs * t).sum(1)
+            + 0.02 * torch.randn(b, n, **f64))
+    wave = torch.where(torch.arange(n, device=device)[None, :]
+                       < lengths[:, None], wave, 0.0)
+    spec = torch.fft.rfft(wave)
+    cut = 2000.0 + 10000.0 * torch.rand(b, 1, **f64)
+    freq = torch.fft.rfftfreq(n, 1 / 48000, device=device,
+                              dtype=torch.float64)
+    cond = torch.fft.irfft(torch.where(freq[None, :] > cut, 0.0, spec), n)
+    return {"wave": wave.float(), "cond": cond.float(), "lengths": lengths}
+
+
+def _t1(config) -> dict:
+    """T1: the same small trainer on the card and the CPU, float32, one
+    set of draws per update: update 1's loss and gradient, and the
+    parameters after three updates."""
+    import torch
+
+    from flowhigh_tpu_torch.cfm import TrainingDraws, draw_training
+    from flowhigh_tpu_torch.models import mel_encode
+    from flowhigh_tpu_torch.train import Trainer
+    cfg = config.replace(
+        model=dataclasses.replace(config.model, **T1_FIELD),
+        train=dataclasses.replace(config.train, amp_dtype="float32"))
+    batch = train_batch(4, 1, "cpu")
+    trs = {d: Trainer(cfg, device=d) for d in ("cuda", "cpu")}
+    states = {d: tr.init_state(0) for d, tr in trs.items()}
+    frames = mel_encode(torch.zeros(1, batch["wave"].shape[1]),
+                        cfg.mel).shape[1]
+    gen = torch.Generator().manual_seed(5)
+    draws = [draw_training(gen, (4, frames, cfg.mel.n_mels), "cpu")
+             for _ in range(3)]
+    loss, grads = {}, {}
+    for d, tr in trs.items():  # update 1's loss and gradient, unclipped
+        net = states[d].net
+        net.zero_grad(set_to_none=True)
+        out = tr._loss_fn(net, *tr._batch(batch), train=True,
+                          draws=TrainingDraws(*(a.to(d) for a in draws[0])))
+        out.backward()
+        loss[d] = float(out.detach())
+        grads[d] = np.concatenate([
+            (torch.zeros_like(p) if p.grad is None else p.grad).detach()
+            .cpu().numpy().ravel() for p in net.parameters()])
+        net.zero_grad(set_to_none=True)
+    p0 = np.concatenate([p.detach().cpu().numpy().ravel()
+                         for p in states["cpu"].net.parameters()])
+    params = {}
+    for d, tr in trs.items():
+        for dr in draws:
+            tr.train_step(states[d], batch,
+                          draws=TrainingDraws(*(a.to(d) for a in dr)))
+        params[d] = {k: p.detach().cpu().numpy()
+                     for k, p in states[d].net.named_parameters()}
+    flat = {d: np.concatenate([v.ravel() for v in ps.values()])
+            for d, ps in params.items()}
+    worst = max((rel_l2(params["cuda"][k], v), k)
+                for k, v in params["cpu"].items() if np.any(v))
+    res = {"loss_card": loss["cuda"], "loss_cpu": loss["cpu"],
+           "loss_rel": abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"]),
+           "grad_rel_l2": rel_l2(grads["cuda"], grads["cpu"]),
+           "param_rel_l2": rel_l2(flat["cuda"], flat["cpu"]),
+           "param_worst_leaf": list(worst),
+           "update_rel_l2": rel_l2(flat["cuda"] - p0, flat["cpu"] - p0)}
+    print(f"phase T1: dim {T1_FIELD['dim']}, float32, card vs CPU: update "
+          f"1 loss {loss['cuda']:.6f} / {loss['cpu']:.6f} (rel "
+          f"{res['loss_rel']:.3e}), gradient rel L2 {res['grad_rel_l2']:.3e} "
+          f"(<= {T1_GRAD_TOL:g}); parameters after 3 updates rel L2 "
+          f"{res['param_rel_l2']:.3e} (<= {T1_PARAM_TOL:g}; worst leaf "
+          f"{worst[1]} {worst[0]:.3e}; the updates themselves "
+          f"{res['update_rel_l2']:.3e})", flush=True)
+    if not (res["loss_rel"] <= T1_GRAD_TOL
+            and res["grad_rel_l2"] <= T1_GRAD_TOL
+            and res["param_rel_l2"] <= T1_PARAM_TOL):
+        raise AssertionError(f"phase T1: card and CPU disagree: {res}")
+    return res
+
+
+def host_launches(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: {"host_launches": kernel
+    launch calls on the host, "device_kernels": kernels the card ran,
+    "device_ms": their summed time, "top": the 8 kernels (name, ms, count)
+    that took most of it}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_card = [e for e in events if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+
+    def ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    top = sorted(on_card, key=ms, reverse=True)[:8]
+    return {"host_launches": sum(e.count for e in events
+                                 if e.key in LAUNCH_EVENTS),
+            "device_kernels": sum(e.count for e in on_card),
+            "device_ms": sum(ms(e) for e in on_card),
+            "top": [[e.key[:80], round(ms(e), 3), e.count] for e in top]}
+
+
+def _t2(config, amp: str, batch: dict, weights: dict) -> dict:
+    """T2 at one amp dtype: ms per update (median of ``T_TIMED`` after
+    ``T_WARMUP``, each ending in a synchronize; the batch already on the
+    card), peak memory over the timed updates, host launches of one
+    update, and the loss over ``T_UPDATES`` updates on the fixed batch."""
+    import torch
+
+    from flowhigh_tpu_torch.train import Trainer
+    tr = Trainer(config.replace(train=dataclasses.replace(
+        config.train, amp_dtype=amp)), device="cuda")
+    state = tr.init_state(0, params=weights)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    for i in range(T_UPDATES):
+        if i == T_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        if T_WARMUP <= i < T_WARMUP + T_TIMED:
+            times.append((time.perf_counter() - t0) * 1e3)
+        if i == T_WARMUP + T_TIMED - 1:
+            peak = torch.cuda.max_memory_allocated()
+        losses.append(m["loss"])
+    from flowhigh_tpu_torch import ops
+    ops.reset_launch_counts()
+    launches = host_launches(lambda: tr.train_step(state, batch))
+    counts = {k: v for k, v in launch_counts().items() if v}
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    res = {"ms_per_update": float(np.median(times)), "ms_all": times,
+           "peak_gib": peak / 2 ** 30, "losses": losses,
+           "kernel_launches": counts, **launches}
+    print(f"phase T2 {amp}: {res['ms_per_update']:.2f} ms per update "
+          f"(median of {T_TIMED}: {[round(t, 2) for t in times]}), peak "
+          f"{res['peak_gib']:.2f} GiB, {launches['host_launches']} host "
+          f"launches ({launches['device_kernels']} device kernels, "
+          f"{launches['device_ms']:.2f} device ms) an update, port kernels "
+          f"{counts or 'none'}; loss over "
+          f"{T_UPDATES} updates {losses[0]:.4f} -> {losses[-1]:.4f} (means "
+          f"of the first and last 5: {first:.4f} -> {last:.4f}); the "
+          f"kernels that took most of the update: {launches['top']}",
+          flush=True)
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"phase T2 {amp}: the loss did not fall: "
+                             f"{losses}")
+    if counts:  # the field trains on cuBLAS; F refuses a gradient
+        raise AssertionError(f"phase T2 {amp}: port kernels ran: {counts}")
+    return res
+
+
+def _t2_accum(config, batch: dict, weights: dict) -> None:
+    """With ``grad_accum_every=2`` parameters move only on every second
+    micro-step."""
+    import torch
+
+    from flowhigh_tpu_torch.train import Trainer
+    tr = Trainer(config.replace(train=dataclasses.replace(
+        config.train, grad_accum_every=2)), device="cuda")
+    state = tr.init_state(0, params=weights)
+    moved = []
+    for _ in range(4):
+        before = [p.detach().clone() for p in state.net.parameters()]
+        state, _ = tr.train_step(state, batch)
+        moved.append(any(not torch.equal(a, p)
+                         for a, p in zip(before, state.net.parameters())))
+    print(f"phase T2: grad_accum_every=2: parameters moved at micro-steps "
+          f"{moved} (want [False, True, False, True])", flush=True)
+    if moved != [False, True, False, True]:
+        raise AssertionError(f"phase T2: accumulation moved {moved}")
+
+
+def _t3(config, peaks, weights: dict) -> dict:
+    """T3: ``attn_flash=True``: ``evaluate`` on kernel F (one launch a
+    layer a batch, counted, then each replayed against its plain version)
+    against the dense ``evaluate`` of the same weights; a train step
+    refuses F's missing backward."""
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.train import Trainer
+    cfg = config.replace(train=dataclasses.replace(config.train,
+                                                   amp_dtype="float32"))
+    flash_cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                      attn_flash=True))
+    batches = [train_batch(T3_BATCH, s, "cuda") for s in (3, 4)]
+    tr = Trainer(flash_cfg, device="cuda")
+    state = tr.init_state(0, params=weights)
+    want = flash_cfg.model.depth * len(batches)  # a layer a batch
+    ops.reset_launch_counts()
+    flash = tr.evaluate(state, batches)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    print(f"phase T3: evaluate with attn_flash=True on {len(batches)} "
+          f"batches of {T3_BATCH}: launches {counts} (want {FLASH}: {want})",
+          flush=True)
+    if counts != {FLASH: want}:
+        raise AssertionError(f"phase T3: launches {counts}")
+    with flash_replayed([]) as records:
+        again = tr.evaluate(state, batches)
+    row = flash_register_row(peaks, records)
+    row["launches"] = counts[FLASH]
+    dense_tr = Trainer(cfg, device="cuda")
+    dense = dense_tr.evaluate(dense_tr.init_state(0, params=weights),
+                              batches)
+    rel = abs(flash["valid_loss"] - dense["valid_loss"]) / abs(
+        dense["valid_loss"])
+    print(f"phase T3: {len(records)} launches of F each against its plain "
+          f"version in float64 (max abs {row['max_abs_err']:.3e}, mean "
+          f"{row['mean_abs_err']:.3e}), {row['ms']:.3f} ms an evaluate "
+          f"(plain {row['plain_ms']:.3f}, SDPA {row['library_ms']:.3f}, bound "
+          f"{row['bound_ms']:.3f} {row['bound_by']}); valid_loss flash "
+          f"{flash['valid_loss']:.6f} / dense {dense['valid_loss']:.6f} (rel "
+          f"{rel:.3e} <= 1e-3; replayed run {again['valid_loss']:.6f})",
+          flush=True)
+    if len(records) != want or not rel <= 1e-3:
+        raise AssertionError(f"phase T3: {len(records)} replays, rel {rel}")
+    try:
+        tr.train_step(state, batches[0])
+    except ValueError as e:
+        print(f"phase T3: train_step with attn_flash=True raises "
+              f"ValueError: {e}", flush=True)
+    else:
+        raise AssertionError("phase T3: train_step ran on kernel F")
+    return {"flash": row, "valid_loss_flash": flash["valid_loss"],
+            "valid_loss_dense": dense["valid_loss"], "rel": rel}
+
+
+def train_phase(config, peaks) -> dict:
+    """Phase T (see the module docstring); T2 and T3 start from one set of
+    seeded weights."""
+    from flowhigh_tpu_torch.compat import seeded_init_
+    from flowhigh_tpu_torch.models import VectorFieldNet
+    t0 = time.perf_counter()
+    res = {"t1": _t1(config)}
+    res["t1"]["s"] = time.perf_counter() - t0
+    weights = seeded_init_(VectorFieldNet(config.model), 0).state_dict()
+    batch = train_batch(config.train.batch_size, 2, "cuda")
+    for amp in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        res[amp] = _t2(config, amp, batch, weights)
+        res[amp]["s"] = time.perf_counter() - t0
+    del batch
+    _t2_accum(config, train_batch(T3_BATCH, 5, "cuda"), weights)
+    t0 = time.perf_counter()
+    res["t3"] = _t3(config, peaks, weights)
+    res["t3"]["s"] = time.perf_counter() - t0
+    print(f"phase T: T1 {res['t1']['s']:.1f} s, T2 bf16 "
+          f"{res['bfloat16']['s']:.1f} s, float32 {res['float32']['s']:.1f} "
+          f"s, T3 {res['t3']['s']:.1f} s", flush=True)
+    return res
+
+
 # --- phase M: the probe kernels --------------------------------------------------
 
 # probe instance -> the probe script's row that launches it
@@ -2500,6 +2799,12 @@ def main() -> int:
     options = options_phase(config, calls, audio, out, peaks)
     print(f"phase V: done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase T: the vector field's trainer
+    t0 = time.perf_counter()
+    training = train_phase(config, peaks)
+    training["phase_s"] = time.perf_counter() - t0
+    print(f"phase T: done in {training['phase_s']:.1f} s", flush=True)
+
     # phase 4: the records
     kernels = []
     for k in ALL_KERNELS:
@@ -2513,6 +2818,10 @@ def main() -> int:
             entry["longform_path"] = {f: long_tot[k][f] for f in RECORD}
         if k in rb2_tot:
             entry["resblock2_path"] = {f: rb2_tot[k][f] for f in RECORD}
+        if k == FLASH:  # phase T3: Trainer.evaluate with attn_flash=True
+            r3 = training["t3"]["flash"]
+            entry["evaluate_launches"] = r3["launches"]
+            entry["evaluate_path"] = {f: r3[f] for f in RECORD}
         kernels.append(entry)
     for k in VARIANT_NAMES:  # each on its dtype's fused path, else unfused
         n = SUFFIXES[k.partition(".")[2]]
@@ -2581,9 +2890,27 @@ def main() -> int:
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
         "surface": surface, "resblock2_path": rb2_tot, "options": options,
+        "train": training,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
+    train_paths = [{"name": f"Trainer.train_step, batch "
+                            f"{config.train.batch_size}, "
+                            f"amp_dtype={amp}",
+                    "launches": training[amp]["kernel_launches"],
+                    "ms": training[amp]["ms_per_update"]}
+                   for amp in ("bfloat16", "float32")]
     print(json.dumps({"kernels": kernels,
-                      "paths": surface["paths"] + options["paths"]}))
+                      "paths": surface["paths"] + options["paths"]
+                      + train_paths}))
+    t1 = training["t1"]
+    print(json.dumps({"train": {
+        "t1_card_vs_cpu": {k: t1[k] for k in ("loss_rel", "grad_rel_l2",
+                                              "param_rel_l2")},
+        **{f"t2_{amp}": {k: training[amp][k] for k in (
+            "ms_per_update", "peak_gib", "host_launches", "device_kernels")}
+           for amp in ("bfloat16", "float32")},
+        "t3_valid_loss_rel": training["t3"]["rel"],
+        "phase_s": training["phase_s"],
+        "script_s": time.perf_counter() - t_start}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

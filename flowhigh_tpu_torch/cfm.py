@@ -1,5 +1,5 @@
-"""Conditional flow matching at inference: cutoff search, prior, fixed-grid
-and adaptive ODE solvers — counterpart of the sampling half of
+"""Conditional flow matching: cutoff search, prior, fixed-grid and
+adaptive ODE solvers, and the training loss — counterpart of
 ``flowhigh_tpu/cfm.py``.
 
 The cutoff-frequency search is a cumsum + comparison count (no host sync),
@@ -10,6 +10,14 @@ control) has to read its loop condition back once per loop. Noise comes
 from an explicit ``torch.Generator`` (or from the caller's ``eps``); with
 the reference's executed prior (``std_2 = sigma = 0``) the prior is
 ``cond`` itself and no random number reaches the output.
+
+Training: ``sample_path`` builds (x_t, u_t) for the four probability
+paths, ``crop_segments`` cuts the 2 s segments, ``freq_mask_cond`` masks
+a band of the condition, ``cfm_loss`` is the (masked, cutoff-weighted)
+MSE and ``cfm_training_loss`` puts them together. JAX's draws cannot be
+made in torch, so every random number of a training loss is an explicit
+``TrainingDraws``, drawn from a caller's generator (``draw_training``) or
+passed in (the tests pass JAX's own).
 """
 
 from __future__ import annotations
@@ -218,3 +226,176 @@ def odeint_adaptive(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
             converged=t >= 1.0, n_accepted=nacc,
             n_loops=torch.tensor(n, dtype=torch.int32, device=y0.device))
     return y
+
+
+# --- training ------------------------------------------------------------------
+
+class PathSample(NamedTuple):
+    x_t: torch.Tensor                # the noisy state fed to the network
+    u_t: torch.Tensor                # the target vector field
+    cutoff: Optional[torch.Tensor]   # [B] cutoff bins (mix path only)
+
+
+def sample_path(method: str, x1: torch.Tensor, cond: torch.Tensor,
+                t: torch.Tensor, sigma_min: float,
+                eps: torch.Tensor) -> PathSample:
+    """(x_t, u_t) of one of the four CFM probability paths for targets
+    ``x1`` [B, T, M], conditions ``cond`` (the x0 of the independent
+    paths), times ``t`` [B] and the standard normal draw ``eps`` (shaped
+    like ``x1``)."""
+    if method not in CFM_METHODS:
+        raise ValueError(f"unknown cfm_method {method}")
+    tb = t[:, None, None]
+    if method == "basic_cfm":  # x0 ~ N(0, I)
+        x_t = (1 - (1 - sigma_min) * tb) * eps + tb * x1
+        return PathSample(x_t, x1 - (1 - sigma_min) * eps, None)
+    x0 = cond
+    if method == "independent_cfm_adaptive":
+        x_t = tb * x1 + (1 - tb) * x0 + (1 - (1 - sigma_min) * tb) * eps
+        return PathSample(x_t, (x1 - x0) - (1 - sigma_min) * eps, None)
+    if method == "independent_cfm_constant":
+        x_t = tb * x1 + (1 - tb) * x0 + sigma_min * eps
+        return PathSample(x_t, x1 - x0, None)
+    # independent_cfm_mix: the high band on the basic path, the low band on
+    # the independent one
+    cutoff = mel_cutoff_bins(cond)
+    x_t_high = tb * x1 + (1 - (1 - sigma_min) * tb) * eps
+    x_t_low = tb * x1 + (1 - tb) * x0 + sigma_min * eps
+    u_high = x1 - (1 - sigma_min) * eps
+    u_low = x1 - x0
+    return PathSample(mel_replace(x_t_high, x_t_low, cutoff),
+                      mel_replace(u_high, u_low, cutoff), cutoff)
+
+
+def cfm_loss(pred: torch.Tensor, target: torch.Tensor,
+             mask: Optional[torch.Tensor] = None, weighted: bool = False,
+             cutoff: Optional[torch.Tensor] = None, low_weight: float = 1.0,
+             high_weight: float = 2.0) -> torch.Tensor:
+    """MSE of [B, T, M] ``pred`` against ``target``: over every element,
+    or, with ``mask`` [B, T] (True = valid), per item over its valid frames
+    (the frame count clipped at 1e-5) and then over the batch. ``weighted``
+    weighs bins >= ``cutoff`` [B] by ``high_weight``, the rest by
+    ``low_weight``; it needs the cutoff (the mix path's)."""
+    se = torch.square(pred - target)
+    if weighted:
+        if cutoff is None:
+            raise ValueError("weighted cfm_loss needs the cutoff bins (the "
+                             "independent_cfm_mix path's)")
+        bins = torch.arange(pred.shape[-1], device=pred.device)
+        w = torch.where(bins[None, :] >= cutoff[:, None], high_weight,
+                        low_weight).to(se.dtype)
+        se = se * w[:, None, :]
+    if mask is None:
+        return torch.mean(se)
+    per_frame = torch.where(mask, torch.mean(se, dim=-1), 0.0)
+    den = torch.clamp(mask.to(per_frame.dtype).sum(dim=-1), min=1e-5)
+    return torch.mean(per_frame.sum(dim=-1) / den)
+
+
+def freq_mask_cond(cond: torch.Tensor, height: torch.Tensor,
+                   start: torch.Tensor) -> torch.Tensor:
+    """Each item's bins [start, start + height) of ``cond`` [B, T, M] set
+    to min(cond) + 1e-3 (the minimum over the whole batch); ``height``,
+    ``start`` [B] int (``draw_training``: heights in [10, 20], starts in
+    [20, M - 21])."""
+    bins = torch.arange(cond.shape[-1], device=cond.device)
+    in_band = ((bins[None, :] >= start[:, None])
+               & (bins[None, :] < (start + height)[:, None]))
+    return torch.where(in_band[:, None, :], torch.min(cond) + 1e-3, cond)
+
+
+def crop_segments(arrays, lengths: torch.Tensor, out_size: int,
+                  u: torch.Tensor):
+    """``out_size``-frame crops of each [B, T, M] array at offset
+    int(u * max(length - out_size, 0)) per item (``u`` [B] uniform in
+    [0, 1)), zero past the item's valid length; arrays shorter than
+    ``out_size`` are zero-padded first. Returns (the crops, the crop mask
+    [B, out_size]: frame < min(length, out_size))."""
+    b, t_full = arrays[0].shape[:2]
+    max_offset = torch.clamp(lengths - out_size, min=0)
+    offsets = (u * max_offset.to(u.dtype)).to(torch.int64)
+    # a slice that would run past the end starts earlier, as
+    # lax.dynamic_slice clamps it
+    offsets = torch.clamp(offsets, max=max(t_full, out_size) - out_size)
+    cut = torch.minimum(lengths, torch.full_like(lengths, out_size))
+    frames = torch.arange(out_size, device=lengths.device)
+    mask = frames[None, :] < cut[:, None]
+    idx = (offsets[:, None] + frames[None, :])[..., None]
+    outs = []
+    for a in arrays:
+        if t_full < out_size:
+            a = torch.nn.functional.pad(a, (0, 0, 0, out_size - t_full))
+        cropped = torch.gather(a, 1, idx.expand(-1, -1, a.shape[-1]))
+        outs.append(torch.where(mask[..., None], cropped, 0.0))
+    return tuple(outs), mask
+
+
+class TrainingDraws(NamedTuple):
+    """Every random number of one ``cfm_training_loss`` call but the
+    dropout masks, in the JAX function's order of keys (r_t, r_path,
+    r_crop, r_drop, r_fm): ``t`` [B] flow times, ``eps`` [B, T, M] the
+    path's normal draw, ``crop_u`` [B] the crop offsets' uniforms,
+    ``drop_u`` [B] the condition drop's uniforms, ``fm_height`` and
+    ``fm_start`` [B] the frequency mask's band."""
+    t: torch.Tensor
+    eps: torch.Tensor
+    crop_u: torch.Tensor
+    drop_u: torch.Tensor
+    fm_height: torch.Tensor
+    fm_start: torch.Tensor
+
+
+def draw_training(generator: Optional[torch.Generator], shape,
+                  device) -> TrainingDraws:
+    """``TrainingDraws`` for mels of ``shape`` (B, T, M) from
+    ``generator`` (torch's default generator when None), on ``device``.
+    Everything is drawn whatever the loss's options, so a run's draws
+    do not depend on them."""
+    b, _, m = shape
+    kw = dict(generator=generator, device=device)
+    return TrainingDraws(
+        t=torch.rand(b, **kw), eps=torch.randn(tuple(shape), **kw),
+        crop_u=torch.rand(b, **kw), drop_u=torch.rand(b, **kw),
+        fm_height=torch.randint(10, 21, (b,), **kw),
+        fm_start=torch.randint(20, max(m - 20, 21), (b,), **kw))
+
+
+def cfm_training_loss(net, x1_mel: torch.Tensor, cond_mel: torch.Tensor,
+                      mel_lengths: torch.Tensor, *, method: str,
+                      sigma: float, out_size: int,
+                      cond_drop_prob: float = 0.0, weighted: bool = False,
+                      cond_freq_masking: bool = False, train: bool = True,
+                      draws: Optional[TrainingDraws] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """Path construction, segment crop and the vector field's regression
+    loss for targets ``x1_mel`` and conditions ``cond_mel`` [B, T, M] with
+    ``mel_lengths`` [B] valid frames; ``out_size`` <= 0 keeps whole
+    sequences. ``net`` (a ``VectorFieldNet``) runs in train mode (dropout
+    on) with ``train``, in eval mode without; its mode comes back after.
+    ``draws`` are the loss's random numbers (``draw_training`` from
+    ``generator`` when None); the dropout masks come from ``generator``
+    after them."""
+    if draws is None:
+        draws = draw_training(generator, x1_mel.shape, x1_mel.device)
+    if cond_freq_masking:
+        cond_mel = freq_mask_cond(cond_mel, draws.fm_height, draws.fm_start)
+    t = draws.t
+    ps = sample_path(method, x1_mel, cond_mel, t, sigma, draws.eps)
+    if out_size and out_size > 0:
+        (w, flow, cond_c), mask = crop_segments(
+            (ps.x_t, ps.u_t, cond_mel), mel_lengths, out_size, draws.crop_u)
+    else:
+        w, flow, cond_c = ps.x_t, ps.u_t, cond_mel
+        frames = torch.arange(x1_mel.shape[1], device=x1_mel.device)
+        mask = frames[None, :] < mel_lengths[:, None]
+    drop_mask = draws.drop_u < cond_drop_prob if cond_drop_prob > 0 else None
+    was_training = net.training
+    net.train(train)
+    try:
+        pred = net(w, times=t, cond=cond_c, cond_drop_mask=drop_mask,
+                   mask=mask, generator=generator)
+    finally:
+        net.train(was_training)
+    return cfm_loss(pred, flow, mask=mask, weighted=weighted,
+                    cutoff=ps.cutoff)

@@ -5,25 +5,30 @@ reference's constructor keywords and wrapper methods runs on the port.
 
 ``FLowHigh`` bundles a ``VectorFieldNet`` (on CUDA unless ``device="cpu"``)
 with its config and an optional ``MelVoco`` codec; the wrapper exposes
-``sample`` and ``load``. ``forward``, the training loss, is not ported yet
-and raises (ROADMAP.md queue 1 item 12(a)). Noise: JAX's draws cannot be
-made in torch, so ``sample`` takes a caller's ``eps`` (or a
-``torch.Generator``) where the JAX wrapper takes ``rng``.
+``sample``, ``forward`` (the training loss) and ``load``. Noise: JAX's
+draws cannot be made in torch, so ``sample`` takes a caller's ``eps`` and
+``forward`` a caller's ``cfm.TrainingDraws`` (or a ``torch.Generator``)
+where the JAX wrapper takes ``rng``.
 """
 
 from __future__ import annotations
 
+import warnings
 from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from .cfm import CFM_METHODS, TrainingDraws, cfm_training_loss
 from .compat.jax_params import seeded_init_, vector_field_state_from_jax
 from .compat.torch_ckpt import (vector_field_state_from_reference,
                                 vocoder_config_from_json,
                                 vocoder_state_from_reference)
 from .config import ModelConfig
+from .dsp import resample_poly
 from .models import BigVGAN, MelVoco, VectorFieldNet
+from .models.melvoco import encode
 from .sr import _is_probably_audio, sample_mel, solve_ode
 from .utils import resolve_device
 
@@ -111,7 +116,7 @@ class ConditionalFlowMatcherWrapper:
     ``torchdiffeq_ode_method`` ("euler" | "midpoint") on the fixed grid;
     ``ode_tableau`` names the adaptive tableau ("dopri5" by default).
     ``torchode_method_klass`` is accepted and unused, as in the JAX
-    package; ``cond_drop_prob`` is kept for training."""
+    package; ``cond_drop_prob`` is the training loss's."""
 
     def __init__(
         self,
@@ -173,12 +178,61 @@ class ConditionalFlowMatcherWrapper:
             return sampled
         return enc.decode(sampled)
 
-    def forward(self, x1, **kwargs):
-        """The training loss (the JAX wrapper's ``forward``): not ported."""
-        raise NotImplementedError(
-            "ConditionalFlowMatcherWrapper.forward (the training loss) is not "
-            "ported yet (ROADMAP.md queue 1 item 12(a)); use "
-            "flowhigh_tpu.cfm_wrapper to train")
+    def forward(self, x1, *, cond=None, cond_lengths=None, mask=None,
+                cond_mask=None, input_sampling_rate=None,
+                cond_freq_masking: bool = False, random_sr=None,
+                weighted_loss: bool = False, cfm_method: Optional[str] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[TrainingDraws] = None) -> torch.Tensor:
+        """The training loss (``cfm.cfm_training_loss``, the net in train
+        mode) of targets ``x1`` against conditions ``cond``: each audio
+        ([B, T] or [B, 1, T], resampled from ``input_sampling_rate`` to the
+        codec's rate and mel-encoded, no gradient) or a log-mel [B, T, M].
+        Mels of unequal length are padded at the end (with the JAX
+        wrapper's warning: the reference pads at the front) and
+        ``cond_lengths`` (frames, clipped to [1, T]; default all) marks
+        the valid ones; crops of 2 s at the codec's rate. ``mask`` and
+        ``cond_mask`` are accepted and ignored, and ``random_sr`` unused,
+        as in the JAX wrapper. ``draws``: the loss's random numbers; else
+        ``generator`` (seeded 0 on the net's device when None) draws them
+        and the dropout masks. Needs ``audio_enc_dec`` for its mel
+        config."""
+        del mask, cond_mask, random_sr
+        if cfm_method not in CFM_METHODS:
+            cfm_method = self.cfm_method
+        fh = self.flowhigh
+        if fh.audio_enc_dec is None:
+            raise ValueError("audio_enc_dec must be set")
+        mel_cfg = fh.audio_enc_dec.mel_cfg
+        x1, cond = (torch.as_tensor(a, dtype=torch.float32, device=fh.device)
+                    for a in (x1, cond))
+        codec_sr = mel_cfg.sampling_rate
+        in_sr = int(input_sampling_rate or codec_sr)
+        with torch.no_grad():
+            x1, cond = (encode(resample_poly(a.reshape(a.shape[0], -1),
+                                             codec_sr, in_sr), mel_cfg)
+                        if _is_probably_audio(a) else a for a in (x1, cond))
+        t = max(x1.shape[1], cond.shape[1])
+        if x1.shape[1] != cond.shape[1]:
+            warnings.warn(
+                f"x1/cond mel lengths differ ({x1.shape[1]} vs "
+                f"{cond.shape[1]}): end-padding to {t} (the reference would "
+                "front-pad; its mask stays start-anchored)", stacklevel=2)
+        x1, cond = (F.pad(a, (0, 0, 0, t - a.shape[1])) for a in (x1, cond))
+        if cond_lengths is None:
+            mel_lengths = torch.full((x1.shape[0],), t, device=fh.device)
+        else:
+            mel_lengths = torch.clamp(torch.as_tensor(
+                cond_lengths, device=fh.device).to(torch.int64), 1, t)
+        if generator is None and draws is None:
+            generator = torch.Generator(device=fh.device).manual_seed(0)
+        return cfm_training_loss(
+            fh.net, x1, cond, mel_lengths, method=cfm_method,
+            sigma=self.sigma,
+            out_size=2 * mel_cfg.sampling_rate // mel_cfg.hop_length,
+            cond_drop_prob=self.cond_drop_prob, weighted=weighted_loss,
+            cond_freq_masking=cond_freq_masking, train=True, draws=draws,
+            generator=generator)
 
     __call__ = forward
 

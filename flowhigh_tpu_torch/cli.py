@@ -130,8 +130,10 @@ def cmd_infer(args) -> int:
 
 def cmd_train(args) -> int:
     raise NotImplementedError(
-        "training is not ported to flowhigh_tpu_torch yet (ROADMAP.md queue 1 "
-        "item 12); use python -m flowhigh_tpu.cli train")
+        "the train command is not ported to flowhigh_tpu_torch yet (ROADMAP.md "
+        "queue 1 item 12(c): it needs the data pipeline and the vocoder "
+        "trainer); drive flowhigh_tpu_torch.train.Trainer from Python, or use "
+        "python -m flowhigh_tpu.cli train")
 
 
 def cmd_vocoder(args) -> int:

@@ -14,6 +14,13 @@ Checkpoint schemas (the reference's):
 
 Files are read with ``torch.load(weights_only=True)``: tensors and plain
 containers only, never pickled code.
+
+The trainer's export goes the other way: ``reference_param_order``,
+``optim_state_to_reference`` and ``scheduler_state_to_reference`` write
+the reference's ``{'model', 'optim', 'scheduler'}`` package, whose optimizer
+state a ``torch.optim.Adam(flowhigh.parameters())`` built the reference's
+way loads (counterparts of ``flowhigh_tpu/compat/torch_ckpt.py:424, 489,
+537``).
 """
 
 from __future__ import annotations
@@ -117,3 +124,99 @@ def load_flowhigh_checkpoint(cls, ckpt_dir: Path, model_file: str,
     sr.net.load_state_dict(vector_field_state_from_reference(
         pkg["model"], sr.net.state_dict()))
     return sr
+
+
+# --- the trainer's export in the reference's layout ---------------------------------
+
+def reference_param_order(model_cfg: ModelConfig) -> list:
+    """Vector-field parameter names in the reference's ``named_parameters()``
+    order, which is the positional index of a torch ``Adam(flowhigh
+    .parameters())`` state dict. torch yields a module's direct parameters
+    before its submodules', so ``null_cond`` (the net's one direct
+    Parameter) comes first, a Transformer's ``register_tokens`` before its
+    layers and a ConvNeXt block's ``gamma`` before its convs. The port's
+    ``VectorFieldNet`` registers its parameters in this order."""
+    order = [
+        "null_cond",
+        "sinu_pos_emb.0.weights", "sinu_pos_emb.1.weight", "sinu_pos_emb.1.bias",
+        "to_embed.weight", "to_embed.bias",
+        "conv_embed.dw_conv1d.0.weight", "conv_embed.dw_conv1d.0.bias",
+    ]
+    if model_cfg.architecture == "transformer":
+        if model_cfg.num_register_tokens > 0:
+            order += ["transformer.register_tokens"]
+        for i in range(model_cfg.depth):
+            L = f"transformer.layers.{i}."
+            if model_cfg.use_unet_skip_connection and i >= model_cfg.depth // 2:
+                order += [L + "0.weight", L + "0.bias"]
+            order += [L + "2.to_gamma.weight", L + "2.to_gamma.bias",
+                      L + "2.to_beta.weight", L + "2.to_beta.bias"]
+            if model_cfg.attn_qk_norm:
+                order += [L + "3.q_norm.gamma", L + "3.k_norm.gamma"]
+            order += [L + "3.to_qkv.weight", L + "3.to_out.weight",
+                      L + "4.to_gamma.weight", L + "4.to_gamma.bias",
+                      L + "4.to_beta.weight", L + "4.to_beta.bias",
+                      L + "5.0.weight", L + "5.0.bias",
+                      L + "5.3.weight", L + "5.3.bias"]
+        order += ["transformer.final_norm.gamma"]
+    else:
+        for i in range(model_cfg.convnext_layers):
+            L = f"convnext.{i}."
+            order += [L + "gamma",
+                      L + "dwconv.weight", L + "dwconv.bias",
+                      L + "norm.scale.weight", L + "norm.scale.bias",
+                      L + "norm.shift.weight", L + "norm.shift.bias",
+                      L + "pwconv1.weight", L + "pwconv1.bias",
+                      L + "pwconv2.weight", L + "pwconv2.bias"]
+        order += ["final_layer_norm.weight", "final_layer_norm.bias"]
+    order += ["to_pred.weight"]
+    return order
+
+
+def optim_state_to_reference(net, adam: torch.optim.Optimizer, model_cfg,
+                             train_cfg, step: int) -> dict:
+    """The Adam moments of ``net``'s parameters in ``adam`` -> the
+    reference's ``optimizer.state_dict()``: one param group over
+    ``reference_param_order``, each entry's ``step`` = ``step`` (optimizer
+    updates). ``null_cond`` is frozen in the reference (``requires_grad=
+    False``), so it stays in the group with no state, as torch leaves it; a
+    parameter the optimizer has not stepped yet gets zero moments."""
+    order = reference_param_order(model_cfg)
+    params = dict(net.named_parameters())
+    groups = [{
+        "lr": float(train_cfg.lr),
+        "betas": (float(train_cfg.adam_b1), float(train_cfg.adam_b2)),
+        "eps": float(train_cfg.adam_eps),
+        "weight_decay": float(train_cfg.weight_decay),
+        "amsgrad": False, "maximize": False, "foreach": None,
+        "capturable": False, "differentiable": False, "fused": None,
+        "params": list(range(len(order))),
+    }]
+    state = {}
+    for idx, name in enumerate(order):
+        if name == "null_cond":
+            continue
+        p = params[name]
+        st = adam.state.get(p, {})
+        state[idx] = {
+            "step": torch.tensor(float(step)),
+            "exp_avg": st.get("exp_avg", torch.zeros_like(p)).detach().cpu(),
+            "exp_avg_sq": st.get("exp_avg_sq",
+                                 torch.zeros_like(p)).detach().cpu(),
+        }
+    return {"state": state, "param_groups": groups}
+
+
+def scheduler_state_to_reference(train_cfg, step: int, last_lr: float) -> dict:
+    """The reference's ``CosineAnnealingLR(optim, T_max=num_train_steps)``
+    state dict after ``step`` updates."""
+    return {
+        "T_max": int(train_cfg.num_train_steps),
+        "eta_min": 0,
+        "base_lrs": [float(train_cfg.lr)],
+        "last_epoch": int(step),
+        "verbose": False,
+        "_step_count": int(step) + 1,
+        "_get_lr_called_within_step": False,
+        "_last_lr": [float(last_lr)],
+    }

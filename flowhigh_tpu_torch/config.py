@@ -125,7 +125,9 @@ class TrainConfig:
     cond_freq_masking: bool = False
     random_seed: int = 104
     random_split_seed: int = 53
-    # training-compute dtype of the JAX package's trainer (not ported)
+    # the vector field's compute dtype while training (train.Trainer puts it
+    # in place of ModelConfig.compute_dtype); parameters, gradients and the
+    # loss stay float32. "float32" opts out.
     amp_dtype: str = "bfloat16"
 
 

@@ -9,7 +9,12 @@ layers under U-Net skips), the GateLoop layer, attn-norm, attention,
 ff-norm and the GEGLU feed-forward; an unused slot is an ``nn.Identity``.
 The attention is a dense matmul-softmax-matmul with a key-padding mask, or,
 with ``attn_flash`` (long-form), the blockwise kernel F
-(``ops.flash_attention``) at O(N) memory.
+(``ops.flash_attention``) at O(N) memory. In ``train()`` mode
+``attn_dropout`` drops attention probabilities after the softmax (dense
+path only: flash is taken when the rate is 0 or the module is in eval
+mode, as in the JAX package) and ``ff_dropout`` the GEGLU output before
+the feed-forward's second Linear; each mask is drawn from the
+``generator`` passed down through ``forward``.
 
 ``dtype`` is the JAX package's compute dtype (``ModelConfig.compute_dtype``)
 with its cast points: the Linear layers take their inputs, weights and
@@ -67,6 +72,19 @@ def depthwise_conv(conv: nn.Conv1d, x: torch.Tensor,
         y = F.conv1d(x.to(dtype), conv.weight.to(dtype), None,
                      padding=conv.padding, groups=conv.groups)
     return y + conv.bias[:, None]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``Dropout``: each element kept where a uniform draw from
+    ``generator`` (torch's default generator when None) falls below
+    1 - ``rate``, and scaled by 1 / (1 - rate); all zero at rate 1."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 def rotary_freqs(seq_len: int, dim_head: int, theta: float = 50000.0,
@@ -146,15 +164,16 @@ class Attention(nn.Module):
     """Fused-QKV multi-head attention with qk-norm (scale 10) and RoPE.
     ``use_flash`` routes the scores through ``ops.flash_attention`` (kernel
     F; O(N) memory, the JAX package's segment-id padding semantics for
-    masked rows) instead of the dense path; it has no parameters of its
-    own."""
+    masked rows) instead of the dense path, unless ``dropout`` is active
+    (train mode, rate > 0); it has no parameters of its own."""
 
     def __init__(self, dim: int, heads: int = 16, dim_head: int = 64,
                  qk_norm: bool = True, qk_norm_scale: float = 10.0,
-                 use_flash: bool = False, dtype: torch.dtype = torch.float32):
+                 use_flash: bool = False, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
-        self.use_flash, self.dtype = use_flash, dtype
+        self.use_flash, self.dtype, self.dropout = use_flash, dtype, dropout
         inner = heads * dim_head
         self.qk_norm = qk_norm
         self.scale = qk_norm_scale if qk_norm else dim_head ** -0.5
@@ -164,7 +183,8 @@ class Attention(nn.Module):
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = nn.Linear(inner, dim, bias=False)
 
-    def forward(self, x, rotary, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, rotary, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         b, n, _ = x.shape
         dt = self.dtype
         q, k, v = dense(self.to_qkv, x, dt).chunk(3, dim=-1)
@@ -176,7 +196,8 @@ class Attention(nn.Module):
         lowp = dt != torch.float32
         if lowp:  # float32 products of the dt values
             q, k, v = q.float(), k.float(), v.float()
-        if self.use_flash:
+        drop = self.training and self.dropout > 0.0
+        if self.use_flash and not drop:
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), mask, self.scale)
         else:
@@ -186,8 +207,10 @@ class Attention(nn.Module):
                                       torch.finfo(sim.dtype).min)
             attn = sim.softmax(dim=-1)
             if lowp:  # the probabilities round to dt before AV
-                attn = attn.to(dt).float()
-            out = torch.matmul(attn, v)
+                attn = attn.to(dt)
+            if drop:
+                attn = dropout(attn, self.dropout, generator)
+            out = torch.matmul(attn.float() if lowp else attn, v)
         if lowp:
             out = out.to(dt)
         return dense(self.to_out, out.transpose(1, 2).reshape(b, n, -1), dt)
@@ -203,18 +226,21 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Sequential):
     """GEGLU feed-forward, inner dim int(dim*mult*2/3); slots 0 and 3 hold
-    the weights, as in the reference layout."""
+    the weights, as in the reference layout, whose slot 2 is the dropout
+    (``dropout``, in train mode) between them."""
 
     def __init__(self, dim: int, mult: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         inner = int(dim * mult * 2 / 3)
         super().__init__(nn.Linear(dim, inner * 2), GEGLU(), nn.Identity(),
                          nn.Linear(inner, dim))
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
 
-    def forward(self, x):
-        return dense(self[3], self[1](dense(self[0], x, self.dtype)),
-                     self.dtype)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        h = self[1](dense(self[0], x, self.dtype))
+        if self.training and self.dropout > 0.0:
+            h = dropout(h, self.dropout, generator)
+        return dense(self[3], h, self.dtype)
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -263,7 +289,8 @@ class Transformer(nn.Module):
     and stripped before ``final_norm``; U-Net skips (``depth`` even: the
     first half's inputs, scaled by ``skip_connect_scale``, default 2^-0.5,
     joined to the second half's by a Linear(2 dim, dim) combiner in slot
-    0); GateLoop layers (slot 1) before each attention, residual added."""
+    0); GateLoop layers (slot 1) before each attention, residual added;
+    ``attn_dropout`` and ``ff_dropout`` in train mode."""
 
     def __init__(self, dim: int, depth: int, heads: int = 16, dim_head: int = 64,
                  ff_mult: int = 4, qk_norm: bool = True,
@@ -272,7 +299,8 @@ class Transformer(nn.Module):
                  use_unet_skip_connection: bool = False,
                  skip_connect_scale: Optional[float] = None,
                  use_gateloop_layers: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
         super().__init__()
         if use_unet_skip_connection and depth % 2:
             raise ValueError(f"U-Net skip connections need an even depth, "
@@ -296,13 +324,15 @@ class Transformer(nn.Module):
                 GateLoop(dim, dtype) if use_gateloop_layers else nn.Identity(),
                 AdaptiveRMSNorm(dim, dim),
                 Attention(dim, heads, dim_head, qk_norm, qk_norm_scale,
-                          use_flash=attn_flash, dtype=dtype),
+                          use_flash=attn_flash, dtype=dtype,
+                          dropout=attn_dropout),
                 AdaptiveRMSNorm(dim, dim),
-                FeedForward(dim, ff_mult, dtype),
+                FeedForward(dim, ff_mult, dtype, ff_dropout),
             ]) for i in range(depth)])
         self.final_norm = RMSNorm(dim)
 
-    def forward(self, x, time_emb, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, time_emb, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         b, n = x.shape[:2]
         r = self.num_register_tokens
         positions = None
@@ -324,8 +354,8 @@ class Transformer(nn.Module):
                           self.dtype)
             if self.use_gateloop:
                 x = gateloop(x) + x
-            x = attn(attn_norm(x, time_emb), rotary, mask) + x
-            x = ff(ff_norm(x, time_emb)) + x
+            x = attn(attn_norm(x, time_emb), rotary, mask, generator) + x
+            x = ff(ff_norm(x, time_emb), generator) + x
         if r > 0:
             x = x[:, r:]
         return self.final_norm(x)

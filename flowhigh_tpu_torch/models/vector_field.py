@@ -57,7 +57,8 @@ class VectorFieldNet(nn.Module):
                 num_register_tokens=cfg.num_register_tokens,
                 use_unet_skip_connection=cfg.use_unet_skip_connection,
                 skip_connect_scale=cfg.skip_connect_scale,
-                use_gateloop_layers=cfg.use_gateloop_layers, dtype=dt)
+                use_gateloop_layers=cfg.use_gateloop_layers, dtype=dt,
+                attn_dropout=cfg.attn_dropout, ff_dropout=cfg.ff_dropout)
         else:
             self.convnext = ConvNeXtBackbone(cfg.dim, cfg.convnext_layers,
                                              cfg.convnext_mult, dt)
@@ -67,10 +68,13 @@ class VectorFieldNet(nn.Module):
     def forward(self, x: torch.Tensor, *, times: torch.Tensor,
                 cond: torch.Tensor,
                 cond_drop_mask: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x, cond: [B, T, dim_in]; times: [] or [B]; cond_drop_mask: [B]
         bool (True = null conditioning); mask: [B, T] bool (True = valid;
-        the ConvNeXt backbone ignores it, as the JAX package's does)."""
+        the ConvNeXt backbone ignores it, as the JAX package's does);
+        ``generator`` draws the transformer's dropout masks in train
+        mode."""
         b = x.shape[0]
         times = torch.as_tensor(times, dtype=torch.float32, device=x.device)
         if times.ndim == 0:
@@ -82,7 +86,7 @@ class VectorFieldNet(nn.Module):
         h = self.conv_embed(h, mask) + h
         t_emb = self.sinu_pos_emb(times)
         if self.cfg.architecture == "transformer":
-            h = self.transformer(h, t_emb, mask)
+            h = self.transformer(h, t_emb, mask, generator)
         else:
             h = self.convnext(h, t_emb)
             h = self.final_layer_norm(h.float()).to(h.dtype)

@@ -19,7 +19,8 @@ queries a block as 4 warps of 32 rows, 32-key tiles through a two-stage
 ``cp.async`` ring, Q split once into TF32 hi and lo, the softmax in base
 2 (``csrc/flash_attn.cu``; its arithmetic is emulated on the CPU in
 ``tests/test_torch_flash_plan.py``). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises, and raises under
+autograd (no backward, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -72,11 +73,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor],
                     scale: float) -> torch.Tensor:
     """Blockwise attention (kernel F): q, k, v [B, H, N, D] float32
-    contiguous, D in {16, 32, 64}; ``mask`` [B, N] bool or None."""
+    contiguous, D in {16, 32, 64}; ``mask`` [B, N] bool or None.
+
+    Forward only, as the JAX function is: it gives the library kernel no
+    backward block sizes, so differentiating it raises there
+    (``jax/experimental/pallas/ops/tpu/flash_attention.py:254-272``). On a
+    CUDA tensor that autograd would differentiate this raises the same
+    ``ValueError``; the CPU's plain version stays differentiable, as the
+    JAX package's einsum path is off the TPU."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention: Program is being differentiated, but not all "
+            "backward blocks are specified (kernel F is forward only, as the "
+            "JAX package's flash attention; train with attn_flash=False)")
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q, k, v must share one [B, H, N, D] "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -1,6 +1,6 @@
 """Training data — counterpart of ``flowhigh_tpu/train/data.py``. Only
 ``load_wav_mono`` is ported (the CLI reads its wavs with it); the degrading
-datasets and batch iterators are ROADMAP.md queue 1 item 12. WAV IO uses
+datasets and batch iterators are ROADMAP.md queue 1 item 12(b). WAV IO uses
 scipy."""
 
 from __future__ import annotations

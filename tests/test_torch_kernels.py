@@ -497,6 +497,26 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
                                                 device=cuda), 1.0)
 
 
+def test_flash_attention_refuses_autograd_as_the_jax_package(cuda, gen):
+    """Kernel F is forward only, as the JAX function is (its library kernel
+    gets no backward block sizes, so differentiating it raises): under
+    autograd the wrapper raises the same ValueError instead of returning an
+    output that no gradient flows through. Without a gradient it runs."""
+    from flowhigh_tpu_torch.config import ModelConfig
+    from flowhigh_tpu_torch.models import VectorFieldNet
+    q, k, v = (_randn(gen, cuda, 1, 2, 64, 16) for _ in range(3))
+    with pytest.raises(ValueError, match="backward blocks"):
+        ops.flash_attention(q.requires_grad_(), k, v, None, 10.0)
+    with torch.no_grad():
+        assert torch.isfinite(ops.flash_attention(q, k, v, None, 10.0)).all()
+    net = seeded_init_(VectorFieldNet(ModelConfig(
+        dim_in=32, dim=64, depth=2, heads=2, dim_head=16, attn_flash=True)),
+        0).to(cuda).train()
+    x = _randn(gen, cuda, 2, 40, 32)
+    with pytest.raises(ValueError, match="backward blocks"):
+        net(x, times=torch.full((2,), 0.3, device=cuda), cond=x).sum()
+
+
 def test_flash_vector_field_on_card_matches_cpu(cuda, gen):
     from flowhigh_tpu_torch.config import ModelConfig
     from flowhigh_tpu_torch.models import VectorFieldNet

@@ -46,12 +46,13 @@ def test_import_leaves_jax_unloaded():
         "import flowhigh_tpu_torch.metrics, flowhigh_tpu_torch.streaming\n"
         "import flowhigh_tpu_torch.cli, flowhigh_tpu_torch.ops.probes\n"
         "import flowhigh_tpu_torch.train.data, flowhigh_tpu_torch.app\n"
+        "import flowhigh_tpu_torch.train.trainer\n"
         "import flowhigh_tpu_torch.example, importlib.util\n"
         "spec = importlib.util.spec_from_file_location('probe_script', "
         "'scripts/port_bench_act_mxu.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'flowhigh_tpu')]\n"
+        "('jax', 'flax', 'optax', 'orbax', 'flowhigh_tpu')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -71,7 +72,8 @@ def _imported_roots(path: Path) -> set:
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_file_imports_jax_or_the_jax_package(path):
-    assert not _imported_roots(path) & {"jax", "jaxlib", "flax", "flowhigh_tpu"}
+    assert not _imported_roots(path) & {"jax", "jaxlib", "flax", "optax",
+                                        "orbax", "flowhigh_tpu"}
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

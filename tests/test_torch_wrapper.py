@@ -1,7 +1,8 @@
 """The port's reference-kwarg wrapper (``flowhigh_tpu_torch.cfm_wrapper``),
 utility helpers (``utils``) and metrics against the JAX package's on the
-CPU, mirroring tests/test_api_compat.py but for the training loss
-(``forward``, ROADMAP.md queue 1 item 12(a)), which the port refuses."""
+CPU, mirroring tests/test_api_compat.py; the training loss (``forward``,
+ROADMAP.md queue 1 item 12(a)) on audio here, on each path in
+tests/test_torch_train_loss.py."""
 
 import dataclasses
 import json
@@ -33,6 +34,7 @@ from flowhigh_tpu_torch.config import MelConfig, VocoderConfig
 from flowhigh_tpu_torch.models import MelVoco
 from test_torch_sample import _jax_draw
 from test_torch_sr import _perturbed_1d
+from test_torch_train_loss import jax_draws
 from test_torch_vector_options import _field_params
 
 # tests/test_api_compat.py's wrapper
@@ -126,12 +128,18 @@ def test_sample_needs_a_codec_for_audio(wrappers, rng):
 
 
 def test_forward_is_item_12a(wrappers, rng):
-    _, pw = wrappers
+    """Item 12(a) ported: the training loss on 0.5 s of audio (shorter than
+    the 2 s crop), through ``forward`` and the call, equals the JAX
+    wrapper's on JAX's draws."""
+    jw, pw = wrappers
     x1 = (rng.standard_normal((2, 24000)) * 0.3).astype(np.float32)
-    with pytest.raises(NotImplementedError, match=r"12\(a\)"):
-        pw.forward(x1, cond=x1)
-    with pytest.raises(NotImplementedError, match=r"12\(a\)"):
-        pw(x1, cond=x1)
+    key = jax.random.PRNGKey(2)
+    want = float(jax.jit(lambda a, r: jw.forward(a, cond=0.5 * a, rng=r))(
+        x1, key))
+    draws = jax_draws(key, (2, 50, 256))  # 50 frames of 0.5 s
+    for call in (pw.forward, pw):
+        got = float(call(x1, cond=0.5 * x1, draws=draws).detach())
+        assert abs(got - want) <= 1e-5 * abs(want), (got, want)
 
 
 def test_load_reference_layout(wrappers, tmp_path):
