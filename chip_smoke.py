@@ -163,6 +163,29 @@ T. the vector field's trainer (``flowhigh_tpu_torch.train.Trainer``). T1:
    ``flash_replayed``), its ``valid_loss`` within 1e-3 of the dense
    ``evaluate``'s, and a ``train_step`` raises ``ValueError`` (F has no
    backward, as in the JAX package);
+D. the training data and the CLI's ``train`` (after phase T). D1: the
+   native host-DSP library (``flowhigh_tpu_torch.native``) builds with
+   g++ from the checkout, and its ``host_degrade`` on 3 s clips at 4, 8,
+   16 and 32 kHz, Chebyshev orders 1, 8 and 11, equals scipy's chain
+   (rtol 1e-9, atol 1e-10). D2: clips/s of ``train.batch_iterator`` at
+   batch 128 of 3 s synthetic clips (native engine) with 2 and 8 thread
+   workers and 8 spawn processes, beside one clip at a time and the
+   host's CPU count. D3: the device ``dsp.sosfiltfilt`` (the sosfilt
+   kernel, ``csrc/sosfilt.cu``, two launches) against its plain version
+   (the loop over time, on the CPU) on 2 x 4,000 samples at orders 1, 8
+   and 11 (atol 1e-5) and against scipy (2e-3); its launches on a batch's
+   3 s crops [128, 144,000], counted, finite, two rows against scipy;
+   the kernel timed there (CUDA events) with its bytes bound and its
+   serial bound (one thread a row: 9 S float32 instructions a sample and
+   pass at the card's largest SM clock); and on [128, 4,000] (padded)
+   beside its plain version on the card, which launches ~9 S operations
+   a sample (the ``kernels`` line's row). D4: ``cli.main(["train",
+   ...])`` on a reference JSON at the published width (batch 128,
+   ``save_model_every`` 3, synthetic corpus, batches uploaded by the
+   prefetch threads): 3 updates, then auto-resume to update 4; the wall
+   time of each update and the share spent waiting in ``next(data_iter)``;
+   then ``Trainer.fit`` on the same iterator with ``device_prefetch=False``
+   and one batch's synchronous upload;
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    of scripts/bench_act_mxu.py): the probe script's run over its four
    cases with every launch count zeroed just before and read just after
@@ -192,9 +215,10 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    probe script's cases, one launch each; A, B and C's AMPBlock2 sums in
    ``resblock2_path``; kernel F's register-padded instance per phase V2
    flash clip; kernel F's launches in phase T3's ``evaluate`` in
-   ``evaluate_launches`` and ``evaluate_path``), with phase S's, phase V's
-   and phase T's paths (``paths``: name, launches, ms), phase T's summary
-   line (``train``), the card line and, last, the ``ok`` line.
+   ``evaluate_launches`` and ``evaluate_path``; the sosfilt kernel's
+   from phase D3), with phase S's, phase V's, phase T's and phase D's
+   paths (``paths``: name, launches, ms), phase T's summary line
+   (``train``), the card line and, last, the ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
 """
@@ -247,13 +271,15 @@ NARROW_COUT = 16
 # pre-passes, kernel A's instances (its strip and halo live in registers),
 # probe G (A's snake alone), every instance of kernel F (Q's split
 # fragments and the running O live in registers) and of probe H (the
-# output accumulator lives in registers), with H's prep kernels
+# output accumulator lives in registers), with H's prep kernels, and the
+# sosfilt kernel (its cascade's coefficients and states live in registers)
 NO_SPILL = ("act_conv1d_mma_kernel", "act_conv1d_s8_kernel",
             "amp_unit_mma_kernel", "amp_unit_s8_kernel", "act_amax_kernel",
             "conv1d_mma_kernel", "conv1d_s8_kernel", "conv1d_narrow_kernel",
             "conv1d_amax_kernel", "snake_aa_kernel",
             "snake_only_kernel", "flash_attn_kernel", "fir_tf32_kernel",
-            "fir_wgmma_kernel", "fir_pack_f32_kernel", "fir_pack_kernel")
+            "fir_wgmma_kernel", "fir_pack_f32_kernel", "fir_pack_kernel",
+            "sosfilt_kernel")
 
 
 def dot_seconds(peaks, kernel: str, dots: float, key=None) -> float:
@@ -302,6 +328,18 @@ def ptxas_entries(log: str) -> list:
                     (int(spill.group(1)), int(spill.group(2))) if spill
                     else (0, 0)))
     return out
+
+
+def sm_clock_mhz():
+    """The card's largest SM clock in MHz (nvidia-smi), or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout
+        return float(out.splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
 
 
 def card_peaks(name: str) -> tuple:
@@ -2268,6 +2306,332 @@ def train_phase(config, peaks) -> dict:
     return res
 
 
+# --- phase D: the data pipeline and the CLI's train ------------------------------
+
+# D1: the native chain against scipy on 3 s clips: (rate, order, ripple)
+D1_CASES = [(rate, order, ripple) for rate in (4000, 8000, 16000, 32000)
+            for order, ripple in ((1, 1e-9), (8, 0.05), (11, 5.0))]
+# D2: the batch iterator's configurations (worker_type, num_workers); the
+# spawn pool is timed over D2_BATCHES batches after its coordinators'
+# first two (the first includes the workers' start-up)
+D2_RUNS = (("thread", 2), ("thread", 8), ("process", 8))
+D2_BATCHES = 4
+# D3: the device sosfiltfilt: the check's filters (order, ripple, cutoff),
+# the check and timing shapes, the batch's (a 3 s crop of 128 waves)
+D3_FILTERS = ((1, 1e-9, 0.5), (8, 0.05, 1 / 3), (11, 5.0, 1 / 12))
+D3_CHECK, D3_TIMED, D3_BATCH = (2, 4000), (128, 4000), (128, 144000)
+D3_ATOL, D3_SCIPY_ATOL = 1e-5, 2e-3
+SOSFILT = "sosfilt"
+# one sample of one section: 5 products and 4 sums (csrc/sosfilt.cu); the
+# loop-carried chain of a section: a sum, a product, a difference, at an
+# FP32 latency of 4 cycles
+SOS_OPS, SOS_CHAIN, FP32_LATENCY = 9, 3, 4
+D4_UPDATES = 3
+
+
+class _TimedIter:
+    """Wraps an iterator: ``times`` collects (seconds spent in ``next``,
+    the clock when it returned) for each item."""
+
+    def __init__(self, it):
+        self.it, self.times = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        item = next(self.it)
+        t1 = time.perf_counter()
+        self.times.append((t1 - t0, t1))
+        return item
+
+    def close(self):
+        self.it.close()
+
+
+def _update_figures(times: list, t_end: float) -> dict:
+    """From a fit's batch timings: each update's wall time, from one
+    batch's hand-over to the next's (the update and the wait for the next
+    batch), that wait, the first batch's wait, and the share of the whole
+    run (first ``next`` to ``t_end``) spent in ``next``."""
+    walls = [(b[1] - a[1]) * 1e3 for a, b in zip(times, times[1:])]
+    waits = [b[0] * 1e3 for b in times[1:]]
+    total = t_end - (times[0][1] - times[0][0])
+    return {"ms_per_update": walls, "wait_ms": waits,
+            "first_batch_s": times[0][0], "wall_s": total,
+            "wait_share": sum(t for t, _ in times) / total}
+
+
+def _d1() -> dict:
+    from flowhigh_tpu_torch import native
+    from flowhigh_tpu_torch.dsp import host_degrade
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"phase D1: the native library did not build: "
+                             f"{native._lib_error}")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    wave = rng.standard_normal(3 * 48000)
+    wave /= np.abs(wave).max()
+    worst = 0.0
+    for rate, order, ripple in D1_CASES:
+        got = native.host_degrade(wave, 48000, rate, order, ripple)
+        want = host_degrade(wave, 48000, rate, order, ripple, engine="scipy")
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-10)
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"phase D1: native library built and loaded in {build_s:.1f} s; "
+          f"host_degrade on 3 s clips at {len(D1_CASES)} (rate, order) cases "
+          f"against scipy: max abs {worst:.3e} (rtol 1e-9, atol 1e-10)",
+          flush=True)
+    return {"build_s": build_s, "max_abs_vs_scipy": worst}
+
+
+def _d2(config) -> list:
+    import os
+
+    from flowhigh_tpu_torch.train import SyntheticAudioDataset, batch_iterator
+    ds = SyntheticAudioDataset(config.data, n_items=256, seconds=3.0)
+    b = config.train.batch_size
+    t0 = time.perf_counter()
+    for i in range(16):
+        ds[i]
+    one = 16 / (time.perf_counter() - t0)
+    res = [{"worker_type": "serial", "num_workers": 1, "clips_per_s": one}]
+    print(f"phase D2: host CPUs {os.cpu_count()}; one clip at a time "
+          f"(synthetic 3 s clip and its native degradation): {one:.1f} "
+          f"clips/s", flush=True)
+    for worker_type, n in D2_RUNS:
+        # threads: every worker's first batch from a cold start (one round,
+        # no batch made ahead of the window); processes: after the pool has
+        # started and both coordinators have delivered
+        n_batches = n if worker_type == "thread" else 2 + D2_BATCHES
+        t0 = time.perf_counter()
+        it = batch_iterator(ds, b, seed=1, pad_to=3 * 48000, num_workers=n,
+                            worker_type=worker_type)
+        try:
+            stamps = []
+            for _ in range(n_batches):
+                next(it)
+                stamps.append(time.perf_counter())
+        finally:
+            it.close()
+        start, n_timed = ((t0, n) if worker_type == "thread"
+                          else (stamps[1], D2_BATCHES))
+        rate = n_timed * b / (stamps[-1] - start)
+        res.append({"worker_type": worker_type, "num_workers": n,
+                    "clips_per_s": rate, "first_batch_s": stamps[0] - t0,
+                    "ms_per_batch": (stamps[-1] - start) * 1e3 / n_timed})
+        print(f"phase D2: batch_iterator({worker_type}, {n} workers), batch "
+              f"{b} of 3 s: first batch {stamps[0] - t0:.2f} s; {rate:.1f} "
+              f"clips/s over {n_timed} batches", flush=True)
+    return res
+
+
+def _sos_bounds(peaks, rows: int, t_ext: int, n_sec: int, clock_mhz) -> dict:
+    """Two passes over [rows, t_ext]: bytes (read and write each pass) and
+    operations at the card's peaks, and the serial bound of one thread's
+    row: the larger of the section's loop-carried chain and the 9 S
+    float32 instructions a warp issues a sample, one a cycle."""
+    bytes_ms = 2 * 2 * rows * t_ext * 4 / peaks[1] * 1e3
+    ops_ms = 2 * rows * t_ext * n_sec * SOS_OPS / peaks[0] * 1e3
+    cycles = max(SOS_CHAIN * FP32_LATENCY, SOS_OPS * n_sec)
+    serial_ms = (2 * t_ext * cycles / (clock_mhz * 1e3)
+                 if clock_mhz else None)
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "serial_bound_ms": serial_ms, "cycles_per_sample": cycles}
+
+
+def _d3(peaks, clock_mhz) -> dict:
+    import scipy.signal as sps
+    import torch
+
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.dsp import cheby1_sos, sosfiltfilt
+    from flowhigh_tpu_torch.dsp.filters import padlen
+    from flowhigh_tpu_torch.ops.iir import cascade, sosfilt_plain
+    rng = np.random.default_rng(12)
+    x = (0.5 * rng.standard_normal(D3_CHECK)).astype(np.float32)
+    worst, worst_scipy = 0.0, 0.0
+    for order, ripple, wn in D3_FILTERS:
+        sos = cheby1_sos(order, ripple, wn)
+        got = sosfiltfilt(sos, torch.from_numpy(x).cuda()).cpu().numpy()
+        plain = sosfiltfilt(sos, torch.from_numpy(x)).numpy()
+        ref = sps.sosfiltfilt(sos, x.astype(np.float64))
+        d, ds = float(np.abs(got - plain).max()), float(np.abs(got - ref).max())
+        print(f"phase D3: sosfiltfilt order {order} ripple {ripple:g} cutoff "
+              f"{wn:.4g} on {D3_CHECK}: kernel vs plain max abs {d:.3e} (<= "
+              f"{D3_ATOL:g}), vs scipy {ds:.3e} (<= {D3_SCIPY_ATOL:g})",
+              flush=True)
+        if not (d <= D3_ATOL and ds <= D3_SCIPY_ATOL):
+            raise AssertionError(f"phase D3: order {order}: {d}, {ds}")
+        worst, worst_scipy = max(worst, d), max(worst_scipy, ds)
+    # the path: a batch's 3 s crops through the device sosfiltfilt, counted
+    order, ripple, wn = D3_FILTERS[-1]
+    sos = cheby1_sos(order, ripple, wn)
+    coefs = cascade(sos, sps.sosfilt_zi(sos))
+    n_sec, pad = sos.shape[0], padlen(sos)
+    xb = 0.5 * torch.randn(D3_BATCH, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(3))
+    ops.reset_launch_counts()
+    yb = sosfiltfilt(sos, xb)
+    torch.cuda.synchronize()
+    launches = ops.sosfilt.launches
+    rows_ref = sps.sosfiltfilt(sos, xb[:2].double().cpu().numpy())
+    d_batch = float(np.abs(yb[:2].cpu().numpy() - rows_ref).max())
+    print(f"phase D3: sosfiltfilt on {D3_BATCH}: {launches} launches of "
+          f"{SOSFILT} (want 2), finite {bool(torch.isfinite(yb).all())}, "
+          f"rows 0-1 vs scipy max abs {d_batch:.3e}", flush=True)
+    if launches != 2 or not torch.isfinite(yb).all() \
+            or not d_batch <= D3_SCIPY_ATOL:
+        raise AssertionError(f"phase D3: batch: {launches}, {d_batch}")
+
+    def passes(x_ext, fn):
+        return lambda: fn(coefs, fn(coefs, x_ext), reverse=True)
+    ext_b = torch.randn(D3_BATCH[0], D3_BATCH[1] + 2 * pad, device="cuda")
+    crop_ms = time_ms(passes(ext_b, ops.sosfilt), reps=5, warmup=1)
+    crop = {"shape": list(ext_b.shape), "ms": crop_ms,
+            **_sos_bounds(peaks, *ext_b.shape, n_sec, clock_mhz)}
+    ext_t = torch.randn(D3_TIMED[0], D3_TIMED[1] + 2 * pad, device="cuda")
+    ms = time_ms(passes(ext_t, ops.sosfilt))
+    plain_ms = time_ms(passes(ext_t, sosfilt_plain), reps=1, warmup=0)
+    err = float((passes(ext_t, ops.sosfilt)()
+                 - passes(ext_t, sosfilt_plain)()).abs().max())
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "unfused_chain_ms": None, "launches": launches,
+           "max_abs_err": max(worst, err), "shape": list(ext_t.shape),
+           **_sos_bounds(peaks, *ext_t.shape, n_sec, clock_mhz),
+           "crop": crop, "max_abs_vs_scipy": worst_scipy}
+    print(f"phase D3: two passes (order {order}, {n_sec} sections) on "
+          f"{list(ext_t.shape)}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+          f"(max abs {err:.3e}), bound {row['bound_ms']:.4f} "
+          f"{row['bound_by']}, serial bound {row['serial_bound_ms']}; on "
+          f"{crop['shape']}: kernel {crop_ms:.3f} ms, bound "
+          f"{crop['bound_ms']:.4f} {crop['bound_by']}, serial bound "
+          f"{crop['serial_bound_ms']} ms ({crop['cycles_per_sample']} cycles "
+          f"a sample and pass at {clock_mhz} MHz)", flush=True)
+    if not err <= D3_ATOL:
+        raise AssertionError(f"phase D3: kernel vs plain {err}")
+    return row
+
+
+def _d4(config) -> dict:
+    import shutil
+
+    import torch
+
+    import flowhigh_tpu_torch.train as train_pkg
+    from flowhigh_tpu_torch import cli, ops
+    from flowhigh_tpu_torch.train import (SyntheticAudioDataset, Trainer,
+                                          batch_iterator, random_split)
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg_path = work / "config.json"
+    cfg_path.write_text(json.dumps({
+        "data": {"data_path": ""}, "model": {},
+        "train": {"batchsize": config.train.batch_size, "log_every": 1,
+                  "save_model_every": D4_UPDATES}}))
+    out = work / "results"
+    timed = []
+    real = train_pkg.batch_iterator
+
+    def spy(*args, **kw):  # time the training iterator, the first asked for
+        it = real(*args, **kw)
+        if not timed:
+            it = _TimedIter(it)
+            timed.append(it)
+        return it
+    res = {}
+    try:
+        train_pkg.batch_iterator = spy
+        for steps in (D4_UPDATES, D4_UPDATES + 1):
+            timed.clear()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "--config", str(cfg_path), "--steps",
+                           str(steps), "--save_dir", str(out)])
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            if ops.sosfilt.launches:
+                counts[SOSFILT] = ops.sosfilt.launches
+            fig = _update_figures(timed[0].times, t_end)
+            res[f"steps_{steps}"] = {"rc": rc, "s": t_end - t0,
+                                     "kernel_launches": counts, **fig}
+            print(f"phase D4: cli train --steps {steps}: rc {rc} in "
+                  f"{t_end - t0:.1f} s; ms per update "
+                  f"{[round(w, 1) for w in fig['ms_per_update']]}, of which "
+                  f"waiting on the data {[round(w, 1) for w in fig['wait_ms']]}"
+                  f" (first batch {fig['first_batch_s']:.2f} s); share of the "
+                  f"fit spent in next(data_iter) {fig['wait_share']:.3f}; port "
+                  f"kernels {counts or 'none'}", flush=True)
+            if rc != 0:
+                raise AssertionError(f"phase D4: cli train returned {rc}")
+    finally:
+        train_pkg.batch_iterator = real
+    lines = [json.loads(ln) for ln in
+             (out / "metrics.jsonl").read_text().splitlines()]
+    steps = [ln["step"] for ln in lines if "loss" in ln]
+    losses = [ln["loss"] for ln in lines if "loss" in ln]
+    print(f"phase D4: metrics.jsonl steps {steps}, losses "
+          f"{[round(v, 4) for v in losses]}; saved "
+          f"{sorted(p.name for p in out.glob('*.pt'))}", flush=True)
+    want = list(range(1, D4_UPDATES + 2))
+    if steps != want or not np.isfinite(losses).all() \
+            or not (out / f"trainstate_{D4_UPDATES}.pt").exists():
+        raise AssertionError(f"phase D4: steps {steps}, losses {losses}")
+    res["steps"], res["losses"] = steps, losses
+
+    # the same iterator without device_prefetch: Trainer.fit uploads each
+    # numpy batch inside its step
+    cfg = config
+    ds = SyntheticAudioDataset(cfg.data, n_items=256, seconds=3.0)
+    train_ds, _ = random_split(ds, cfg.train.valid_frac,
+                               cfg.train.random_split_seed)
+    tr = Trainer(cfg.replace(train=dataclasses.replace(
+        cfg.train, log_every=1, save_model_every=0)),
+        results_folder=str(work / "no_prefetch"), device="cuda")
+    it = _TimedIter(batch_iterator(train_ds, cfg.train.batch_size,
+                                   pad_to=3 * 48000))
+    try:
+        tr.fit(it, num_steps=D4_UPDATES, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        batch = next(it)
+    finally:
+        it.close()
+    fig = _update_figures(it.times[:D4_UPDATES], t_end)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr._batch(batch)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    res["no_prefetch"] = {**fig, "upload_ms": upload_ms}
+    print(f"phase D4: Trainer.fit, device_prefetch=False: ms per update "
+          f"{[round(w, 1) for w in fig['ms_per_update']]}, of which waiting "
+          f"on the data {[round(w, 1) for w in fig['wait_ms']]}; share in "
+          f"next(data_iter) {fig['wait_share']:.3f}; one batch's synchronous "
+          f"upload from pageable memory {upload_ms:.1f} ms", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def data_phase(config, peaks, clock_mhz) -> dict:
+    """Phase D (see the module docstring)."""
+    res = {}
+    for name, fn in (("d1", _d1), ("d2", lambda: _d2(config)),
+                     ("d3", lambda: _d3(peaks, clock_mhz)),
+                     ("d4", lambda: _d4(config))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        res[f"{name}_s"] = time.perf_counter() - t0
+    print(f"phase D: D1 {res['d1_s']:.1f} s, D2 {res['d2_s']:.1f} s, D3 "
+          f"{res['d3_s']:.1f} s, D4 {res['d4_s']:.1f} s", flush=True)
+    return res
+
+
 # --- phase M: the probe kernels --------------------------------------------------
 
 # probe instance -> the probe script's row that launches it
@@ -2586,6 +2950,7 @@ def main() -> int:
     card = card.splitlines()[0]
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
+    clock_mhz = sm_clock_mhz()
     print(f"card: {card}; peaks used for bounds: {peaks[0] / 1e12:g} TFLOP/s "
           f"f32, {peaks[1] / 1e12:g} TB/s, {peaks[4] / 1e12:g} TFLOP/s TF32",
           flush=True)
@@ -2805,6 +3170,12 @@ def main() -> int:
     training["phase_s"] = time.perf_counter() - t0
     print(f"phase T: done in {training['phase_s']:.1f} s", flush=True)
 
+    # phase D: the data pipeline, the device sosfiltfilt, the CLI's train
+    t0 = time.perf_counter()
+    data = data_phase(config, peaks, clock_mhz)
+    data["phase_s"] = time.perf_counter() - t0
+    print(f"phase D: done in {data['phase_s']:.1f} s", flush=True)
+
     # phase 4: the records
     kernels = []
     for k in ALL_KERNELS:
@@ -2868,6 +3239,17 @@ def main() -> int:
                         "path": "scripts/port_bench_act_mxu.py (probe)",
                         "kernel_a_ms": r["kernel_a_ms"],
                         "kernel_b_ms": r["kernel_b_ms"]})
+    r = data["d3"]  # phase D3: the device sosfiltfilt on a batch's crops
+    kernels.append({"name": SOSFILT, "route": "cuda",
+                    "source": "flowhigh_tpu_torch/csrc/sosfilt.cu",
+                    "replaces": "flowhigh_tpu/dsp/filters.py:97 (_sosfilt, "
+                                "a lax.scan; no pallas_call)",
+                    **{f: r[f] for f in RECORD},
+                    "path": f"dsp.sosfiltfilt on {list(D3_BATCH)} (order "
+                            f"{D3_FILTERS[-1][0]}); times on {r['shape']}",
+                    "shape": r["shape"],
+                    "serial_bound_ms": r["serial_bound_ms"],
+                    "crop": r["crop"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -2890,7 +3272,7 @@ def main() -> int:
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
         "surface": surface, "resblock2_path": rb2_tot, "options": options,
-        "train": training,
+        "train": training, "data": data,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
     train_paths = [{"name": f"Trainer.train_step, batch "
                             f"{config.train.batch_size}, "
@@ -2898,9 +3280,28 @@ def main() -> int:
                     "launches": training[amp]["kernel_launches"],
                     "ms": training[amp]["ms_per_update"]}
                    for amp in ("bfloat16", "float32")]
+    d4 = data["d4"]
+    data_paths = [
+        {"name": f"cli train, batch {config.train.batch_size}, "
+                 f"device_prefetch (updates 2-{D4_UPDATES})",
+         "launches": d4[f"steps_{D4_UPDATES}"]["kernel_launches"],
+         "ms": float(np.median(d4[f"steps_{D4_UPDATES}"]["ms_per_update"])),
+         "wait_share": d4[f"steps_{D4_UPDATES}"]["wait_share"]},
+        {"name": "Trainer.fit on the same iterator, device_prefetch=False",
+         "launches": {},
+         "ms": float(np.median(d4["no_prefetch"]["ms_per_update"])),
+         "wait_share": d4["no_prefetch"]["wait_share"]},
+        {"name": f"dsp.sosfiltfilt on {list(D3_BATCH)}",
+         "launches": {SOSFILT: r["launches"]}, "ms": r["crop"]["ms"]}]
+    data_paths += [{"name": f"batch_iterator, {d['worker_type']} x "
+                            f"{d['num_workers']}, batch "
+                            f"{config.train.batch_size} of 3 s",
+                    "launches": {}, "ms": d["ms_per_batch"],
+                    "clips_per_s": d["clips_per_s"]}
+                   for d in data["d2"] if "ms_per_batch" in d]
     print(json.dumps({"kernels": kernels,
                       "paths": surface["paths"] + options["paths"]
-                      + train_paths}))
+                      + train_paths + data_paths}))
     t1 = training["t1"]
     print(json.dumps({"train": {
         "t1_card_vs_cpu": {k: t1[k] for k in ("loss_rel", "grad_rel_l2",

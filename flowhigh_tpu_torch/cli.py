@@ -7,17 +7,22 @@ Usage:
     python -m flowhigh_tpu_torch.cli infer   --input in.wav --output out.wav ...
     python -m flowhigh_tpu_torch.cli infer   --input_dir wavs/ --output_dir out/ ...
     python -m flowhigh_tpu_torch.cli vocoder --input_dir wavs/ --output_dir out/ ...
-    python -m flowhigh_tpu_torch.cli train   ...   (not ported: raises)
+    python -m flowhigh_tpu_torch.cli train   --config config.json --steps N ...
 
 ``infer`` runs the whole clip pipeline (the vocoder on kernels A-E on the
 card); ``vocoder`` runs BigVGAN alone on the mels of 48 kHz wavs. Without
 ``--ckpt_dir`` / ``--checkpoint`` both run seeded random weights (smoke
-mode).
+mode). ``train`` trains the vector field (``train.Trainer``) on the
+reference config's corpus, or on a synthetic one when its ``data_path`` is
+missing, degraded on host threads and uploaded to the card ahead of each
+step; ``--resume`` starts from a checkpoint's weights, otherwise it
+resumes from the newest ``trainstate_*.pt`` of the results folder.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -129,11 +134,77 @@ def cmd_infer(args) -> int:
 
 
 def cmd_train(args) -> int:
-    raise NotImplementedError(
-        "the train command is not ported to flowhigh_tpu_torch yet (ROADMAP.md "
-        "queue 1 item 12(c): it needs the data pipeline and the vocoder "
-        "trainer); drive flowhigh_tpu_torch.train.Trainer from Python, or use "
-        "python -m flowhigh_tpu.cli train")
+    import dataclasses
+
+    from .config import FlowHighConfig
+    from .models import VectorFieldNet
+    from .train import (AudioDataset, SyntheticAudioDataset, Trainer,
+                        batch_iterator, random_split)
+    from .utils import model_summary, resolve_device
+
+    # the JAX CLI's mesh and multi-host launch (its parallel.initialize)
+    if args.tp > 1:
+        raise NotImplementedError(
+            "--tp > 1: tensor parallelism is not ported to flowhigh_tpu_torch "
+            "(ROADMAP.md queue 1 item 13)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "a multi-process launch (WORLD_SIZE > 1) is not ported to "
+            "flowhigh_tpu_torch (ROADMAP.md queue 1 item 13)")
+    device = resolve_device(args.device)
+
+    cfg = (FlowHighConfig.from_reference_json(args.config)
+           if args.config else FlowHighConfig())
+    if args.steps:
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, num_train_steps=args.steps))
+
+    if cfg.data.data_path and Path(cfg.data.data_path).exists():
+        ds = AudioDataset(cfg.data.data_path, cfg.data)
+    else:
+        print("[train] data_path missing: using synthetic corpus")
+        ds = SyntheticAudioDataset(cfg.data, n_items=256, seconds=3.0)
+
+    # train/valid split (reference: trainer.py:118-129, seed 53) unless a
+    # dedicated valid corpus is configured (valid_prepare analog)
+    if cfg.data.valid_path and Path(cfg.data.valid_path).exists():
+        train_ds = ds
+        valid_ds = AudioDataset(cfg.data.valid_path, cfg.data, mode="valid")
+    else:
+        train_ds, valid_ds = random_split(ds, cfg.train.valid_frac,
+                                          cfg.train.random_split_seed)
+        print(f"[train] {len(train_ds)} train / {len(valid_ds)} valid "
+              f"(random_split seed {cfg.train.random_split_seed})")
+
+    trainer = Trainer(cfg, cfm_method=cfg.cfm.cfm_method,
+                      results_folder=args.save_dir or cfg.train.save_dir,
+                      device=device)
+    # model summary at startup (reference: train.py:75 torchinfo.summary)
+    print(model_summary(VectorFieldNet(trainer.model_cfg),
+                        "FLowHigh vector field"))
+    pad_to = cfg.data.sampling_rate * 3
+    # on the card the prefetch threads upload each batch (pinned buffers, a
+    # side stream), so that the copy overlaps the running step
+    on_card = device.type == "cuda"
+    data = batch_iterator(train_ds, cfg.train.batch_size, pad_to=pad_to,
+                          device_prefetch=on_card,
+                          device=device if on_card else None)
+    try:
+        valid_iter = batch_iterator(valid_ds, min(cfg.train.batch_size,
+                                                  max(1, len(valid_ds))),
+                                    pad_to=pad_to, num_workers=1)
+        try:
+            valid_batches = [next(valid_iter) for _ in range(2)]
+        finally:
+            valid_iter.close()  # stop its prefetch threads
+        state = None
+        if args.resume:
+            state = trainer.init_state(params=trainer.load_params(args.resume))
+        trainer.fit(data, state=state, auto_resume=not args.resume,
+                    valid_batches=valid_batches)
+    finally:
+        data.close()  # stop the training iterator's prefetch threads
+    return 0
 
 
 def cmd_vocoder(args) -> int:
@@ -221,7 +292,7 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flag(pi)
     pi.set_defaults(fn=cmd_infer)
 
-    pt = sub.add_parser("train", help="train the CFM vector field (not ported)")
+    pt = sub.add_parser("train", help="train the CFM vector field")
     pt.add_argument("--config", default=None,
                     help="reference configs/config.json schema")
     pt.add_argument("--steps", type=int, default=None)

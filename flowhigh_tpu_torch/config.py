@@ -8,6 +8,8 @@ the JAX package).
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Any, Optional
 
 
@@ -139,6 +141,58 @@ class FlowHighConfig:
     cfm: CFMConfig = CFMConfig()
     data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
+
+    @classmethod
+    def from_reference_json(cls, path: str | Path) -> "FlowHighConfig":
+        """Load the reference's configs/config.json schema
+        (reference: configs/config.json:1-45), every key and default as
+        ``flowhigh_tpu/config.py`` reads them."""
+        with open(path) as f:
+            c = json.load(f)
+        d, m, t = c.get("data", {}), c.get("model", {}), c.get("train", {})
+        mel = MelConfig(
+            sampling_rate=d.get("samplingrate", 48000),
+            n_fft=d.get("n_fft", 2048),
+            win_length=d.get("win_length", 2048),
+            hop_length=d.get("hop_length", 480),
+            n_mels=d.get("n_mel_channels", 256),
+            f_min=d.get("mel_fmin", 20.0),
+            f_max=d.get("mel_fmax", 24000.0),
+        )
+        model = ModelConfig(
+            architecture=m.get("architecture", "transformer"),
+            dim_in=mel.n_mels,
+            dim=m.get("dim", 1024),
+            depth=m.get("n_layers", 2),
+            heads=m.get("n_heads", 16),
+            dim_head=m.get("dim_head", 64),
+        )
+        cfm = CFMConfig(
+            cfm_method=m.get("cfm_path", "independent_cfm_adaptive"),
+            sigma=float(m.get("sigma", 1e-4)),
+        )
+        data = DataConfig(
+            data_path=d.get("data_path", ""),
+            valid_path=d.get("valid_path", ""),
+            sampling_rate=mel.sampling_rate,
+            downsample_min=d.get("downsample_min", 4000),
+            downsample_max=d.get("downsample_max", 32000),
+            downsampling_method=d.get("downsampling_method", "scipy"),
+        )
+        train = TrainConfig(
+            batch_size=t.get("batchsize", 128),
+            lr=float(t.get("lr", 3e-4)),
+            initial_lr=float(t.get("initial_lr", 1e-5)),
+            num_train_steps=t.get("n_train_steps", 400001),
+            num_warmup_steps=t.get("n_warmup_steps", 0),
+            log_every=t.get("log_every", 10),
+            save_model_every=t.get("save_model_every", 100000),
+            save_dir=t.get("save_dir", "./results"),
+            weighted_loss=bool(t.get("weighted_loss", False)),
+            random_seed=c.get("random_seed", 104),
+            random_split_seed=t.get("random_split_seed", 53),
+        )
+        return cls(mel=mel, model=model, cfm=cfm, data=data, train=train)
 
     def replace(self, **kw: Any) -> "FlowHighConfig":
         return dataclasses.replace(self, **kw)

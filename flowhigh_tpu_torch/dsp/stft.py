@@ -13,6 +13,7 @@ periodic Hann window, in float32, or in float64 for float64 input.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +21,30 @@ import torch.nn.functional as F
 def _hann(win_length: int, like: torch.Tensor) -> torch.Tensor:
     return torch.hann_window(win_length, periodic=True, device=like.device,
                              dtype=like.dtype)
+
+
+def hann_window(win_length: int, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """Periodic Hann window, the JAX package's: computed in float64 with
+    numpy, then cast to ``dtype``."""
+    n = np.arange(win_length)
+    w = (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
+def num_frames(n_samples: int, n_fft: int, hop_length: int,
+               center: bool) -> int:
+    """Frame count of an STFT over ``n_samples``."""
+    if center:
+        n_samples = n_samples + 2 * (n_fft // 2)
+    return 1 + (n_samples - n_fft) // hop_length
+
+
+def frame_signal(x: torch.Tensor, frame_length: int,
+                 hop_length: int) -> torch.Tensor:
+    """[..., T] -> [..., F, frame_length] overlapping frames (no padding),
+    a strided view of ``x``."""
+    return x.unfold(-1, frame_length, hop_length)
 
 
 def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 480,

@@ -7,6 +7,7 @@ from .fused_conv import (act_conv1d, act_conv1d_plain, act_conv_plan, amp_unit,
                          amp_unit_plain, amp_unit_plan)
 from .probes import (act_firs_only, act_firs_only_plain, mxu_fir,
                      mxu_fir_plain, snake_only, snake_only_plain)
+from .iir import sosfilt, sosfilt_plain
 
 # every kernel wrapper of the port; each carries a ``launches`` count of its
 # float32 instance
@@ -30,10 +31,13 @@ STORAGE_VARIANTS = ((snake_activation1d, torch.float32),
 # instances also counted in ``mxu_fir.instance_launches``) and kernel A's
 # firs-only instance
 PROBES = (snake_only, mxu_fir, act_firs_only)
+# the data pipeline's kernels (``dsp.filters.sosfiltfilt`` on the card), on
+# no model path
+DSP_KERNELS = (sosfilt,)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS + PROBES:
+    for fn in KERNELS + PROBES + DSP_KERNELS:
         fn.launches = 0
     for fn, dot_dtype in VARIANTS:
         fn.variant_launches[dot_dtype] = 0
@@ -49,8 +53,8 @@ __all__ = [
     "act_conv1d", "act_conv1d_plain", "amp_unit", "amp_unit_plain",
     "flash_attention", "flash_attention_plain",
     "snake_only", "snake_only_plain", "mxu_fir", "mxu_fir_plain",
-    "act_firs_only", "act_firs_only_plain",
+    "act_firs_only", "act_firs_only_plain", "sosfilt", "sosfilt_plain",
     "act_conv_plan", "amp_unit_plan", "KERNELS", "VARIANTS",
-    "STORAGE_VARIANTS", "PROBES",
+    "STORAGE_VARIANTS", "PROBES", "DSP_KERNELS",
     "reset_launch_counts",
 ]

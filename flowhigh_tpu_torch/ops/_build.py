@@ -28,7 +28,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "flowhigh_tpu_torch"
 SOURCES = ("snake_aa", "conv1d_same", "conv1d_same_bf16io",
            "conv_transpose1d", "act_conv1d", "act_conv1d_bf16io", "amp_unit",
-           "amp_unit_bf16io", "flash_attn", "probe_snake", "probe_fir")
+           "amp_unit_bf16io", "flash_attn", "probe_snake", "probe_fir",
+           "sosfilt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -76,6 +77,9 @@ SIGNATURES = {
                   **{name: [_P] * 6 + [_I] * 3 + [_P] for name in (
                       "mxu_fir_f32", "mxu_fir_f32_dots", "mxu_fir_bf16",
                       "mxu_fir_bf16_dots")}},
+    # the IIR pass takes its cascade by value (host pointer)
+    "sosfilt": {"sosfilt_f32": [_P, _I, _P, _P, _I, _I, _I, _P],
+                "sosfilt_max_sections": []},
 }
 RESTYPES = {"act_conv1d_smem_bytes": ctypes.c_longlong,
             "amp_unit_smem_bytes": ctypes.c_longlong,

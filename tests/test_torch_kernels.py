@@ -1034,3 +1034,67 @@ def test_tiny_vocoder_on_card_routes_odd_upsamplers_to_the_library(cuda, gen):
     assert ops.conv_transpose1d.launches == 2  # (8, 16), (4, 8)
     assert BigVGAN.library_upsamplers == 2     # (5, 10), (3, 6)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# --- the sosfilt kernel: the device sosfiltfilt's IIR pass -------------------------
+
+# (rows, samples, sections, reverse): one row, a part warp, more than one
+# block of 32 rows; fewer samples than a chunk of 8, one more than a chunk;
+# every instance S = 1..8
+SOSFILT_CASES = [(1, 1, 1, False), (3, 7, 2, True), (33, 9, 3, False),
+                 (70, 600, 4, True), (2, 1000, 5, False), (5, 777, 6, True),
+                 (32, 300, 7, False), (4, 513, 8, True)]
+
+
+def _cascade_of(n_sec):
+    import scipy.signal as sps
+
+    from flowhigh_tpu_torch.ops.iir import cascade
+    sos = sps.cheby1(2 * n_sec, 1.0, 0.3, btype="lowpass", output="sos")
+    return cascade(sos, sps.sosfilt_zi(sos))
+
+
+@pytest.mark.parametrize("rows,t,n_sec,reverse", SOSFILT_CASES)
+def test_sosfilt_kernel_matches_plain(cuda, gen, rows, t, n_sec, reverse):
+    # both round every product and sum on its own in the scan's order
+    from flowhigh_tpu_torch.ops.iir import sosfilt_plain
+    coefs = _cascade_of(n_sec)
+    x = _randn(gen, cuda, rows, t)
+    n0 = ops.sosfilt.launches
+    got = ops.sosfilt(coefs, x, reverse=reverse)
+    torch.cuda.synchronize()
+    assert ops.sosfilt.launches == n0 + 1
+    torch.testing.assert_close(got, sosfilt_plain(coefs, x, reverse),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("order,ripple,wn", [(1, 1e-9, 0.5), (8, 0.05, 1 / 3),
+                                             (11, 5.0, 1 / 12)])
+def test_sosfiltfilt_on_card_matches_cpu_and_scipy(cuda, gen, order, ripple,
+                                                   wn):
+    import scipy.signal as sps
+
+    from flowhigh_tpu_torch.dsp import cheby1_sos, sosfiltfilt
+    sos = cheby1_sos(order, ripple, wn)
+    x = (0.5 * gen.standard_normal((2, 4000))).astype(np.float32)
+    n0 = ops.sosfilt.launches
+    got = sosfiltfilt(sos, torch.from_numpy(x).to(cuda)).cpu().numpy()
+    assert ops.sosfilt.launches == n0 + 2  # forward, then reverse
+    plain = sosfiltfilt(sos, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, plain, atol=1e-5, rtol=0)
+    # tests/test_dsp.py's bound for the JAX function
+    np.testing.assert_allclose(got, sps.sosfiltfilt(sos, x.astype(np.float64)),
+                               atol=2e-3)
+
+
+def test_sosfilt_wrapper_rejects_what_the_kernel_does_not_take(cuda, gen):
+    coefs = _cascade_of(2)
+    x = _randn(gen, cuda, 4, 100)
+    with pytest.raises(ValueError, match="sections"):
+        ops.sosfilt(np.concatenate([coefs] * 5), x)  # 10 > 8 sections
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sosfilt(coefs, x.t())
+    with pytest.raises(ValueError, match="float32"):
+        ops.sosfilt(coefs, x.double())
+    with pytest.raises(ValueError, match="coefs"):
+        ops.sosfilt(coefs[:, :6], x)
