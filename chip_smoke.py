@@ -186,6 +186,25 @@ D. the training data and the CLI's ``train`` (after phase T). D1: the
    time of each update and the share spent waiting in ``next(data_iter)``;
    then ``Trainer.fit`` on the same iterator with ``device_prefetch=False``
    and one batch's synchronous upload;
+W. the vocoder's GAN training (``train.VocoderTrainer``: the generator on
+   kernels A, B and C, each carrying its plain version's VJP; D and E
+   refuse a gradient). W1: tests/test_torch_vocoder_train.py's tiny GAN on
+   the card and the CPU from the same weights and waves, float32: step 1's
+   three losses and flat gradient, and the parameters after three steps,
+   at phase T1's bounds, each also against twice the CPU's own change
+   under a +-2^-16 nudge of the waves (the larger holds; both printed); a
+   parameter without a card gradient fails. W2: kernels A, B and C under
+   autograd at every shape of the published generator's forward on 16 x
+   32 frames: each gradient within rel L2 1e-5 of the plain version's, the
+   forward, the Function's backward and the plain backward timed (CUDA
+   events), summed over the path's launches (the ``kernels`` line's
+   ``gan_train_path``). W3: ``VocoderConfig()``, the default MPD and MRD,
+   ``segment_frames=32``, batches of 16 ``VocoderSegmentDataset`` segments
+   of ``SyntheticAudioDataset``: ms a GAN step (median of 5 after 2, each
+   ending in a synchronize), peak memory, the launches of each step held
+   to the unfused path's (A 91, B 91, C 5, D and E none), and one step's
+   device time by kernel (torch.profiler), grouped as the port's forward
+   kernels, backward-named kernels and the rest;
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    of scripts/bench_act_mxu.py): the probe script's run over its four
    cases with every launch count zeroed just before and read just after
@@ -216,8 +235,9 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    ``resblock2_path``; kernel F's register-padded instance per phase V2
    flash clip; kernel F's launches in phase T3's ``evaluate`` in
    ``evaluate_launches`` and ``evaluate_path``; the sosfilt kernel's
-   from phase D3), with phase S's, phase V's, phase T's and phase D's
-   paths (``paths``: name, launches, ms), phase T's summary line
+   from phase D3; A, B and C's phase W2 figures in ``gan_train_path``),
+   with phase S's, phase V's, phase T's, phase D's and phase W's paths
+   (``paths``: name, launches, ms), phase T's summary line
    (``train``), the card line and, last, the ``ok`` line.
 
 Per-shape numbers go to chiprun_out/chip_smoke.json.
@@ -2632,6 +2652,287 @@ def data_phase(config, peaks, clock_mhz) -> dict:
     return res
 
 
+# --- phase W: the vocoder's GAN training ------------------------------------------
+
+# W1: tests/test_torch_vocoder_train.py's tiny GAN; its (8, 16) and (4, 8)
+# upsamplers take kernel C, the odd (5, 10) and (3, 6) the library conv
+W1_VOCODER = dict(num_mels=256, upsample_initial_channel=16,
+                  upsample_rates=(8, 5, 4, 3),
+                  upsample_kernel_sizes=(16, 10, 8, 6),
+                  resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))
+W1_TRAINER = dict(segment_frames=8, periods=(2,),
+                  resolutions=((512, 50, 240),))
+W1_STEPS = 3
+# W1's bounds are phase T1's: step 1's losses and gradients, the
+# parameters after the steps (each held instead to twice the CPU's own
+# change under a +-NUDGE of the waves, where that is larger)
+W1_TOLS = {"loss": T1_GRAD_TOL, "grad": T1_GRAD_TOL, "param": T1_PARAM_TOL}
+# W2 and W3: the published generator on 32-frame (15,360-sample) segments
+W_FRAMES, W_BATCH = 32, 16
+W_GRAD_TOL = 1e-5  # W2: each gradient against the plain version's, rel L2
+W2_REPS, W2_WARMUP = 5, 2
+W3_WARMUP, W3_TIMED = 2, 5
+GAN_KERNELS = ("snake_aa", "conv1d_same", "conv_transpose1d")
+
+
+def _w1_run(tr, wave: np.ndarray) -> dict:
+    """``W1_STEPS`` GAN steps of ``tr`` from seed 0 on ``wave``: each step's
+    metrics, step 1's gradients (None where a parameter got none) and the
+    parameters after the last step, on the host."""
+    state, metrics, grads = tr.init_state(0), [], None
+    named = [(f"{m}.{n}", p) for m in ("generator", "mpd", "mrd")
+             for n, p in getattr(state, m).named_parameters()]
+    for i in range(W1_STEPS):
+        state, m = tr.train_step(state, {"wave": wave})
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            grads = {k: None if p.grad is None else p.grad.cpu().numpy()
+                     for k, p in named}
+    return {"metrics": metrics, "grads": grads,
+            "params": {k: p.detach().cpu().numpy() for k, p in named}}
+
+
+def _w1() -> dict:
+    """W1: the tiny GAN trainer on the card and on the CPU from the same
+    weights and waves, float32."""
+    from flowhigh_tpu_torch.config import VocoderConfig
+    from flowhigh_tpu_torch.train import VocoderTrainer
+    cfg = VocoderConfig(**W1_VOCODER)
+    trs = {d: VocoderTrainer(cfg, device=d, **W1_TRAINER)
+           for d in ("cuda", "cpu")}
+    wave = (np.random.default_rng(0).standard_normal(
+        (2, trs["cpu"].segment_samples)) * 0.3).astype(np.float32)
+    runs = {d: _w1_run(tr, wave) for d, tr in trs.items()}
+    cpu = runs["cpu"]
+    missing = [k for k, g in runs["cuda"]["grads"].items()
+               if g is None and cpu["grads"][k] is not None]
+    if missing:  # never read as zeros
+        raise AssertionError(f"phase W1: no gradient on the card for "
+                             f"{missing}")
+
+    def flat(d):
+        return np.concatenate([v.ravel() for v in d.values()])
+
+    def figures(run):
+        m, m0 = run["metrics"][0], cpu["metrics"][0]
+        return {"loss": max(abs(m[k] - m0[k]) / abs(m0[k]) for k in m0),
+                "grad": rel_l2(flat(run["grads"]), flat(cpu["grads"])),
+                "param": rel_l2(flat(run["params"]), flat(cpu["params"]))}
+    card = figures(runs["cuda"])
+    nudged = [figures(_w1_run(trs["cpu"], wave * np.float32(1 + s)))
+              for s in (NUDGE, -NUDGE)]
+    floor = {k: max(n[k] for n in nudged) for k in card}
+    by_module = {m: rel_l2(
+        np.concatenate([v.ravel() for k, v in runs["cuda"]["grads"].items()
+                        if k.startswith(m)]),
+        np.concatenate([v.ravel() for k, v in cpu["grads"].items()
+                        if k.startswith(m)])) for m in ("generator", "mpd",
+                                                        "mrd")}
+    print(f"phase W1: tiny GAN trainer, float32, card vs CPU: step 1 losses "
+          f"{runs['cuda']['metrics'][0]} / {cpu['metrics'][0]}; " + "; ".join(
+              f"{k} {card[k]:.3e} (bound {W1_TOLS[k]:g}, the CPU's own change "
+              f"under a +-2^-16 nudge of the waves {floor[k]:.3e})"
+              for k in card) + f"; step 1 gradients by module {by_module}; "
+          f"{len(runs['cuda']['grads'])} parameters, each with a gradient",
+          flush=True)
+    if not all(card[k] <= max(W1_TOLS[k], 2 * floor[k]) for k in card):
+        raise AssertionError(f"phase W1: card and CPU disagree: {card}, "
+                             f"nudge {floor}")
+    return {"card_vs_cpu": card, "cpu_nudge": floor,
+            "grad_by_module": by_module,
+            "losses": [r["metrics"] for r in runs.values()]}
+
+
+def _w2_case(kernel: str, key, randn):
+    """(kernel call, plain call, inputs that require a gradient, output
+    shape) at one shape key of the unfused path, batch ``W_BATCH``."""
+    from flowhigh_tpu_torch import ops
+    b = W_BATCH
+    if kernel == "snake_aa":
+        c, t = key
+        xs = [randn(b, c, t), randn(c, scale=0.3), randn(c, scale=0.3)]
+        return (lambda x, a, be: ops.snake_activation1d(x, a, be),
+                lambda x, a, be: ops.snake_activation1d_plain(x, a, be),
+                xs, (b, c, t))
+    if kernel == "conv1d_same":
+        cin, cout, t, k, d, n_res, scale = key
+        xs = [randn(b, cin, t), randn(cout, cin, k, scale=(cin * k) ** -0.5),
+              randn(cout, scale=0.1)] + [randn(b, cout, t)
+                                         for _ in range(n_res)]
+        kw = dict(dilation=d, out_scale=scale)
+        return (lambda x, w, bb, *r: ops.conv1d(x, w, bb, residuals=r, **kw),
+                lambda x, w, bb, *r: ops.conv1d_plain(x, w, bb, residuals=r,
+                                                      **kw),
+                xs, (b, cout, t))
+    cin, cout, t, u, k = key
+    xs = [randn(b, cin, t), randn(cin, cout, k, scale=(cout * k) ** -0.5),
+          randn(cout, scale=0.1)]
+    return (lambda x, w, bb: ops.conv_transpose1d(x, w, bb, stride=u),
+            lambda x, w, bb: ops.conv_transpose1d_plain(x, w, bb, stride=u),
+            xs, (b, cout, u * t))
+
+
+def _w2(cfg) -> dict:
+    """W2: kernels A, B and C under autograd at every shape of the
+    generator's forward on a batch of ``W_BATCH`` x ``W_FRAMES`` frames:
+    each gradient against the plain version's (rel L2), and per shape the
+    kernel's forward, the Function's backward and the plain version's
+    backward, timed with CUDA events; summed over the path's launches."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    calls = main_path_calls(cfg, W_FRAMES, fuse_act_conv=False)
+    out = {}
+    for kernel in GAN_KERNELS:
+        tot = {"launches": 0, "shapes": len(calls[kernel]), "fwd_ms": 0.0,
+               "bwd_ms": 0.0, "plain_fwd_ms": 0.0, "plain_bwd_ms": 0.0,
+               "grad_rel_l2": 0.0}
+        for key, n in calls[kernel].items():
+            fn, plain, xs, shape = _w2_case(kernel, key, randn)
+            g = randn(*shape)
+            ka = [x.requires_grad_() for x in xs]
+            kp = [x.detach().clone().requires_grad_() for x in xs]
+            ya, yp = fn(*ka), plain(*kp)
+            ga = torch.autograd.grad(ya, ka, g, retain_graph=True)
+            gp = torch.autograd.grad(yp, kp, g, retain_graph=True)
+            worst = max(rel_l2(a.cpu(), b.cpu()) for a, b in zip(ga, gp))
+            if not worst <= W_GRAD_TOL:
+                raise AssertionError(f"phase W2: {kernel} {key}: gradient rel "
+                                     f"L2 {worst:.3e}")
+            timed = {
+                "fwd_ms": lambda: fn(*ka),
+                "bwd_ms": lambda: torch.autograd.grad(ya, ka, g,
+                                                      retain_graph=True),
+                "plain_fwd_ms": lambda: plain(*kp),
+                "plain_bwd_ms": lambda: torch.autograd.grad(
+                    yp, kp, g, retain_graph=True)}
+            for f, call in timed.items():
+                tot[f] += n * time_ms(call, W2_REPS, W2_WARMUP)
+            tot["launches"] += n
+            tot["grad_rel_l2"] = max(tot["grad_rel_l2"], worst)
+            del ya, yp, ga, gp, ka, kp
+        print(f"phase W2: {kernel}: {tot['launches']} launches a generator "
+              f"forward over {tot['shapes']} shapes ([{W_BATCH}, C, T] at "
+              f"{W_FRAMES} frames): gradients within rel L2 "
+              f"{tot['grad_rel_l2']:.3e} (<= {W_GRAD_TOL:g}) of the plain "
+              f"version's; forward {tot['fwd_ms']:.2f} ms (plain "
+              f"{tot['plain_fwd_ms']:.2f}), backward {tot['bwd_ms']:.2f} ms "
+              f"(plain {tot['plain_bwd_ms']:.2f}) summed over the launches",
+              flush=True)
+        out[kernel] = tot
+    return out
+
+
+def _kernel_split(prof) -> dict:
+    """Device ms of one profiled GAN step by kernel name, grouped: the
+    port's kernels (forward), the other kernels whose names mark a
+    backward pass (cuDNN's dgrad / wgrad, autograd's ``backward``), and
+    the rest (the forward's library kernels, the FFTs, the optimizers'
+    elementwise kernels); with the ten largest."""
+    import torch
+    port = ("snake_aa_kernel", "conv1d_mma_kernel", "conv1d_narrow_kernel",
+            "conv_transpose1d_kernel")
+    groups = {"port_forward": 0.0, "backward": 0.0, "other": 0.0}
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        name = e.key.lower()
+        grp = ("port_forward" if any(p in name for p in port) else
+               "backward" if any(p in name for p in (
+                   "dgrad", "wgrad", "backward", "bwd")) else "other")
+        groups[grp] += ms
+        rows.append((ms, e.key[:80], e.count, grp))
+    rows.sort(reverse=True)
+    return {**groups, "top": [[k, round(ms, 3), n, g]
+                              for ms, k, n, g in rows[:10]]}
+
+
+def _w3(cfg) -> dict:
+    """W3: the published generator, the default MPD and MRD, batches of
+    ``W_BATCH`` segments of ``W_FRAMES`` frames from
+    ``VocoderSegmentDataset`` over ``SyntheticAudioDataset``: ms a GAN step
+    (median of ``W3_TIMED`` after ``W3_WARMUP``, each ending in a
+    synchronize), peak memory, the launches of one step (counted, against
+    the unfused path's), and the device time by kernel of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.train import (SyntheticAudioDataset,
+                                          VocoderSegmentDataset,
+                                          VocoderTrainer)
+    tr = VocoderTrainer(cfg, segment_frames=W_FRAMES, device="cuda")
+    state = tr.init_state(0)
+    data = VocoderSegmentDataset(SyntheticAudioDataset(n_items=W_BATCH,
+                                                       seconds=1.0),
+                                 segment_samples=tr.segment_samples)
+    batch = {"wave": torch.from_numpy(np.stack(
+        [data[i]["wave"] for i in range(W_BATCH)])).cuda()}
+    want = {k: sum(v.values()) for k, v in main_path_calls(
+        cfg, W_FRAMES, fuse_act_conv=False).items()}
+    times, losses = [], []
+    torch.cuda.synchronize()
+    for i in range(W3_WARMUP + W3_TIMED):
+        if i == W3_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items()
+                  if k in KERNEL_NAMES}
+        if counts != want:
+            raise AssertionError(f"phase W3: step {i} launched {counts}, "
+                                 f"want {want}")
+        if i >= W3_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_step(state, batch)
+        torch.cuda.synchronize()
+    split = _kernel_split(prof)
+    n_params = {m: sum(p.numel() for p in getattr(state, m).parameters())
+                for m in ("generator", "mpd", "mrd")}
+    res = {"ms_per_step": float(np.median(times)), "ms_all": times,
+           "peak_gib": peak, "launches": counts, "losses": losses,
+           "params": n_params, **split}
+    print(f"phase W3: published generator ({n_params['generator']:,} "
+          f"parameters), MPD ({n_params['mpd']:,}), MRD ({n_params['mrd']:,}),"
+          f" batch {W_BATCH} x {tr.segment_samples} samples: "
+          f"{res['ms_per_step']:.1f} ms a GAN step (median of {W3_TIMED}: "
+          f"{[round(t, 1) for t in times]}), peak {peak:.2f} GiB, launches a "
+          f"step {counts}; device ms of one step: port kernels (forward) "
+          f"{split['port_forward']:.1f}, backward-named kernels "
+          f"{split['backward']:.1f}, other {split['other']:.1f}; the largest "
+          f"{split['top']}; losses {losses[0]} -> {losses[-1]}", flush=True)
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"phase W3: losses {losses}")
+    return res
+
+
+def gan_phase(config) -> dict:
+    """Phase W (see the module docstring)."""
+    t0 = time.perf_counter()
+    res = {"w1": _w1()}
+    res["w1"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["w2"] = _w2(config.vocoder)
+    res["w2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["w3"] = _w3(config.vocoder)
+    res["w3"]["s"] = time.perf_counter() - t0
+    print(f"phase W: W1 {res['w1']['s']:.1f} s, W2 {res['w2_s']:.1f} s, W3 "
+          f"{res['w3']['s']:.1f} s", flush=True)
+    return res
+
+
 # --- phase M: the probe kernels --------------------------------------------------
 
 # probe instance -> the probe script's row that launches it
@@ -3176,6 +3477,12 @@ def main() -> int:
     data["phase_s"] = time.perf_counter() - t0
     print(f"phase D: done in {data['phase_s']:.1f} s", flush=True)
 
+    # phase W: the vocoder's GAN training
+    t0 = time.perf_counter()
+    gan = gan_phase(config)
+    gan["phase_s"] = time.perf_counter() - t0
+    print(f"phase W: done in {gan['phase_s']:.1f} s", flush=True)
+
     # phase 4: the records
     kernels = []
     for k in ALL_KERNELS:
@@ -3189,6 +3496,8 @@ def main() -> int:
             entry["longform_path"] = {f: long_tot[k][f] for f in RECORD}
         if k in rb2_tot:
             entry["resblock2_path"] = {f: rb2_tot[k][f] for f in RECORD}
+        if k in gan["w2"]:  # phase W2: under autograd, per GAN step
+            entry["gan_train_path"] = gan["w2"][k]
         if k == FLASH:  # phase T3: Trainer.evaluate with attn_flash=True
             r3 = training["t3"]["flash"]
             entry["evaluate_launches"] = r3["launches"]
@@ -3272,7 +3581,7 @@ def main() -> int:
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
         "surface": surface, "resblock2_path": rb2_tot, "options": options,
-        "train": training, "data": data,
+        "train": training, "data": data, "gan": gan,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
     train_paths = [{"name": f"Trainer.train_step, batch "
                             f"{config.train.batch_size}, "
@@ -3299,9 +3608,14 @@ def main() -> int:
                     "launches": {}, "ms": d["ms_per_batch"],
                     "clips_per_s": d["clips_per_s"]}
                    for d in data["d2"] if "ms_per_batch" in d]
+    w3 = gan["w3"]
+    gan_paths = [{"name": f"VocoderTrainer.train_step, VocoderConfig(), "
+                          f"batch {W_BATCH} x {W_FRAMES} frames",
+                  "launches": w3["launches"], "ms": w3["ms_per_step"],
+                  "peak_gib": w3["peak_gib"]}]
     print(json.dumps({"kernels": kernels,
                       "paths": surface["paths"] + options["paths"]
-                      + train_paths + data_paths}))
+                      + train_paths + data_paths + gan_paths}))
     t1 = training["t1"]
     print(json.dumps({"train": {
         "t1_card_vs_cpu": {k: t1[k] for k in ("loss_rel", "grad_rel_l2",

@@ -5,11 +5,13 @@ The trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
 params, with or without the top ``"params"`` level); nothing here imports
 JAX. The mapping is this package's own copy of the JAX package's torch
 export (``flowhigh_tpu/compat/torch_ckpt.py``: ``params_to_torch_state`` and
-``vocoder_params_to_torch_state`` with ``fold_weight_norm``). Layouts:
+``vocoder_params_to_torch_state`` with ``fold_weight_norm``, and
+``_disc_to_torch`` for the discriminators). Layouts:
 
 - Dense kernel ``[in, out]``      -> Linear ``[out, in]`` (transpose)
 - Conv HIO kernel ``[K, in/g, out]`` -> Conv1d ``[out, in/g, K]`` (perm 2,1,0)
 - transpose-conv ``[K, out, in]`` -> ConvTranspose1d ``[in, out, K]`` (perm 2,1,0)
+- Conv2d HWIO ``[kH, kW, in, out]`` -> OIHW ``[out, in, kH, kW]`` (perm 3,2,0,1)
 """
 
 from __future__ import annotations
@@ -167,6 +169,41 @@ def vocoder_state_from_jax(params: dict, cfg: VocoderConfig) -> dict:
     return fold_state_dict(sd)
 
 
+# the discriminators' convs (weight norm kept as g and v): HWIO ``*_v`` ->
+# OIHW ``weight_v``, ``*_g`` [O] -> ``weight_g`` [O, 1, 1, 1]
+_DISC_CONVS = tuple((f"convs.{j}", f"convs_{j}") for j in range(5)) + (
+    ("conv_post", "conv_post"),)
+
+
+def _disc_state(p: dict, base: str, sd: dict) -> None:
+    for mod, name in _DISC_CONVS:
+        sd[f"{base}.{mod}.bias"] = _np(p[f"{name}_bias"])
+        sd[f"{base}.{mod}.weight_g"] = _np(p[f"{name}_g"]).reshape(-1, 1, 1, 1)
+        sd[f"{base}.{mod}.weight_v"] = np.ascontiguousarray(
+            _np(p[f"{name}_v"]).transpose(3, 2, 0, 1))
+
+
+def mpd_state_from_jax(params: dict, periods=(2, 3, 5, 7, 11)) -> dict:
+    """JAX ``MultiPeriodDiscriminator`` params (one ``p{period}`` tree a
+    period) -> ``MultiPeriodDiscriminator`` state dict (the reference's
+    ``discriminators.{i}`` layout)."""
+    p, sd = _tree(params), {}
+    for i, per in enumerate(periods):
+        _disc_state(p[f"p{per}"], f"discriminators.{i}", sd)
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def mrd_state_from_jax(params: dict,
+                       resolutions=((1024, 120, 600), (2048, 240, 1200),
+                                    (512, 50, 240))) -> dict:
+    """JAX ``MultiResolutionDiscriminator`` params (one ``r{n_fft}`` tree a
+    resolution) -> ``MultiResolutionDiscriminator`` state dict."""
+    p, sd = _tree(params), {}
+    for i, res in enumerate(resolutions):
+        _disc_state(p[f"r{res[0]}"], f"discriminators.{i}", sd)
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
 def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     """In-place init from ``numpy.random.default_rng(seed)``:
     every >= 2-D Linear/Conv weight gets fan-in-scaled normals
@@ -200,4 +237,5 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
 
 
 __all__ = ["fold_weight_norm", "fold_state_dict", "vector_field_state_from_jax",
-           "vocoder_state_from_jax", "seeded_init_"]
+           "vocoder_state_from_jax", "mpd_state_from_jax",
+           "mrd_state_from_jax", "seeded_init_"]

@@ -15,7 +15,10 @@ Checkpoint schemas (the reference's):
 Files are read with ``torch.load(weights_only=True)``: tensors and plain
 containers only, never pickled code.
 
-The trainer's export goes the other way: ``reference_param_order``,
+The vocoder trainer's ``g_<step>`` package goes the other way:
+``vocoder_state_to_reference`` (counterpart of
+``flowhigh_tpu/compat/torch_ckpt.py:vocoder_params_to_torch_state``).
+The vector field trainer's export too: ``reference_param_order``,
 ``optim_state_to_reference`` and ``scheduler_state_to_reference`` write
 the reference's ``{'model', 'optim', 'scheduler'}`` package, whose optimizer
 state a ``torch.optim.Adam(flowhigh.parameters())`` built the reference's
@@ -29,6 +32,7 @@ import json
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import FlowHighConfig, ModelConfig, VocoderConfig
@@ -72,6 +76,42 @@ def vocoder_state_from_reference(sd: dict, expected: dict) -> dict:
                                             "downsample.filter")):
             out[key] = filt.clone()
     return _select(out, expected, "vocoder")
+
+
+def vocoder_state_to_reference(state_dict: dict, voc_cfg: VocoderConfig
+                               ) -> dict:
+    """A ``BigVGAN`` state dict (folded weights) -> the reference's
+    weight-normed ``ckpt['generator']`` layout, as the JAX package exports
+    its generator: each conv weight w re-emitted as ``weight_v = w``,
+    ``weight_g = |w|`` over all but dim 0 (``fold_state_dict`` inverts it
+    exactly), biases and snake parameters as they are, the alias-free
+    filter buffers omitted (the reference's modules rebuild them). The norm
+    is summed over the JAX kernel layout's transposed view, in the JAX
+    export's order, so both packages write the same bits. The keys come
+    from the state dict (the port's names are the reference's); it must
+    hold ``voc_cfg``'s resblocks."""
+    n_blocks = len(voc_cfg.upsample_rates) * len(voc_cfg.resblock_kernel_sizes)
+    blocks = {int(k.split(".")[1]) for k in state_dict
+              if k.startswith("resblocks.")}
+    if blocks != set(range(n_blocks)):
+        raise ValueError(f"vocoder state dict holds resblocks {sorted(blocks)}"
+                         f", the config {n_blocks}")
+    out: dict = {}
+    for key, val in state_dict.items():
+        if key.endswith(("upsample.filter", "downsample.filter")):
+            continue
+        val = val.detach().cpu().to(torch.float32)
+        if not key.endswith(".weight"):
+            out[key] = val.clone()
+            continue
+        base = key[: -len(".weight")]
+        perm = tuple(reversed(range(val.ndim)))  # the JAX kernel's layout
+        w = np.ascontiguousarray(val.numpy().transpose(perm)).transpose(perm)
+        axes = tuple(range(1, w.ndim))
+        out[base + ".weight_g"] = torch.from_numpy(
+            np.sqrt(np.sum(w * w, axis=axes, keepdims=True)).astype(np.float32))
+        out[base + ".weight_v"] = torch.from_numpy(w.copy())
+    return out
 
 
 def vector_field_state_from_reference(sd: dict, expected: dict) -> dict:

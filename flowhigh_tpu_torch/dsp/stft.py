@@ -8,7 +8,10 @@ Two framing conventions are used by the pipeline:
   for the spectral post-processing, torchaudio's Spectrogram default).
 
 Both run through ``torch.stft``/``torch.istft`` (cuFFT on the card) with a
-periodic Hann window, in float32, or in float64 for float64 input.
+periodic Hann window, in float32, or in float64 for float64 input. The
+forward STFT also takes ``window="rect"``: ones of ``win_length``, what
+``torch.stft`` uses when given no window (the reference MRD's
+spectrogram).
 """
 
 from __future__ import annotations
@@ -21,6 +24,17 @@ import torch.nn.functional as F
 def _hann(win_length: int, like: torch.Tensor) -> torch.Tensor:
     return torch.hann_window(win_length, periodic=True, device=like.device,
                              dtype=like.dtype)
+
+
+def _window(window: str, win_length: int, like: torch.Tensor) -> torch.Tensor:
+    """The analysis window of ``win_length``; ``torch.stft`` centres it in
+    the frame with ``(n_fft - win_length) // 2`` zeros on the left, as the
+    JAX package pads its window."""
+    if window == "hann":
+        return _hann(win_length, like)
+    if window == "rect":
+        return torch.ones(win_length, device=like.device, dtype=like.dtype)
+    raise ValueError(f"unsupported window: {window!r}")
 
 
 def hann_window(win_length: int, dtype=torch.float32,
@@ -49,12 +63,13 @@ def frame_signal(x: torch.Tensor, frame_length: int,
 
 def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 480,
          win_length: int | None = None, center: bool = True,
-         pad_mode: str = "reflect") -> torch.Tensor:
+         pad_mode: str = "reflect", window: str = "hann") -> torch.Tensor:
     """Complex STFT [..., T] -> [..., n_fft//2 + 1, frames] (onesided).
 
     ``center=False`` applies melvoco-style reflect padding of
     ``(n_fft - hop) // 2`` per side first; ``center=True`` pads ``n_fft // 2``
-    with ``pad_mode``. Runs in float64 for float64 input, else float32."""
+    with ``pad_mode``. ``window``: "hann" (periodic) or "rect". Runs in
+    float64 for float64 input, else float32."""
     if win_length is None:
         win_length = n_fft
     batch_shape = x.shape[:-1]
@@ -64,16 +79,16 @@ def stft(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 480,
     pad = n_fft // 2 if center else (n_fft - hop_length) // 2
     x = F.pad(x[:, None, :], (pad, pad), mode=pad_mode)[:, 0, :]
     spec = torch.stft(x, n_fft, hop_length, win_length,
-                      window=_hann(win_length, x),
+                      window=_window(window, win_length, x),
                       center=False, return_complex=True)
     return spec.reshape(batch_shape + spec.shape[-2:])
 
 
 def stft_magnitude(x: torch.Tensor, n_fft: int = 2048, hop_length: int = 480,
                    win_length: int | None = None, center: bool = True,
-                   pad_mode: str = "reflect",
-                   eps: float = 0.0) -> torch.Tensor:
-    spec = stft(x, n_fft, hop_length, win_length, center, pad_mode)
+                   pad_mode: str = "reflect", eps: float = 0.0,
+                   window: str = "hann") -> torch.Tensor:
+    spec = stft(x, n_fft, hop_length, win_length, center, pad_mode, window)
     return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + eps)
 
 

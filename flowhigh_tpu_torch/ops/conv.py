@@ -23,6 +23,16 @@
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 
+Under autograd (a CUDA tensor that requires a gradient, grad mode on) the
+float32 instances on float32 maps run as ``torch.autograd.Function``s:
+the forward launches the kernel, the backward is the VJP of the plain
+version (``aten.convolution_backward``, what autograd of ``F.conv1d`` /
+``F.conv_transpose1d`` calls). On that route the kernels stand for the
+JAX package's XLA convs (its plain generator, which its vocoder trainer
+differentiates). The other instances stand for Pallas kernels only, which
+JAX cannot differentiate, and raise ``ValueError`` under autograd. Without
+a gradient the wrappers launch the kernels directly, as before.
+
 ``dot_dtype`` (``ops/quant.py``) picks the kernel's instance: float32 (the
 default), bfloat16 (B and C) or int8 (B, over the windows of
 ``quant.conv1d_int8``, which are its tiles; Cout >= 16). Kernel B also
@@ -119,6 +129,37 @@ def in_f32(fn):
         return fn(x.float(), *wide(args), **{k: wide(v) for k, v in
                                              kw.items()}).to(x.dtype)
     return plain
+
+
+# what jax.grad raises on the JAX package's Pallas kernels, which have no VJP
+PALLAS_NO_GRAD = ("Linearization failed to produce known values for all "
+                  "output primals")
+
+
+def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd would differentiate a call on ``tensors``: grad
+    mode is on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_grad_error(what: str, instance: str) -> ValueError:
+    """The refusal of an instance that has no gradient."""
+    return ValueError(
+        f"{what}: the {instance} instance has no gradient: it stands for a "
+        f"Pallas kernel of the JAX package, where jax.grad fails with "
+        f"'{PALLAS_NO_GRAD}'. Train with float32 dots and float32 maps and "
+        f"fuse_act_conv=False (kernels A, B and C), as the JAX package's "
+        f"vocoder trainer trains its plain generator")
+
+
+def _check_grad_instance(what: str, dot_dtype: torch.dtype,
+                         store: torch.dtype) -> None:
+    """Only the float32 instance on float32 maps has a gradient."""
+    if dot_dtype != torch.float32 or store != torch.float32:
+        maps = f"{str(store).removeprefix('torch.')}-map"
+        raise no_grad_error(what, maps if dot_dtype == torch.float32 else
+                            f"{DOT_NAME[dot_dtype]}-dot, {maps}")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -284,6 +325,19 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     if any(r.shape != (bsz, cout, t) for r in residuals):
         raise ValueError("conv1d: residuals must have the output's shape")
     store = _check_maps("conv1d", x, residuals, (w, b))
+    if wants_grad(x, w, b, *residuals):
+        _check_grad_instance("conv1d", dot_dtype, store)
+        return _Conv1dGrad.apply(x, w, b, dilation, float(out_scale),
+                                 *residuals)
+    return _launch_conv1d(x, w, b, dilation, residuals, out_scale, dot_dtype,
+                          store)
+
+
+def _launch_conv1d(x, w, b, dilation, residuals, out_scale, dot_dtype,
+                   store) -> torch.Tensor:
+    """One launch of kernel B on checked arguments."""
+    bsz, cin, t = x.shape
+    cout, _, k = w.shape
     lib = _conv_library(store)
     if not lib.conv1d_same_supported(k, cout, dilation, DOT_CODE[dot_dtype]):
         raise ValueError(f"conv1d: no kernel instance for K={k}, Cout={cout}, "
@@ -307,6 +361,45 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     _build.check(err, "conv1d_same")
     count_launch(conv1d, dot_dtype, store)
     return y
+
+
+def _conv_grads(ctx, g: torch.Tensor, stride: int, padding: int,
+                dilation: int, transposed: bool) -> tuple:
+    """(dx, dw, db) of a conv's output gradient ``g``, each None where
+    ``ctx.needs_input_grad`` (x, w, b first) says it is not wanted: the
+    call autograd of ``F.conv1d`` / ``F.conv_transpose1d`` makes."""
+    x, w = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    bias = ctx.has_bias and need[2]
+    with cudnn_f32():
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            g, x, w, [g.shape[1]] if ctx.has_bias else None, [stride],
+            [padding], [dilation], transposed, [0], 1,
+            [need[0], need[1], bias])
+    return dx, dw, db if bias else None
+
+
+class _Conv1dGrad(torch.autograd.Function):
+    """Kernel B's float32 instance under autograd: the forward launches the
+    kernel, the backward is the VJP of ``conv1d_plain`` (the conv's VJP of
+    ``out_scale * g``, which is also each residual's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dilation, out_scale, *residuals):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias, ctx.dilation, ctx.out_scale = (b is not None, dilation,
+                                                     out_scale)
+        return _launch_conv1d(x, w, b, dilation, residuals, out_scale,
+                              torch.float32, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        gs = g if ctx.out_scale == 1.0 else g * ctx.out_scale
+        k = ctx.saved_tensors[1].shape[-1]
+        grads = _conv_grads(ctx, gs, 1, ctx.dilation * (k - 1) // 2,
+                            ctx.dilation, False)
+        return grads + (None, None) + tuple(
+            gs if need else None for need in ctx.needs_input_grad[5:])
 
 
 conv1d.launches = 0
@@ -396,6 +489,16 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv_transpose1d: bad shapes x {tuple(x.shape)} "
                          f"w {tuple(w.shape)}")
     _check("conv_transpose1d", x, w, b)
+    if wants_grad(x, w, b):
+        _check_grad_instance("conv_transpose1d", dot_dtype, torch.float32)
+        return _ConvT1dGrad.apply(x, w, b, stride)
+    return _launch_conv_transpose1d(x, w, b, stride, dot_dtype)
+
+
+def _launch_conv_transpose1d(x, w, b, stride, dot_dtype) -> torch.Tensor:
+    """One launch of kernel C on checked arguments."""
+    bsz, cin, t = x.shape
+    _, cout, k = w.shape
     lib = _convt_library()
     if not lib.conv_transpose1d_supported(stride, k):
         raise ValueError(f"conv_transpose1d: no kernel instance for "
@@ -409,6 +512,23 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     _build.check(err, "conv_transpose1d")
     count_launch(conv_transpose1d, dot_dtype)
     return y
+
+
+class _ConvT1dGrad(torch.autograd.Function):
+    """Kernel C's float32 instance under autograd: the forward launches the
+    kernel, the backward is the VJP of ``conv_transpose1d_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias, ctx.stride = b is not None, stride
+        return _launch_conv_transpose1d(x, w, b, stride, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = ctx.saved_tensors[1].shape[-1]
+        return _conv_grads(ctx, g, ctx.stride, (k - ctx.stride) // 2, 1,
+                           True) + (None,)
 
 
 conv_transpose1d.launches = 0

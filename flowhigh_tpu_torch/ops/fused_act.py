@@ -11,6 +11,13 @@ shuffles. Bound: device memory, 8 bytes per element (one read, one
 write; 4 on bfloat16 maps). Any B*C. x may be float32 or bfloat16 (the
 feature maps' storage dtype, ``ops/quant.py``): y comes in x's dtype,
 computed in f32 on the widened values and rounded once.
+
+Under autograd (a CUDA tensor that requires a gradient, grad mode on) the
+float32 instance runs as a ``torch.autograd.Function``: the forward
+launches kernel A, the backward is the VJP of ``snake_activation1d_plain``
+recomputed from the saved x, alpha and beta, as the JAX package's
+``fused_snake_activation1d`` is a ``custom_vjp`` whose backward is the VJP
+of its unfused composition. bfloat16 maps raise under autograd.
 """
 
 from __future__ import annotations
@@ -21,8 +28,10 @@ from typing import Optional
 
 import torch
 
+from ..utils import cudnn_f32
 from . import _build
-from .conv import STORE_NAME, _check_maps, count_launch, in_f32
+from .conv import (STORE_NAME, _check_grad_instance, _check_maps,
+                   count_launch, in_f32, wants_grad)
 
 _filters: dict[torch.device, torch.Tensor] = {}
 
@@ -31,8 +40,9 @@ def _filter(device: torch.device) -> torch.Tensor:
     """The 12-tap half-band filter kaiser_sinc_filter1d(0.25, 0.3, 12)."""
     if device not in _filters:
         from ..models.bigvgan import kaiser_sinc_filter1d
-        _filters[device] = torch.from_numpy(
-            kaiser_sinc_filter1d(0.25, 0.3, 12)).to(device)
+        with torch.inference_mode(False):  # an ordinary tensor, as
+            _filters[device] = torch.from_numpy(  # utils.device_constant's
+                kaiser_sinc_filter1d(0.25, 0.3, 12)).to(device)
     return _filters[device]
 
 
@@ -108,10 +118,19 @@ def snake_activation1d(x: torch.Tensor, alpha: torch.Tensor,
         return snake_activation1d_plain(x, alpha, beta, logscale)
     if x.device.type != "cuda":
         raise ValueError(f"snake_activation1d: unsupported device {x.device}")
-    bsz, c, t = x.shape
+    c = x.shape[1]
     store = _check_maps("snake_activation1d", x, (), (alpha, beta))
     if alpha.shape != (c,) or (beta is not None and beta.shape != (c,)):
         raise ValueError("snake_activation1d: alpha/beta must have shape [C]")
+    if wants_grad(x, alpha, beta):
+        _check_grad_instance("snake_activation1d", torch.float32, store)
+        return _SnakeGrad.apply(x, alpha, beta, logscale)
+    return _launch_snake(x, alpha, beta, logscale, store)
+
+
+def _launch_snake(x, alpha, beta, logscale, store) -> torch.Tensor:
+    """One launch of kernel A on checked arguments."""
+    bsz, c, t = x.shape
     y = torch.empty_like(x)
     lib = _build.library("snake_aa")
     err = getattr(lib, f"snake_aa_f32{STORE_NAME[store]}")(
@@ -122,6 +141,30 @@ def snake_activation1d(x: torch.Tensor, alpha: torch.Tensor,
     _build.check(err, "snake_aa")
     count_launch(snake_activation1d, torch.float32, store)
     return y
+
+
+class _SnakeGrad(torch.autograd.Function):
+    """Kernel A on float32 maps under autograd: the forward launches the
+    kernel; the backward recomputes ``snake_activation1d_plain`` from the
+    saved inputs and returns its VJP (dx, dalpha, dbeta; None for a missing
+    beta), as the JAX package's ``_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, beta, logscale):
+        ctx.save_for_backward(x, alpha, beta)
+        ctx.logscale = logscale
+        return _launch_snake(x, alpha, beta, logscale, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad(), cudnn_f32():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            y = snake_activation1d_plain(*leaves, ctx.logscale)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, n in zip(leaves, need) if n], g))
+        return tuple(next(grads) if n else None for n in need) + (None,)
 
 
 snake_activation1d.launches = 0

@@ -14,7 +14,11 @@ dilation unit), their plain PyTorch versions and the card's fusion plans.
   sequence edges (conv1's values outside [0, T) are never used).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (no fallback: a shape no kernel instance takes is an error).
+raises (no fallback: a shape no kernel instance takes is an error). Both
+kernels stand for Pallas kernels of the JAX package, which jax.grad cannot
+differentiate, so on a CUDA tensor that autograd would differentiate they
+raise ``ValueError`` (``conv.no_grad_error``); the CPU's plain versions stay
+differentiable, as the JAX package's XLA paths are.
 
 ``dot_dtype`` (``ops/quant.py``) picks the instance: float32 (the default),
 bfloat16 or int8. Rounding or quantisation applies to each activation
@@ -49,7 +53,8 @@ import torch
 
 from . import _build
 from .conv import (DOT_NAME, SMEM_PER_BLOCK, STORE_NAME, _check_maps,
-                   _stream, conv1d_plain, conv_weights, count_launch, in_f32)
+                   _stream, conv1d_plain, conv_weights, count_launch, in_f32,
+                   no_grad_error, wants_grad)
 from .fused_act import (_filter, snake_activation1d_ordered,
                         snake_activation1d_plain)
 from .quant import (DOT_DTYPES, check_dot_dtype, int8_conv_windows,
@@ -402,6 +407,8 @@ def act_conv1d(x: torch.Tensor, alpha: torch.Tensor,
                                 out_scale=out_scale, dot_dtype=dot_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"act_conv1d: unsupported device {x.device}")
+    if wants_grad(x, alpha, beta, w, b, *residuals):
+        raise no_grad_error("act_conv1d", "kernel D")
     bsz, cin, t = x.shape
     cout, cin_w, k = w.shape
     if cin_w != cin or len(residuals) > 3 or bsz > 65535:
@@ -457,6 +464,8 @@ def amp_unit(x: torch.Tensor, a1: torch.Tensor, b1: Optional[torch.Tensor],
                               out_scale=out_scale, dot_dtype=dot_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"amp_unit: unsupported device {x.device}")
+    if wants_grad(x, a1, b1, a2, b2, w1, bias1, w2, bias2, *extras):
+        raise no_grad_error("amp_unit", "kernel E")
     bsz, c, t = x.shape
     k = w1.shape[-1]
     if (w1.shape != (c, c, k) or w2.shape != (c, c, k) or len(extras) > 2

@@ -47,13 +47,17 @@ def device_constant(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """``arr`` (a filter or basis designed once on the host and kept alive
     by its designer's cache) as a tensor on ``device``, copied once. Repeated
     host-to-device copies of pageable memory inside the pipeline would cost
-    a copy per clip and may stall the host thread that dispatches it."""
+    a copy per clip and may stall the host thread that dispatches it.
+    The copy is an ordinary tensor even when the first caller runs under
+    ``torch.inference_mode``: an inference tensor could not be saved for
+    the backward of a later training step that reads it."""
     device = torch.device(device)
     key = (id(arr), device)
     with _constants_lock:
         hit = _constants.get(key)
         if hit is None or hit[0] is not arr:
-            hit = (arr, torch.from_numpy(arr).to(device))
+            with torch.inference_mode(False):
+                hit = (arr, torch.from_numpy(arr).to(device))
             _constants[key] = hit
         return hit[1]
 

@@ -172,8 +172,7 @@ class TestNative:
 
 def test_dsp_exports_every_name_of_the_jax_package():
     assert set(jax_dsp.__all__) <= set(dsp.__all__)
-    assert set(jax_train.__all__) - set(ptrain.__all__) == {
-        "VocoderTrainer", "VocoderTrainState"}  # ROADMAP queue 1 item 12(c)
+    assert set(jax_train.__all__) <= set(ptrain.__all__)
 
 
 def test_framing_helpers_equal_the_jax_package():

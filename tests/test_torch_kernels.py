@@ -1098,3 +1098,197 @@ def test_sosfilt_wrapper_rejects_what_the_kernel_does_not_take(cuda, gen):
         ops.sosfilt(coefs, x.double())
     with pytest.raises(ValueError, match="coefs"):
         ops.sosfilt(coefs[:, :6], x)
+
+
+# --- gradients: kernels A, B and C carry one, D, E and the reduced-precision
+# instances refuse one (vocoder GAN training) ----------------------------------
+
+# the published generator's stages at a 32-frame segment (batch 2 here):
+# (C, T) of each stage's maps
+GRAD_STAGES = [(768, 160), (384, 640), (192, 2560), (96, 7680), (48, 15360)]
+
+
+def _leaves(tensors):
+    return [None if t is None else t.detach().clone().requires_grad_()
+            for t in tensors]
+
+
+def _grads_close(fn, plain, tensors, g):
+    """fn and plain under autograd on the same leaves and output gradient:
+    the outputs within the kernel's tolerance, every gradient within rel L2
+    1e-5 and max abs 1e-5 x its largest |value| of the plain version's
+    (the backward is the plain version's VJP; cuDNN sums a weight
+    gradient's B T products in an order of its own at each call)."""
+    from flowhigh_tpu_torch.utils import cudnn_f32
+    a, b = _leaves(tensors), _leaves(tensors)
+    ya, yb = fn(*a), plain(*b)
+    assert ya.grad_fn is not None
+    _close(ya, yb)
+    with cudnn_f32():  # the plain version's VJP in f32, as its forward
+        ya.backward(g)
+        yb.backward(g)
+    for ta, tb in zip(a, b):
+        if ta is not None:
+            diff = (ta.grad - tb.grad).double()
+            assert float(diff.norm() / tb.grad.double().norm()) <= 1e-5
+            assert float(diff.abs().max()) <= 1e-5 * float(
+                tb.grad.abs().max())
+
+
+@pytest.mark.parametrize("c,t", GRAD_STAGES)
+@pytest.mark.parametrize("with_beta", [True, False])
+def test_snake_kernel_gradient_is_the_plain_vjp(cuda, gen, c, t, with_beta):
+    x = _randn(gen, cuda, 2, c, t)
+    ab = [_randn(gen, cuda, c, scale=0.3),
+          _randn(gen, cuda, c, scale=0.3) if with_beta else None]
+    n0 = ops.snake_activation1d.launches
+    _grads_close(lambda x, a, b: ops.snake_activation1d(x, a, b),
+                 lambda x, a, b: ops.snake_activation1d_plain(x, a, b),
+                 [x] + ab, _randn(gen, cuda, 2, c, t))
+    assert ops.snake_activation1d.launches == n0 + 1
+
+
+@pytest.mark.parametrize("c,t", GRAD_STAGES)
+@pytest.mark.parametrize("k,d,n_res,out_scale", [(3, 1, 1, 1.0),
+                                                 (11, 5, 3, 1 / 3),
+                                                 (7, 3, 2, 1.0)])
+def test_conv1d_kernel_gradient_is_the_plain_vjp(cuda, gen, c, t, k, d,
+                                                 n_res, out_scale):
+    x = _randn(gen, cuda, 2, c, t)
+    w = _randn(gen, cuda, c, c, k, scale=(c * k) ** -0.5)
+    bias = _randn(gen, cuda, c, scale=0.1)
+    res = [_randn(gen, cuda, 2, c, t) for _ in range(n_res)]
+    n0 = ops.conv1d.launches
+    _grads_close(
+        lambda x, w, b, *r: ops.conv1d(x, w, b, dilation=d, residuals=r,
+                                       out_scale=out_scale),
+        lambda x, w, b, *r: ops.conv1d_plain(x, w, b, dilation=d,
+                                             residuals=r,
+                                             out_scale=out_scale),
+        [x, w, bias] + res, _randn(gen, cuda, 2, c, t))
+    assert ops.conv1d.launches == n0 + 1
+
+
+def test_conv_post_kernel_gradient_is_the_plain_vjp(cuda, gen):
+    # the narrow route (Cout = 1 < 16), at the last stage's width
+    x = _randn(gen, cuda, 2, 48, 15360)
+    w = _randn(gen, cuda, 1, 48, 7, scale=(48 * 7) ** -0.5)
+    _grads_close(lambda x, w, b: ops.conv1d(x, w, b),
+                 lambda x, w, b: ops.conv1d_plain(x, w, b),
+                 [x, w, _randn(gen, cuda, 1)], _randn(gen, cuda, 2, 1, 15360))
+
+
+@pytest.mark.parametrize("cin,t,u,k", [(1536, 32, 5, 11), (768, 160, 4, 8),
+                                       (384, 640, 4, 8), (192, 2560, 3, 7),
+                                       (96, 7680, 2, 4)])
+def test_conv_transpose1d_kernel_gradient_is_the_plain_vjp(cuda, gen, cin, t,
+                                                           u, k):
+    x = _randn(gen, cuda, 2, cin, t)
+    w = _randn(gen, cuda, cin, cin // 2, k, scale=(cin * k / u) ** -0.5)
+    n0 = ops.conv_transpose1d.launches
+    _grads_close(lambda x, w, b: ops.conv_transpose1d(x, w, b, stride=u),
+                 lambda x, w, b: ops.conv_transpose1d_plain(x, w, b,
+                                                            stride=u),
+                 [x, w, _randn(gen, cuda, cin // 2, scale=0.1)],
+                 _randn(gen, cuda, 2, cin // 2, u * t))
+    assert ops.conv_transpose1d.launches == n0 + 1
+
+
+def test_no_grad_calls_launch_directly(cuda, gen):
+    """Without a gradient (no_grad, inference_mode, or nothing that
+    requires one) the wrappers launch as before: no autograd node; with
+    one they launch once inside their Function."""
+    x = _randn(gen, cuda, 2, 96, 700)
+    w = torch.nn.Parameter(_randn(gen, cuda, 96, 96, 3, scale=0.1))
+    a = torch.nn.Parameter(_randn(gen, cuda, 96, scale=0.3))
+    wt = torch.nn.Parameter(_randn(gen, cuda, 96, 48, 4, scale=0.1))
+    calls = {ops.snake_activation1d: lambda: ops.snake_activation1d(x, a, a),
+             ops.conv1d: lambda: ops.conv1d(x, w, None),
+             ops.conv_transpose1d: lambda: ops.conv_transpose1d(x, wt, None,
+                                                                stride=2)}
+    for fn, call in calls.items():
+        for ctx in (torch.no_grad, torch.inference_mode):
+            n0 = fn.launches
+            with ctx():
+                assert call().grad_fn is None
+            assert fn.launches == n0 + 1
+        n0 = fn.launches
+        assert "Grad" in type(call().grad_fn).__name__
+        assert fn.launches == n0 + 1
+
+
+def test_adam_step_moves_the_kernels_weight_layouts(cuda, gen):
+    """Kernels B and C read a weight layout cached by the tensor's version
+    counter: after an in-place step of the vocoder trainer's Adam their
+    outputs equal their plain versions with the new weights."""
+    from flowhigh_tpu_torch.train import VocoderTrainer
+    x = _randn(gen, cuda, 2, 96, 700)
+    w = torch.nn.Parameter(_randn(gen, cuda, 96, 96, 3, scale=0.1))
+    wt = torch.nn.Parameter(_randn(gen, cuda, 96, 48, 4, scale=0.1))
+    opt = VocoderTrainer(device=cuda)._adam([w, wt])
+    for _ in range(2):
+        with torch.no_grad():  # fills the caches
+            ops.conv1d(x, w, None)
+            ops.conv_transpose1d(x, wt, None, stride=2)
+        loss = (ops.conv1d(x, w, None).square().mean()
+                + ops.conv_transpose1d(x, wt, None, stride=2).square().mean())
+        opt.zero_grad()
+        loss.backward()
+        before = (w.detach().clone(), wt.detach().clone())
+        opt.step()
+        assert not torch.equal(before[0], w) and not torch.equal(before[1],
+                                                                 wt)
+        with torch.no_grad():
+            _close(ops.conv1d(x, w, None), ops.conv1d_plain(x, w, None))
+            _close(ops.conv_transpose1d(x, wt, None, stride=2),
+                   ops.conv_transpose1d_plain(x, wt, None, stride=2))
+
+
+def test_pallas_only_instances_refuse_autograd(cuda, gen):
+    """D, E and every reduced-precision instance stand for Pallas kernels,
+    which JAX cannot differentiate: under autograd they raise the JAX
+    package's error; without a gradient they run."""
+    c, t = 192, 700
+    x = _randn(gen, cuda, 1, c, t)
+    a = _randn(gen, cuda, c, scale=0.3).requires_grad_()
+    w = _randn(gen, cuda, c, c, 3, scale=c ** -0.5).requires_grad_()
+    wt = _randn(gen, cuda, c, c // 2, 4, scale=0.1).requires_grad_()
+    xb = x.bfloat16()
+    refusals = [
+        lambda: ops.act_conv1d(x, a, a, True, w, None, dilation=1),
+        lambda: ops.amp_unit(x, a, a, a, a, True, w, None, w, None,
+                             dilation=1),
+        lambda: ops.conv1d(x, w, None, dot_dtype=torch.bfloat16),
+        lambda: ops.conv1d(x, w, None, dot_dtype=torch.int8),
+        lambda: ops.conv1d(xb, w, None),
+        lambda: ops.conv_transpose1d(x, wt, None, stride=2,
+                                     dot_dtype=torch.bfloat16),
+        lambda: ops.snake_activation1d(xb, a, a)]
+    for call in refusals:
+        with pytest.raises(ValueError, match="Linearization failed"):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call().float()).all()
+
+
+def test_vocoder_trainer_steps_on_the_card(cuda):
+    """The tiny GAN trainer on the card: every parameter gets a gradient,
+    the generator runs kernels A, B and C (and neither D nor E), and the
+    losses are finite."""
+    from flowhigh_tpu_torch.train import VocoderTrainer
+    tr = VocoderTrainer(VocoderConfig(
+        upsample_initial_channel=64, upsample_rates=(8, 5, 4, 3),
+        upsample_kernel_sizes=(16, 11, 8, 7), resblock_kernel_sizes=(3,),
+        resblock_dilation_sizes=((1, 3),)), segment_frames=8, periods=(2,),
+        resolutions=((512, 50, 240),), device=cuda)
+    state = tr.init_state(0)
+    wave = torch.randn(2, tr.segment_samples,
+                       generator=torch.Generator().manual_seed(0)) * 0.3
+    ops.reset_launch_counts()
+    state, m = tr.train_step(state, {"wave": wave})
+    for mod in (state.generator, state.mpd, state.mrd):
+        for name, p in mod.named_parameters():
+            assert p.grad is not None, name
+    counts = [fn.launches for fn in ops.KERNELS]
+    assert all(counts[:3]) and counts[3:] == [0, 0, 0]
+    assert all(torch.isfinite(v) for v in m.values())
