@@ -52,8 +52,12 @@ Phases (any failure raises and the script exits non-zero):
    dtype), a tensor-core instance of D or E (float32, bfloat16, int8), an
    int8 pre-pass, an instance of kernel A, probe G, an instance of kernel
    F or an instance of probe H (with its prep kernels) spills, on float32
-   and bf16 maps alike. C's rows per upsampler of the 10 s
-   clip (f32 and bf16) are printed, and B's per resblock shape of the
+   and bf16 maps alike; kernel C's spills, on both maps, are printed in
+   one line (C stays outside ``NO_SPILL``). Kernel C on bf16 maps
+   (``conv_transpose1d[.bf16]@bf16``, the compute dtype bf16) is held and
+   timed at phase X's shapes like the other instances on bf16 maps, with
+   no library call at f32 dots. C's rows per upsampler of the 10 s
+   clip (f32 and bf16, on both maps) are printed, and B's per resblock shape of the
    unfused 10 s clip (stage x K x d, f32, bf16 and int8) and its
    ``conv_post`` row;
 2. run FlowHighSR.generate at full width (FlowHighConfig() defaults, seeded
@@ -93,6 +97,17 @@ P. the reduced-precision vocoder: ``vocoder_conv_dtype`` bfloat16, then
    (``FROM_F32`` of the dot dtype) and LSD against phase 2's output, every
    launch of a 1 s run replayed against its plain version (the int8 ones
    bit-equal), and, fused, the 1 s card-vs-CPU check above;
+X. the vocoder's compute dtype (``compute_phase``): ``MelVoco(dtype=
+   torch.bfloat16)``, fused, at float32, bfloat16 and int8 dots, with
+   phase 2's vocoder weights on the mel phase 2's 10 s clip hands its
+   vocoder (``vocoder_mel``): launch counts of one ``decode`` against
+   ``main_path_calls`` (kernel C on bf16 maps 5 a clip), output shape and
+   finiteness, ms per decode (median of 5) beside the float32-compute and
+   the bf16-map vocoders at the same dots, timed in turns, rel L2
+   (``FROM_F32``) and waveform LSD against the float32 vocoder's output
+   of that mel; on its first second every launch replayed against its
+   plain version, and the card against the CPU under phase 3's rule for
+   reduced precision (the mel nudged by +-2^-16);
 L. long-form: the same weights with ``ModelConfig(attn_flash=True)`` run
    ``generate_longform`` single-pass on a 300 s, 16 kHz clip (vocoder
    windows of 1,000 + 2 x 32 frames): launch counts (F 2, the vocoder's per
@@ -235,7 +250,8 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    ``resblock2_path``; kernel F's register-padded instance per phase V2
    flash clip; kernel F's launches in phase T3's ``evaluate`` in
    ``evaluate_launches`` and ``evaluate_path``; the sosfilt kernel's
-   from phase D3; A, B and C's phase W2 figures in ``gan_train_path``),
+   from phase D3; A, B and C's phase W2 figures in ``gan_train_path``;
+   kernel C's instances on bf16 maps on phase X's path of their dots),
    with phase S's, phase V's, phase T's, phase D's and phase W's paths
    (``paths``: name, launches, ms), phase T's summary line
    (``train``), the card line and, last, the ``ok`` line.
@@ -382,12 +398,14 @@ VARIANT_NAMES = ("conv1d_same.bf16", "conv1d_same.int8",
                  "conv_transpose1d.bf16", "act_conv1d.bf16", "act_conv1d.int8",
                  "amp_unit.bf16", "amp_unit.int8")
 SUFFIXES = {"bf16": "bfloat16", "int8": "int8"}  # suffix -> torch dtype name
-# the instances on bfloat16 feature maps (``vocoder_storage_dtype``), in
-# ops.STORAGE_VARIANTS order: kernel[.dot suffix]@bf16
+# the instances on bfloat16 feature maps (``vocoder_storage_dtype``; kernel
+# C's with the vocoder's compute dtype bf16), in ops.STORAGE_VARIANTS
+# order: kernel[.dot suffix]@bf16
 BF16_MAPS = "@bf16"
+CONVT_BF16_MAPS = ("conv_transpose1d@bf16", "conv_transpose1d.bf16@bf16")
 STORAGE_NAMES = ("snake_aa@bf16",) + tuple(
     f"{k}{s}@bf16" for k in ("conv1d_same", "act_conv1d", "amp_unit")
-    for s in ("", ".bf16", ".int8"))
+    for s in ("", ".bf16", ".int8")) + CONVT_BF16_MAPS
 
 
 def split_name(name: str) -> tuple:
@@ -412,7 +430,7 @@ def dot_dtype_of(name: str):
 
 
 def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
-                    storage_dtype=None):
+                    storage_dtype=None, dtype=None):
     """Every kernel call of one BigVGAN forward over ``frames`` mel frames,
     routed as ``models/bigvgan.py`` routes it (the port's plans; AMPBlock2
     on kernels A and B whatever ``fuse_act_conv``) for the vocoder's
@@ -425,7 +443,12 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
     models/bigvgan.py): AMPBlock1's launches and activation_post, conv_post
     where the last stage packs, and AMPBlock2 by its stage's packing.
     AMPBlock2's convs and conv_post take float32 dots where their stage
-    does not pack, as in the JAX package.
+    does not pack, as in the JAX package. With the compute ``dtype``
+    bfloat16 (``BigVGAN(dtype=)``): the upsamplers on bf16 maps at the
+    boundary dtype (``conv_transpose1d[.bf16]@bf16``), the rest as on bf16
+    maps, except that where a stage does not pack AMPBlock2's convs and
+    conv_post are the JAX package's bf16 XLA conv (``conv1d_same.bf16@bf16``,
+    no residual: the f32 bias and x are added after it).
     Keys: snake (C, T); conv and act_conv (Cin, Cout, T, K, d, n_res,
     out_scale); convt (Cin, Cout, T_in, u, K); amp_unit (C, T, K, d,
     n_extra, out_scale)."""
@@ -442,7 +465,10 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
 
     ch, t = cfg.upsample_initial_channel, frames
     nk = len(cfg.resblock_kernel_sizes)
-    st = BF16_MAPS if storage_dtype is not None else ""  # the maps' suffix
+    bf16c = str(dtype).replace("torch.", "") == "bfloat16"  # compute dtype
+    # the maps' suffix
+    st = BF16_MAPS if storage_dtype is not None or bf16c else ""
+    xla_bf16 = "conv1d_same.bf16" + BF16_MAPS  # XLA's bf16 conv at p = 1
 
     def pair(ch, t, k, d, n_res, scale):
         fuse = k <= 3 if fuse_act_conv == "auto" else bool(fuse_act_conv)
@@ -455,7 +481,8 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
     p = 1
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         cout = cfg.upsample_initial_channel // 2 ** (i + 1)
-        add("conv_transpose1d" + bnd, (ch, cout, t, u, k))
+        add("conv_transpose1d" + bnd + (BF16_MAPS if bf16c else ""),
+            (ch, cout, t, u, k))
         ch, t = cout, t * u
         p = BigVGAN._pack_factor(ch, t)
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
@@ -469,6 +496,9 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
                     elif p > 1:
                         add("snake_aa", (ch, t))
                         add("conv1d_same" + res, (ch, ch, t, rk, d, 1, 1.0))
+                    elif bf16c:  # the first act on bf16 maps; bf16 convs
+                        add("snake_aa" + (st if m == 0 else ""), (ch, t))
+                        add(xla_bf16, (ch, ch, t, rk, d, 0, 1.0))
                     else:  # float32 dots; the first act on bf16 maps
                         add("snake_aa" + (st if m == 0 else ""), (ch, t))
                         add("conv1d_same", (ch, ch, t, rk, d, 1, 1.0))
@@ -484,8 +514,11 @@ def main_path_calls(cfg, frames: int, fuse_act_conv=True, conv_dtype=None,
     # at the end the map is bf16 unless AMPBlock2 promoted it at p = 1
     end = st if cfg.resblock == "1" or p > 1 else ""
     add("snake_aa" + end, (ch, t))
-    # conv_post: float32 dots and maps where the last stage does not pack
-    add("conv1d_same" + (bnd + end if p > 1 else ""), (ch, 1, t, 7, 1, 0, 1.0))
+    # conv_post: where the last stage does not pack float32 dots and maps,
+    # or at bf16 compute XLA's bf16 conv
+    post = (ch, 1, t, 7, 1, 0, 1.0)
+    add("conv1d_same" + bnd + end if p > 1 else xla_bf16 if bf16c
+        else "conv1d_same", post)
     return calls
 
 
@@ -533,7 +566,7 @@ def work(kernel: str, key) -> tuple[float, float, float]:
         return (byt, 4.0 * c * c * k * t,
                 2 * SNAKE_OPS * c * t + (n_extra + 3.0) * c * t)
     cin, cout, t, u, k = key
-    return (4.0 * (cin * t + cin * cout * k + cout + cout * u * t),
+    return (e * (cin * t + cout * u * t) + 4.0 * (cin * cout * k + cout),
             2.0 * cin * cout * k * t, float(cout * u * t))
 
 
@@ -751,19 +784,24 @@ def _cases(kernel: str, key, randn):
                 lambda: ops.amp_unit_plain(*args, **kw, dot_dtype=dt), None,
                 chain, lambda: ops.amp_unit(*argsf, **kwf))
     cin, cout, t, u, k = key
-    x = randn(1, cin, t)
+    x = maps(1, cin, t)
     w = randn(cin, cout, k, scale=(cout * k) ** -0.5)
     b = randn(cout, scale=0.1)
-    xl, wl, bl = (v.to(lib_dt) for v in (x, w, b))
+    lib = None
+    if lib_dt is not None:  # none computes f32 dots on bf16 maps
+        xl, wl, bl = (v.to(lib_dt) for v in (x, w, b))
 
-    def lib():
-        with cudnn_f32():
-            return F.conv_transpose1d(xl, wl, bl, stride=u,
-                                      padding=(k - u) // 2)
+        def lib():
+            with cudnn_f32():
+                return F.conv_transpose1d(xl, wl, bl, stride=u,
+                                          padding=(k - u) // 2)
+    (xf,) = wide(x)
     return (lambda: ops.conv_transpose1d(x, w, b, stride=u, dot_dtype=dt),
             lambda: ops.conv_transpose1d_plain(x, w, b, stride=u,
                                                dot_dtype=dt), lib, None,
-            lambda: ops.conv_transpose1d(x, w, b, stride=u))
+            lambda: ops.conv_transpose1d(
+                xf, w, b, stride=u,
+                dot_dtype=dt if bf16_maps else torch.float32))
 
 
 def check_kernels(shapes: dict, device, peaks) -> dict:
@@ -1547,6 +1585,171 @@ def storage_phase(config, frames: int, f32_out: np.ndarray,
                                    "nudge_floor_rel_l2": floor,
                                    "bound": bound}
         res[name] = r
+    return res
+
+
+# --- phase X: the vocoder's compute dtype ---------------------------------------
+
+# the conv_dtype values of phase X's bf16-compute runs
+COMPUTE_DOTS = ("float32", "bfloat16", "int8")
+MEL_1S = 100  # mel frames of 1 s at 48 kHz, hop 480
+
+
+def vocoder_mel(sr, audio: np.ndarray):
+    """The mel that ``sr.generate(audio)`` hands its vocoder (a forward
+    pre-hook's copy), on the card."""
+    seen = []
+    hook = sr.vocoder.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].clone()))
+    try:
+        sr.generate(audio, IN_SR, timestep=1)
+    finally:
+        hook.remove()
+    return seen[0]
+
+
+def compute_phase(config, mel10) -> dict:
+    """Phase X: ``MelVoco(dtype=torch.bfloat16)`` (the generator's compute
+    dtype, ``BigVGAN(dtype=)``), fused, at each ``conv_dtype`` of
+    ``COMPUTE_DOTS``, with phase 2's vocoder weights (``MelVoco
+    .init_vocoder_params(1)``, what ``make_sr``'s seed 0 gives the
+    vocoder) on ``mel10``, the mel phase 2's 10 s clip hands its vocoder:
+    launch counts of one ``decode`` against ``main_path_calls`` (kernel C
+    on bf16 maps 5 a clip), output shape and finiteness, ms per clip
+    (median of 5) beside the float32-compute vocoder and the bf16-map
+    vocoder (``storage_dtype``) at the same dot dtype, timed in turns, rel
+    L2 (``FROM_F32`` of the dot dtype) and waveform LSD against the
+    float32 vocoder's output of the same mel; on its first second every
+    launch of the card's run held against its plain version on its own
+    inputs (``replayed``), and the card against the CPU under phase 3's
+    rule for reduced precision (the mel nudged by +-2^-16)."""
+    import torch
+
+    from flowhigh_tpu_torch import log_spectral_distance, ops
+    from flowhigh_tpu_torch.models import MelVoco
+
+    bf = torch.bfloat16
+    frames = mel10.shape[1]
+    mel1 = mel10[:, :MEL_1S]
+
+    state = None
+
+    def melvoco(device, **kw):
+        nonlocal state
+        m = MelVoco(config.mel, config.vocoder, fuse_act_conv=True,
+                    device=device, **kw)
+        if state is None:  # seeded once, then copied
+            m.init_vocoder_params(1)
+            state = m.vocoder.state_dict()
+        else:
+            m.vocoder.load_state_dict(state)
+        return m
+
+    def decode_np(m, mel):
+        return m.decode(mel.to(m.device)).cpu().numpy()
+
+    def timed(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.decode(mel10)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    ref = melvoco("cuda")
+    ref10, ref1 = decode_np(ref, mel10), decode_np(ref, mel1)
+    del ref
+    ref1_cpu = decode_np(melvoco("cpu"), mel1)
+    res: dict = {"frames": frames}
+    for name in COMPUTE_DOTS:
+        dt = None if name == "float32" else getattr(torch, name)
+        tag = f"phase X: bf16 compute, {name} dots"
+        calls = main_path_calls(config.vocoder, frames, True, dt, None, bf)
+        m = melvoco("cuda", dtype=bf, conv_dtype=dt)
+        decode_np(m, mel1)  # builds the rounded weights and their layouts
+        ops.reset_launch_counts()
+        out = m.decode(mel10)
+        counts = launch_counts()
+        out = out.cpu().numpy()
+        if out.shape != (1, frames * config.mel.hop_length) or \
+                not np.isfinite(out).all():
+            raise AssertionError(f"{tag}: bad output {out.shape}")
+        check_launches(tag, counts, calls)
+        convt = "conv_transpose1d" + (".bf16" if name == "bfloat16"
+                                      else "") + BF16_MAPS
+        if counts[convt] != 5:
+            raise AssertionError(f"{tag}: {convt} launched "
+                                 f"{counts[convt]} times, not 5")
+        # the same dot dtype at float32 compute (f32 maps) and on bf16 maps
+        others = {"float32": melvoco("cuda", conv_dtype=dt),
+                  "bf16_maps": melvoco("cuda", conv_dtype=dt,
+                                       storage_dtype=bf)}
+        times: dict = {"bf16_compute": [], **{k: [] for k in others}}
+        for v in others.values():
+            decode_np(v, mel1)
+        for _ in range(5):  # in turns
+            times["bf16_compute"].append(timed(m))
+            for k, v in others.items():
+                times[k].append(timed(v))
+        del others
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        rel = rel_l2(out, ref10)
+        lsd = float(log_spectral_distance(ref10, out)[0])
+        print(f"{tag}: out {out.shape} finite, C on bf16 maps {convt} "
+              f"{counts[convt]} launches; {ms['bf16_compute']:.2f} ms per "
+              f"10 s clip (median of 5: "
+              f"{[round(t, 2) for t in times['bf16_compute']]}; float32 "
+              f"compute {ms['float32']:.2f}, bf16 maps {ms['bf16_maps']:.2f}"
+              f" at the same dots, in turns); vs the float32 vocoder: rel L2"
+              f" {rel:.4e} (<= {FROM_F32[name]}), waveform LSD {lsd:.4f} dB",
+              flush=True)
+        if not rel <= FROM_F32[name]:
+            raise AssertionError(f"{tag}: rel L2 {rel} from float32")
+        records: list = []
+        with replayed(records):
+            out1 = decode_np(m, mel1)
+        del m
+        worst: dict = {}
+        for inst, max_abs, _ in records:
+            n, mx = worst.get(inst, (0, 0.0))
+            worst[inst] = (n + 1, max(mx, max_abs))
+        int8 = [v[1] for k, v in worst.items() if ".int8" in k]
+        print(f"{tag}: {len(records)} launches of the card's 1 s run each "
+              f"within tolerance of its plain version on its own inputs: "
+              f"{worst}", flush=True)
+        if int8 and max(int8) != 0.0:  # the int8 instances: bit-equal
+            raise AssertionError(f"{tag}: an int8 instance differs from its "
+                                 f"plain version: {worst}")
+        m_cpu = melvoco("cpu", dtype=bf, conv_dtype=dt)
+        out1_cpu = decode_np(m_cpu, mel1)
+        floor = max(rel_l2(decode_np(m_cpu, mel1 * (1 + s)), out1_cpu)
+                    for s in (NUDGE, -NUDGE))
+        del m_cpu
+        rel_cpu = rel_l2(out1, out1_cpu)
+        lsd_cpu = float(log_spectral_distance(out1_cpu, out1)[0])
+        bound = max(1e-2, 2 * floor)
+        own = (rel_l2(out1, ref1), rel_l2(out1_cpu, ref1_cpu))
+        print(f"{tag}: 1 s against float32: card {own[0]:.4e}, CPU "
+              f"{own[1]:.4e} (the card within 1.5x of the CPU); card vs CPU "
+              f"rel L2 {rel_cpu:.4e}, LSD {lsd_cpu:.4f} dB; the CPU against "
+              f"itself with the mel nudged by +-2^-16: rel L2 {floor:.4e}; "
+              f"bound max(1e-2, 2 x that) = {bound:.4e}", flush=True)
+        if not own[0] <= 1.5 * own[1]:
+            raise AssertionError(f"{tag}: the card's reduction {own[0]} "
+                                 f"exceeds the CPU's {own[1]}")
+        if out1.shape != out1_cpu.shape or not rel_cpu <= bound:
+            raise AssertionError(f"{tag}: card and CPU disagree beyond the "
+                                 f"rounding floor: {rel_cpu}")
+        res[name] = {"launches": counts, "clip_ms": ms["bf16_compute"],
+                     "clip_ms_all": times["bf16_compute"],
+                     "clip_ms_float32_compute": ms["float32"],
+                     "clip_ms_bf16_maps": ms["bf16_maps"],
+                     "times_all": times, "rel_l2_vs_f32": rel,
+                     "lsd_db_vs_f32": lsd,
+                     "replayed": {k: list(v) for k, v in worst.items()},
+                     "card_vs_cpu_1s": {"rel_l2": rel_cpu, "lsd_db": lsd_cpu,
+                                        "vs_f32_card_cpu": own,
+                                        "nudge_floor_rel_l2": floor,
+                                        "bound": bound}}
     return res
 
 
@@ -3201,10 +3404,13 @@ for _v in VARIANT_NAMES:  # each variant: its kernel's source and dot_dtype
     _base, _, _sfx = _v.partition(".")
     SOURCES[_v] = (SOURCES[_base][0], SOURCES[_base][1].replace(
         ")", f", dot_dtype={SUFFIXES[_sfx]})"))
-for _v in STORAGE_NAMES:  # on bf16 maps: the instance's, storage_dtype bf16
+for _v in STORAGE_NAMES:  # on bf16 maps: storage_dtype bf16 (C: dtype bf16)
     _src, _rep = SOURCES[_v.partition("@")[0]]
-    SOURCES[_v] = (_src, _rep + "; bf16 x, residuals and output "
-                   "(flowhigh_tpu/models/bigvgan.py:404 storage_dtype)")
+    SOURCES[_v] = (_src, _rep + (
+        "; bf16 x and output (flowhigh_tpu/models/bigvgan.py:460-463, "
+        "dtype=bfloat16)" if _v in CONVT_BF16_MAPS else
+        "; bf16 x, residuals and output "
+        "(flowhigh_tpu/models/bigvgan.py:404 storage_dtype)"))
 _H = ("flowhigh_tpu_torch/csrc/probe_fir.cu",
       "scripts/bench_act_mxu.py:102 (mxu_fir")
 SOURCES.update({
@@ -3259,7 +3465,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"phase 0: built {len(libs)} kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    spilled = []
+    spilled, convt_spills = [], {}
     for lib_name, path in libs.items():
         log = path.with_suffix(".log")
         for kern, args, regs, spill in ptxas_entries(
@@ -3268,6 +3474,11 @@ def main() -> int:
                   f"{spill[0]} / {spill[1]} bytes")
             if kern in NO_SPILL and spill != (0, 0):
                 spilled.append(f"{kern}<{args}>")
+            if kern == "conv_transpose1d_kernel":  # <Dot, Store, U, K>
+                convt_spills[f"{lib_name}<{args}>"] = (regs,) + spill
+    # kernel C stays outside NO_SPILL: its spills, f32 and bf16 maps
+    print(f"phase 0: kernel C (registers, spill stores, spill loads) by "
+          f"<Dot, Store, U, K>: {convt_spills}", flush=True)
     if spilled:  # the s8 instances and D and E's tensor-core ones must not
         raise AssertionError(f"ptxas spills in {spilled}")
 
@@ -3286,6 +3497,11 @@ def main() -> int:
         config.vocoder, frames, fuse,
         None if n == "float32" else getattr(torch, n), torch.bfloat16)
         for fuse in (True, False)) for n in STORAGE_DOTS}
+    # phase X's bf16-compute paths (fused): {dot dtype name: calls}
+    calls_cmp = {n: main_path_calls(
+        config.vocoder, frames, True,
+        None if n == "float32" else getattr(torch, n), None, torch.bfloat16)
+        for n in COMPUTE_DOTS}
     # phase S3's AMPBlock2 vocoder at the published widths
     calls_rb2 = main_path_calls(
         dataclasses.replace(config.vocoder, **RESBLOCK2), frames)
@@ -3299,8 +3515,11 @@ def main() -> int:
                                   calls_red.values() for c in pair))
     for v in STORAGE_NAMES:
         shapes[v] = set().union(*(set(c.get(v, ())) for pair in
-                                  calls_sto.values() for c in pair))
+                                  calls_sto.values() for c in pair),
+                                *(set(c.get(v, ()))
+                                  for c in calls_cmp.values()))
     rows = check_kernels(shapes, "cuda", peaks)
+    cmp_tot = {n: path_totals(c, rows) for n, c in calls_cmp.items()}
     sto_tot = {n: tuple(path_totals(c, rows) for c in pair)
                for n, pair in calls_sto.items()}
     for n, (fused_t, unfused_t) in sto_tot.items():
@@ -3342,10 +3561,15 @@ def main() -> int:
               f"{r['unfused_chain_ms']}), max abs err {r['max_abs_err']:.2e}",
               flush=True)
     for k, tot in (("conv_transpose1d", main_tot),
-                   ("conv_transpose1d.bf16", red_tot["bfloat16"][0])):
+                   ("conv_transpose1d.bf16", red_tot["bfloat16"][0]),
+                   ("conv_transpose1d@bf16", cmp_tot["float32"]),
+                   ("conv_transpose1d.bf16@bf16", cmp_tot["bfloat16"])):
         for r in tot[k]["shapes"]:  # kernel C per upsampler of the clip
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.3f}")
+            f32 = f", float32-map {r['f32_ms']:.3f}" if "f32_ms" in r else ""
             print(f"  {k} {tuple(r['key'])}: {r['ms']:.3f} ms (plain "
-                  f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "
+                  f"{r['plain_ms']:.3f}, library {lib}{f32}, "
                   f"bound {max(r['bytes_ms'], r['ops_ms']):.3f} "
                   f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'}), "
                   f"max abs err {r['max_abs_err']:.2e}", flush=True)
@@ -3385,6 +3609,8 @@ def main() -> int:
     print(f"phase 2: default path {clip_ms:.2f} ms per 10 s clip (median of "
           f"5: {[round(t, 2) for t in times]}), RTF "
           f"{SECONDS * 1e3 / clip_ms:.1f}", flush=True)
+
+    mel10 = vocoder_mel(sr, audio)  # phase X's mel
 
     sr_unf = make_sr(config, "cuda", fuse_act_conv=False)
     out_unf, counts_unf = run_main_path(sr_unf, audio, IN_SR)
@@ -3441,6 +3667,13 @@ def main() -> int:
     storage = storage_phase(config, frames, out, audio, (out_gpu, out_cpu))
     print(f"phase P (bf16 maps): done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # phase X: the vocoder's compute dtype bf16 (MelVoco(dtype=bfloat16))
+    t0 = time.perf_counter()
+    compute = compute_phase(config, mel10)
+    compute["phase_s"] = time.perf_counter() - t0
+    del mel10
+    print(f"phase X: done in {compute['phase_s']:.1f} s", flush=True)
 
     # phase L: long-form, single pass and streamed
     longform = longform_phase(config, out, audio)
@@ -3517,7 +3750,18 @@ def main() -> int:
             entry["unfused_path"] = {f: unfused_t[k][f]
                                      for f in RECORD + ("f32_ms",)}
         kernels.append(entry)
+    for k in CONVT_BF16_MAPS:  # on phase X's bf16-compute path of its dots
+        n = SUFFIXES.get(split_name(k)[1], "float32")
+        r = cmp_tot[n][k]
+        src, replaces = SOURCES[k]
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": replaces, **{f: r[f] for f in RECORD},
+                        "f32_ms": r["f32_ms"],
+                        "path": f"MelVoco(dtype=bfloat16, conv_dtype={n}, "
+                                f"fuse_act_conv=True).decode"})
     for k in STORAGE_NAMES:  # on bf16 maps: the dot's fused path, else unfused
+        if k in CONVT_BF16_MAPS:
+            continue
         n = SUFFIXES.get(split_name(k)[1], "float32")
         fused_t, unfused_t = sto_tot[n]
         r = fused_t.get(k) or unfused_t[k]
@@ -3576,6 +3820,8 @@ def main() -> int:
         "storage": storage,
         "storage_paths": {n: {"fused": f, "unfused": u}
                           for n, (f, u) in sto_tot.items()},
+        "compute": compute, "compute_paths": cmp_tot,
+        "convt_ptxas": convt_spills,
         "longform": longform,
         "longform_path": long_tot,
         "flash_rows": {str(k): v for k, v in flash_rows.items()},

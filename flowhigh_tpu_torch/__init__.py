@@ -14,12 +14,15 @@ from .config import (CFMConfig, DataConfig, FlowHighConfig, MelConfig,
                      ModelConfig, TrainConfig, VocoderConfig)
 from .cfm_wrapper import ConditionalFlowMatcherWrapper, FLowHigh, init_bigvgan
 from .metrics import boundary_lsd, log_spectral_distance
+from .serving import ServingPipeline
 from .sr import FlowHighSR
 from .streaming import StreamingSR
 
+__version__ = "0.3.0"  # the distribution's (pyproject.toml)
+
 __all__ = [
-    "FlowHighSR", "StreamingSR", "FlowHighConfig", "MelConfig",
-    "VocoderConfig", "ModelConfig", "CFMConfig", "DataConfig", "TrainConfig",
-    "log_spectral_distance", "boundary_lsd", "FLowHigh",
+    "FlowHighSR", "StreamingSR", "ServingPipeline", "FlowHighConfig",
+    "MelConfig", "VocoderConfig", "ModelConfig", "CFMConfig", "DataConfig",
+    "TrainConfig", "log_spectral_distance", "boundary_lsd", "FLowHigh",
     "ConditionalFlowMatcherWrapper", "init_bigvgan",
 ]

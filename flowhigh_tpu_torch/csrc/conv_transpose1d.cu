@@ -12,7 +12,9 @@
 // (3,7), (2,4), and (8,16), the first upsampler of the CLI's --tiny vocoder
 // (whose odd pairs (5,10), (3,6) run the library conv, models/bigvgan.py).
 //
-// Layout: x [B, Cin, T] and y [B, Cout, U*T], float32, contiguous. The
+// Layout: x [B, Cin, T] and y [B, Cout, U*T], contiguous, float32 or, on
+// bf16 feature maps (Store::BF16, the vocoder's compute dtype bf16), both
+// __nv_bfloat16 (see the end of this note). The
 // weights come prepared on the host (ops/conv.py:convt_weights, cached per
 // weight tensor): [K][Cout_p][Cin_p], Cout_p = Cout rounded up to TILE_CO,
 // Cin_p = Cin rounded up to CIN_ALIGN, zero-padded; float32 for F32,
@@ -60,6 +62,23 @@
 // dot_dtype (dot_dtype.cuh): F32 and BF16. The JAX package keeps the
 // upsamplers in f32 under int8 (bigvgan.py:406-414), so there is no I8
 // instance.
+//
+// Store (dot_dtype.cuh), a second template parameter: with BigVGAN's
+// compute dtype bf16 the JAX package feeds each upsampler bf16 x and stores
+// its output in bf16 (bigvgan.py:459-463; packed.py:363, out_shape in x's
+// dtype), at either dot dtype. Store::BF16 reads x as bf16: each value is
+// staged by cp.async as the 4-byte word that holds it, into its f32 slot of
+// the x stage (two bf16 of one channel share a word, and the stage puts
+// channels side by side), and the thread that staged it widens it in place
+// once it has landed (mma_sm90.cuh: cp_async_bf16_word, bf16_half_to_f32),
+// before the barrier that hands the chunk to the warps; odd T and the
+// shift halo stage zeros as before. Everything after is the Store::F32
+// instance on the widened values: the same dots, the bias added in f32 in
+// the epilogue, and y stored once, rounded to nearest even. The weights
+// and the bias stay float32 (or the bf16 layout of BF16), as on f32 maps.
+// The entry points on bf16 maps build from conv_transpose1d_bf16io.cu,
+// which defines FHT_BF16_MAPS and includes this file, so that the two
+// halves compile in parallel.
 
 #include "dot_dtype.cuh"
 #include "mma_sm90.cuh"
@@ -111,15 +130,18 @@ struct Cfg {
   static_assert(32 % KC == 0, "a thread stages one input channel of x");
 };
 
-template <Dot D, int U, int K>
+template <Dot D, Store ST, int U, int K>
 __global__ void __launch_bounds__(THREADS, 2)
-conv_transpose1d_kernel(const float* __restrict__ x,
+conv_transpose1d_kernel(const StoreT<ST>* __restrict__ x,
                         const typename Cfg<D, U, K>::WT* __restrict__ wp,
-                        const float* __restrict__ bias, float* __restrict__ y,
-                        int Cin, int Cout, int T) {
+                        const float* __restrict__ bias,
+                        StoreT<ST>* __restrict__ y, int Cin, int Cout, int T) {
   using PL = Plan<U, K>;
   using C = Cfg<D, U, K>;
   using WT = typename C::WT;
+  using S = StoreT<ST>;
+  // bf16 maps: x as words, widened in place (see the top of this file)
+  constexpr bool WIDEN = ST == Store::BF16;
   constexpr int KC = C::KC, EPS = C::EPS, XS = C::XS, NT = C::NT,
                 BN = C::BN;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -132,7 +154,7 @@ conv_transpose1d_kernel(const float* __restrict__ x,
   const long long b = blockIdx.z;
   const int cin_p = (Cin + CIN_ALIGN - 1) / CIN_ALIGN * CIN_ALIGN;
   const int cout_p = (Cout + TILE_CO - 1) / TILE_CO * TILE_CO;
-  const float* xb = x + b * (long long)Cin * T;
+  const S* xb = x + b * (long long)Cin * T;
 
   auto w_stage = [&](int s) {
     return reinterpret_cast<WT*>(smem + s * C::STAGE);
@@ -166,13 +188,34 @@ conv_transpose1d_kernel(const float* __restrict__ x,
         cp_async16(wd + i * WROWS * KC, wsrc0 + i * wstep + c0);
     float* xd = x_stage(s) + xu * XS + xci;
     const bool cvalid = c0 + xci < Cin;
-    const float* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
+    const S* xs = xb + (cvalid ? (long long)(c0 + xci) * T : 0);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       if ((C::XR * KC) % THREADS != 0 && xu + i * XSTEP >= C::XR) break;
       const int gt = xg + i * XSTEP;
       const bool valid = cvalid && (unsigned)gt < (unsigned)T;
-      cp_async4_zfill(xd + i * XSTEP * XS, valid ? xs + gt : xb, valid);
+      if constexpr (WIDEN)
+        cp_async_bf16_word(xd + i * XSTEP * XS, valid ? xs + gt : xb, valid);
+      else
+        cp_async4_zfill(xd + i * XSTEP * XS, valid ? xs + gt : xb, valid);
+    }
+  };
+  // bf16 maps: the words this thread staged for chunk c0 into stage s,
+  // widened in place once they have landed (the same slots as load's; the
+  // zero-filled ones stay 0)
+  auto widen_own = [&](int c0, int s) {
+    if constexpr (WIDEN) {
+      if (c0 + xci >= Cin) return;
+      float* xd = x_stage(s) + xu * XS + xci;
+      const unsigned row = (unsigned)(c0 + xci) * (unsigned)T;
+#pragma unroll 1
+      for (int i = 0; i < NX; ++i) {
+        if ((C::XR * KC) % THREADS != 0 && xu + i * XSTEP >= C::XR) break;
+        const int gt = xg + i * XSTEP;
+        if ((unsigned)gt < (unsigned)T)
+          xd[i * XSTEP * XS] = bf16_half_to_f32(
+              xd[i * XSTEP * XS], bf16_parity(xb, row + (unsigned)gt));
+      }
     }
   };
 
@@ -188,7 +231,8 @@ conv_transpose1d_kernel(const float* __restrict__ x,
 
   // a ring of STAGES chunks, one barrier a chunk: the barrier at chunk c
   // also ends every warp's reads of chunk c - 1, whose stage the load of
-  // chunk c + STAGES - 1 then refills
+  // chunk c + STAGES - 1 then refills (and, on bf16 maps, publishes every
+  // thread's widening of chunk c)
   const int n_chunks = cin_p / KC;
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
@@ -197,6 +241,7 @@ conv_transpose1d_kernel(const float* __restrict__ x,
   }
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<STAGES - 2>();
+    widen_own(c * KC, c % STAGES);
     __syncthreads();
     if (c + STAGES - 1 < n_chunks)
       load((c + STAGES - 1) * KC, (c + STAGES - 1) % STAGES);
@@ -265,8 +310,9 @@ conv_transpose1d_kernel(const float* __restrict__ x,
         }
   __syncthreads();
 
-  // whole rows out, bias added: 16-byte stores where y's rows are 16-byte
-  // aligned (U*T % 4 == 0; U*m0 is a multiple of 4), else 4-byte stores
+  // whole rows out, bias added: four outputs a store (16 bytes f32, 8 bf16)
+  // where y's rows are so aligned (U*T % 4 == 0; U*m0 is a multiple of 4),
+  // else one; on bf16 maps each output rounds once, at its store
   const long long t_out = (long long)U * T;
   const int cols = (int)min((long long)U * BN, t_out - (long long)U * m0);
   if (t_out % 4 == 0) {
@@ -281,8 +327,7 @@ conv_transpose1d_kernel(const float* __restrict__ x,
       v.y += bv;
       v.z += bv;
       v.w += bv;
-      *reinterpret_cast<float4*>(y + (b * Cout + co) * t_out +
-                                 (long long)U * m0 + col) = v;
+      store4_f32(y + (b * Cout + co) * t_out + (long long)U * m0 + col, v);
     }
   } else {
     constexpr int V = U * BN;
@@ -291,49 +336,52 @@ conv_transpose1d_kernel(const float* __restrict__ x,
       const int co = co0 + row;
       if (co >= Cout || col >= cols) continue;
       const float bv = bias != nullptr ? bias[co] : 0.0f;
-      y[(b * Cout + co) * t_out + (long long)U * m0 + col] =
-          os[row * C::OS + col] + bv;
+      store_f32(y + (b * Cout + co) * t_out + (long long)U * m0 + col,
+                os[row * C::OS + col] + bv);
     }
   }
 }
 
-template <Dot D, int U, int K>
-int launch(const float* x, const void* w, const float* bias, float* y, int B,
+template <Dot D, Store ST, int U, int K>
+int launch(const void* x, const void* w, const float* bias, void* y, int B,
            int Cin, int Cout, int T, cudaStream_t stream) {
   using C = Cfg<D, U, K>;
-  auto kernel = conv_transpose1d_kernel<D, U, K>;
+  using S = StoreT<ST>;
+  auto kernel = conv_transpose1d_kernel<D, ST, U, K>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((T + C::BN - 1) / C::BN, (Cout + TILE_CO - 1) / TILE_CO, B);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(
-      x, static_cast<const typename C::WT*>(w), bias, y, Cin, Cout, T);
+      static_cast<const S*>(x), static_cast<const typename C::WT*>(w), bias,
+      static_cast<S*>(y), Cin, Cout, T);
   return (int)cudaGetLastError();
 }
 
-template <Dot D>
-int conv_transpose1d(const float* x, const void* w, const float* bias,
-                     float* y, int B, int Cin, int Cout, int T, int stride,
+template <Dot D, Store ST = Store::F32>
+int conv_transpose1d(const void* x, const void* w, const float* bias,
+                     void* y, int B, int Cin, int Cout, int T, int stride,
                      int K, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T <= 0 || B > 65535 ||
       (Cout + TILE_CO - 1) / TILE_CO > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (stride == 5 && K == 11)
-    return launch<D, 5, 11>(x, w, bias, y, B, Cin, Cout, T, s);
+    return launch<D, ST, 5, 11>(x, w, bias, y, B, Cin, Cout, T, s);
   if (stride == 4 && K == 8)
-    return launch<D, 4, 8>(x, w, bias, y, B, Cin, Cout, T, s);
+    return launch<D, ST, 4, 8>(x, w, bias, y, B, Cin, Cout, T, s);
   if (stride == 3 && K == 7)
-    return launch<D, 3, 7>(x, w, bias, y, B, Cin, Cout, T, s);
+    return launch<D, ST, 3, 7>(x, w, bias, y, B, Cin, Cout, T, s);
   if (stride == 2 && K == 4)
-    return launch<D, 2, 4>(x, w, bias, y, B, Cin, Cout, T, s);
+    return launch<D, ST, 2, 4>(x, w, bias, y, B, Cin, Cout, T, s);
   if (stride == 8 && K == 16)
-    return launch<D, 8, 16>(x, w, bias, y, B, Cin, Cout, T, s);
+    return launch<D, ST, 8, 16>(x, w, bias, y, B, Cin, Cout, T, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+#ifndef FHT_BF16_MAPS
 // The (stride, K) pairs of BigVGAN's upsamplers and (8, 16); others return
 // cudaErrorInvalidValue. w: the f32 weights as [K][Cout_p][Cin_p] (see the
 // note above). Returns cudaGetLastError() after the launch.
@@ -353,6 +401,26 @@ extern "C" int conv_transpose1d_bf16(const float* x, const void* w,
   return conv_transpose1d<Dot::BF16>(x, w, bias, y, B, Cin, Cout, T, stride,
                                      K, stream);
 }
+
+#else  // FHT_BF16_MAPS
+// The same two instances on bf16 maps: x and y __nv_bfloat16 (the rest as
+// above).
+extern "C" int conv_transpose1d_f32_bf16io(const void* x, const void* w,
+                                           const float* bias, void* y, int B,
+                                           int Cin, int Cout, int T,
+                                           int stride, int K, void* stream) {
+  return conv_transpose1d<Dot::F32, Store::BF16>(x, w, bias, y, B, Cin, Cout,
+                                                 T, stride, K, stream);
+}
+
+extern "C" int conv_transpose1d_bf16_bf16io(const void* x, const void* w,
+                                            const float* bias, void* y, int B,
+                                            int Cin, int Cout, int T,
+                                            int stride, int K, void* stream) {
+  return conv_transpose1d<Dot::BF16, Store::BF16>(x, w, bias, y, B, Cin,
+                                                  Cout, T, stride, K, stream);
+}
+#endif  // FHT_BF16_MAPS
 
 // 1 when (stride, K) has a compiled instance (float32 and bfloat16).
 extern "C" int conv_transpose1d_supported(int stride, int K) {

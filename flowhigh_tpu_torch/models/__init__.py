@@ -1,5 +1,5 @@
 from .bigvgan import AMPBlock1, AMPBlock2, Activation1d, BigVGAN
-from .convnext import ConvNeXtBackbone
+from .convnext import ConvNeXtBackbone, ConvNeXtBlock
 from .melvoco import MelVoco
 from .melvoco import encode as mel_encode
 from .melvoco import encode_torchaudio
@@ -8,7 +8,8 @@ from .transformer import (ConvPositionEmbed, GateLoop, LearnedSinusoidalPosEmb,
 from .vector_field import VectorFieldNet, forward_with_cond_scale
 
 __all__ = [
-    "Transformer", "GateLoop", "ConvNeXtBackbone", "ConvPositionEmbed",
+    "Transformer", "GateLoop", "ConvNeXtBackbone", "ConvNeXtBlock",
+    "ConvPositionEmbed",
     "LearnedSinusoidalPosEmb",
     "VectorFieldNet", "forward_with_cond_scale",
     "BigVGAN", "Activation1d", "AMPBlock1", "AMPBlock2", "mel_encode",

@@ -67,6 +67,43 @@ lowering switches say, as it does for routing:
   conv (kernel B, dots at ``conv_dtype`` or bf16) rounds to bf16, then the
   bias and x are added in bf16; at p = 1 the conv reads f32 and x's add
   promotes the map to f32.
+
+``dtype`` (``None`` or ``torch.float32``, ``torch.bfloat16``, or their
+names) is the JAX package's ``BigVGAN.dtype``: the generator's compute
+dtype. The parameters stay float32 in the state dict, as the JAX
+package's params do; at bfloat16 every conv's weights are rounded to bf16
+values before its kernel (``ops.quant.compute_weights``, cached per weight
+tensor), while the biases and the snakes' alpha and beta stay float32. The
+dots run at ``conv_dtype`` (the boundary dtype for the upsamplers and
+``conv_post``) on those rounded weights. The port follows the dtype flow
+of the JAX package's fused vocoder (``flowhigh_tpu/models/bigvgan.py``
+under ``fused_act = packed = pallas_convs = fuse_act_conv = True``):
+
+- ``conv_pre``: the mel and the weights rounded to bf16, the conv computed
+  in f32 and rounded to bf16 (XLA's bf16 conv), then the f32 bias added,
+  which promotes the map to f32;
+- each upsampler (kernel C on bf16 maps, its ``_bf16io`` instances) reads
+  the map rounded to bf16 and stores its output in bf16, the f32 bias
+  added before that one rounding. From there on the maps stay bf16 as with
+  ``storage_dtype`` bfloat16 (every kernel stores in its input's dtype):
+  AMPBlock1, the folded MRF residuals, ``activation_post``, and
+  ``conv_post`` where the last stage packs;
+- AMPBlock2 where its stage packs: as under ``storage_dtype``; at p = 1
+  each conv is XLA's bf16 conv (kernel B at bf16 dots on the map rounded
+  to bf16, output rounded to bf16) followed by the f32 bias and x, which
+  promote the map to f32;
+- ``conv_post`` at p = 1: the bf16 conv, then the f32 bias; the ``tanh``
+  runs in f32 in every case;
+- an upsampler with odd K - stride (the library conv): the bf16 conv, then
+  the f32 bias, as ``conv_pre``.
+
+``storage_dtype`` changes nothing more at bfloat16 compute: the JAX
+package's cast after each upsampler then meets a bf16 map already. The
+JAX package's unfused lowering (``MelVoco``'s defaults there) adds each
+conv's f32 bias outside its conv and so promotes the maps back to f32
+after every conv: another function, which the port does not follow. Under
+autograd the bf16-compute vocoder raises the JAX package's error, as
+``jax.grad`` does on the fused vocoder's Pallas kernels.
 """
 
 from __future__ import annotations
@@ -84,8 +121,13 @@ from torch import nn
 from ..config import VocoderConfig
 from ..ops import (act_conv1d, act_conv_plan, amp_unit, amp_unit_plan, conv1d,
                    conv_transpose1d, snake_activation1d)
-from ..ops.quant import check_dot_dtype, resolve_storage_dtype
+from ..ops.conv import no_grad_error, wants_grad
+from ..ops.quant import (check_dot_dtype, compute_weights,
+                         resolve_compute_dtype, resolve_storage_dtype,
+                         round_bf16)
 from ..utils import cudnn_f32
+
+BF16 = torch.bfloat16
 
 
 @functools.lru_cache(maxsize=32)
@@ -209,7 +251,8 @@ class AMPBlock1(nn.Module):
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int], activation: str = "snakebeta",
                  logscale: bool = True, fuse_act_conv=True,
-                 dot_dtype: torch.dtype = torch.float32):
+                 dot_dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not (fuse_act_conv is True or fuse_act_conv is False
                 or fuse_act_conv in ("auto", "pairs")):
@@ -217,6 +260,7 @@ class AMPBlock1(nn.Module):
                              f"'pairs', got {fuse_act_conv!r}")
         self.fuse_act_conv = fuse_act_conv
         self.dot_dtype = check_dot_dtype(dot_dtype)
+        self.dtype = resolve_compute_dtype(dtype)
         self.dilations = tuple(dilations)
         self.convs1 = nn.ModuleList([
             nn.Conv1d(channels, channels, kernel_size, dilation=d,
@@ -235,14 +279,15 @@ class AMPBlock1(nn.Module):
         """act -> conv as one kernel-D launch where the plan fits it, else
         kernel A then kernel B."""
         k = conv.weight.shape[-1]
+        w = compute_weights(conv.weight, self.dtype)
         fuse = k <= 3 if self.fuse_act_conv == "auto" else bool(
             self.fuse_act_conv)
         if fuse and act_conv_plan(k, dilation, x.shape[1], x.shape[-1]):
             return act_conv1d(x, act.act.alpha, act.act.beta, act.logscale,
-                              conv.weight, conv.bias, dilation=dilation,
+                              w, conv.bias, dilation=dilation,
                               residuals=residuals, out_scale=out_scale,
                               dot_dtype=self.dot_dtype)
-        return conv1d(act(x), conv.weight, conv.bias, dilation=dilation,
+        return conv1d(act(x), w, conv.bias, dilation=dilation,
                       residuals=residuals, out_scale=out_scale,
                       dot_dtype=self.dot_dtype)
 
@@ -261,8 +306,10 @@ class AMPBlock1(nn.Module):
             if self.fuse_act_conv is True and amp_unit_plan(
                     k, d, x.shape[1], x.shape[-1]):
                 x = amp_unit(x, a1.act.alpha, a1.act.beta, a2.act.alpha,
-                             a2.act.beta, a1.logscale, c1.weight, c1.bias,
-                             c2.weight, c2.bias, dilation=d,
+                             a2.act.beta, a1.logscale,
+                             compute_weights(c1.weight, self.dtype), c1.bias,
+                             compute_weights(c2.weight, self.dtype), c2.bias,
+                             dilation=d,
                              extra_residuals=extras, out_scale=scale,
                              dot_dtype=self.dot_dtype)
                 continue
@@ -279,9 +326,11 @@ class AMPBlock2(nn.Module):
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int], activation: str = "snakebeta",
                  logscale: bool = True,
-                 dot_dtype: torch.dtype = torch.float32):
+                 dot_dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dot_dtype = check_dot_dtype(dot_dtype)
+        self.dtype = resolve_compute_dtype(dtype)
         self.dilations = tuple(dilations)
         self.convs = nn.ModuleList([
             nn.Conv1d(channels, channels, kernel_size, dilation=d,
@@ -296,8 +345,10 @@ class AMPBlock2(nn.Module):
         1), which decides the dots and the dtype flow (see the module
         docstring). Packed, the convs run at ``dot_dtype`` (int8 raises, as
         the JAX package's ``packed_conv1d`` does); not packed, the JAX
-        package runs them as XLA's float32 ``conv1d``, so kernel B takes
-        float32 dots whatever ``dot_dtype`` says."""
+        package runs them as XLA's ``conv1d`` in the compute dtype, so
+        kernel B takes float32 dots (at bfloat16 compute: bf16 dots on the
+        map rounded to bf16, the output rounded to bf16, then the f32 bias
+        and x) whatever ``dot_dtype`` says."""
         if packed and self.dot_dtype == torch.int8:
             raise ValueError(
                 "int8 dots need per-channel scales, which AMPBlock2's "
@@ -305,16 +356,21 @@ class AMPBlock2(nn.Module):
                 "refuses conv_dtype=int8)")
         for d, act, conv in zip(self.dilations, self.activations, self.convs):
             xt = act(x)
-            if not packed:  # JAX's f32 conv1d on xt; x's add promotes to f32
-                x = conv1d(xt.float(), conv.weight, conv.bias, dilation=d,
+            w = compute_weights(conv.weight, self.dtype)
+            if not packed and self.dtype == BF16:
+                # JAX's bf16 conv1d on xt, then + bias and + x in f32
+                y = conv1d(xt.to(BF16), w, None, dilation=d, dot_dtype=BF16)
+                x = (y.float() + conv.bias[:, None]) + x.float()
+            elif not packed:  # JAX's f32 conv1d on xt; x's add promotes to f32
+                x = conv1d(xt.float(), w, conv.bias, dilation=d,
                            residuals=(x.float(),), dot_dtype=torch.float32)
             elif x.dtype == torch.float32:
-                x = conv1d(xt, conv.weight, conv.bias, dilation=d,
+                x = conv1d(xt, w, conv.bias, dilation=d,
                            residuals=(x,), dot_dtype=self.dot_dtype)
             else:  # JAX's packed_conv1d: the conv, + bias, + x in bf16
-                dot = (torch.bfloat16 if self.dot_dtype == torch.float32
-                       else self.dot_dtype)
-                y = conv1d(xt, conv.weight, None, dilation=d, dot_dtype=dot)
+                dot = BF16 if self.dot_dtype == torch.float32 \
+                    else self.dot_dtype
+                y = conv1d(xt, w, None, dilation=d, dot_dtype=dot)
                 x = (y + conv.bias.to(y.dtype)[:, None]) + x
         return x
 
@@ -328,13 +384,16 @@ class BigVGAN(nn.Module):
 
     def __init__(self, cfg: VocoderConfig = VocoderConfig(),
                  fuse_act_conv=True, conv_dtype: Optional[torch.dtype] = None,
-                 storage_dtype: Optional[torch.dtype] = None):
+                 storage_dtype: Optional[torch.dtype] = None, dtype=None):
         """``fuse_act_conv``: True | False | "auto" | "pairs"; ``conv_dtype``:
         None (float32) | torch.bfloat16 | torch.int8; ``storage_dtype``:
-        None (float32) | torch.bfloat16 (see the module docstring)."""
+        None (float32) | torch.bfloat16; ``dtype``, the compute dtype: None
+        or torch.float32 | torch.bfloat16, or their names (see the module
+        docstring)."""
         super().__init__()
         self.storage_dtype = resolve_storage_dtype(storage_dtype,
                                                    "storage_dtype")
+        self.dtype = resolve_compute_dtype(dtype)
         if cfg.resblock not in ("1", "2"):
             raise ValueError(f"resblock must be '1' or '2', got "
                              f"{cfg.resblock!r}")
@@ -358,24 +417,45 @@ class BigVGAN(nn.Module):
                 self.resblocks.append(
                     AMPBlock1(cout, rk, rd, cfg.activation,
                               cfg.snake_logscale, fuse_act_conv,
-                              self.conv_dtype) if cfg.resblock == "1" else
+                              self.conv_dtype, self.dtype)
+                    if cfg.resblock == "1" else
                     AMPBlock2(cout, rk, rd, cfg.activation,
-                              cfg.snake_logscale, self.conv_dtype))
+                              cfg.snake_logscale, self.conv_dtype,
+                              self.dtype))
         self.activation_post = Activation1d(cout, cfg.activation,
                                             cfg.snake_logscale)
         self.conv_post = nn.Conv1d(cout, 1, 7, padding=3)
 
     def _upsample(self, x, up: nn.ConvTranspose1d, u: int):
         """Kernel C where K - u is even (exactly u * T outputs), else the
-        library transposed conv in float32."""
+        library transposed conv in float32. x comes in the compute dtype:
+        at bf16, on bf16 maps with the weights rounded to bf16 (the library
+        conv on those values, rounded to bf16, then the f32 bias)."""
         k = up.weight.shape[-1]
+        w = compute_weights(up.weight, x.dtype)
         if (k - u) % 2 == 0:
-            return conv_transpose1d(x, up.weight, up.bias, stride=u,
+            return conv_transpose1d(x, w, up.bias, stride=u,
                                     dot_dtype=self.boundary_dtype)
         BigVGAN.library_upsamplers += 1
         with cudnn_f32():
-            return F.conv_transpose1d(x, up.weight, up.bias, stride=u,
-                                      padding=(k - u) // 2)
+            if x.dtype != BF16:
+                return F.conv_transpose1d(x, up.weight, up.bias, stride=u,
+                                          padding=(k - u) // 2)
+            y = F.conv_transpose1d(x.float(), w, None, stride=u,
+                                   padding=(k - u) // 2)
+        return y.to(BF16).float() + up.bias[:, None]
+
+    def _conv_pre(self, mel: torch.Tensor) -> torch.Tensor:
+        """``conv_pre`` on the [B, n_mels, frames] mel, a plain ``F.conv1d``
+        (an XLA conv in the JAX package); at bf16 compute on the mel and
+        weights rounded to bf16, rounded to bf16, then the f32 bias."""
+        with cudnn_f32():
+            if self.dtype != BF16:
+                return self.conv_pre(mel)
+            y = F.conv1d(round_bf16(mel),
+                         compute_weights(self.conv_pre.weight, BF16),
+                         padding=3)
+        return y.to(BF16).float() + self.conv_pre.bias[:, None]
 
     @staticmethod
     def _pack_factor(ch: int, t: int) -> int:
@@ -391,12 +471,14 @@ class BigVGAN(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, frames, n_mels] -> waveform [B, frames * prod(rates)]."""
-        with cudnn_f32():
-            x = self.conv_pre(mel.transpose(1, 2).contiguous())
+        if self.dtype == BF16 and wants_grad(mel, *self.parameters()):
+            raise no_grad_error("BigVGAN", "bf16-compute")
+        x = self._conv_pre(mel.transpose(1, 2).contiguous())
         nk = self.num_kernels
         p = 1
         for i, u in enumerate(self.cfg.upsample_rates):
-            x = self._upsample(x.float(), self.ups[i][0], u)  # C reads f32
+            # C reads the compute dtype
+            x = self._upsample(x.to(self.dtype), self.ups[i][0], u)
             p = self._pack_factor(x.shape[1], x.shape[-1])
             if self.storage_dtype is not None:
                 x = x.to(self.storage_dtype)
@@ -416,8 +498,14 @@ class BigVGAN(nn.Module):
                     ys.append(block(x))
             x = ys[-1]
         x = self.activation_post(x)
-        # p = 1: the JAX package's XLA conv, float32 maps and dots
-        x = conv1d(x if p > 1 else x.float(), self.conv_post.weight,
-                   self.conv_post.bias,
-                   dot_dtype=self.boundary_dtype if p > 1 else torch.float32)
+        w = compute_weights(self.conv_post.weight, self.dtype)
+        if p > 1:  # the JAX package's Pallas conv, in x's dtype
+            x = conv1d(x, w, self.conv_post.bias,
+                       dot_dtype=self.boundary_dtype)
+        elif self.dtype == BF16:  # XLA's bf16 conv, then the f32 bias
+            x = conv1d(x.to(BF16), w, None, dot_dtype=BF16).float() \
+                + self.conv_post.bias[:, None]
+        else:  # XLA's conv, float32 maps and dots
+            x = conv1d(x.float(), w, self.conv_post.bias,
+                       dot_dtype=torch.float32)
         return torch.tanh(x.float())[:, 0, :]

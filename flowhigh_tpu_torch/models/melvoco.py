@@ -21,8 +21,8 @@ import torch
 from ..config import MelConfig, VocoderConfig
 from ..dsp import (apply_mel, log_compress, mel_filterbank, mel_filterbank_htk,
                    stft, stft_magnitude)
-from ..ops.quant import (check_lowering_switches, resolve_conv_dtype,
-                         resolve_storage_dtype)
+from ..ops.quant import (check_lowering_switches, resolve_compute_dtype,
+                         resolve_conv_dtype, resolve_storage_dtype)
 from ..utils import resolve_device
 from .bigvgan import BigVGAN
 
@@ -83,8 +83,13 @@ class MelVoco:
     JAX package's default here: kernels A and B | True | "auto" |
     "pairs") go to ``BigVGAN``, and so does ``storage_dtype`` (None |
     torch.float32 | torch.bfloat16 or their names: the dtype of the feature
-    maps, kept in ``self.storage_dtype``). ``dtype`` must be float32: the
-    generator's compute dtype is not ported (ROADMAP.md queue 1 item 16). ``fused_act``, ``packed``, ``pallas_convs`` and
+    maps, kept in ``self.storage_dtype``), and ``dtype``, the generator's
+    compute dtype (torch.float32, the default, | torch.bfloat16, their
+    names, or the JAX package's ``jnp.bfloat16``; anything else raises
+    ``ValueError``), kept in ``self.dtype``: at bfloat16 the generator runs
+    with bf16-rounded weights and bf16 maps as the JAX package's fused
+    vocoder does (``models/bigvgan.py``), kernel C included, whatever the
+    lowering switches say. ``fused_act``, ``packed``, ``pallas_convs`` and
     ``kernel_pipeline`` are the JAX package's TPU lowering switches:
     validated, and without effect on the card."""
 
@@ -103,9 +108,6 @@ class MelVoco:
         if not isinstance(pallas_convs, bool):
             raise ValueError(f"pallas_convs must be a bool, got "
                              f"{pallas_convs!r}")
-        if dtype not in (torch.float32, "float32"):
-            raise ValueError(f"dtype must be float32 (the vocoder's compute "
-                             f"dtype is not ported), got {dtype!r}")
         if vocoder != "bigvgan":
             raise ValueError(f"unsuitable vocoder name {vocoder!r}")
         if mel_cfg is None:
@@ -127,9 +129,10 @@ class MelVoco:
         self.device = resolve_device(device)
         self.storage_dtype = resolve_storage_dtype(storage_dtype,
                                                    "storage_dtype")
+        self.dtype = resolve_compute_dtype(dtype)
         self.vocoder = BigVGAN(voc_cfg, fuse_act_conv,
                                resolve_conv_dtype(conv_dtype),
-                               self.storage_dtype).eval()
+                               self.storage_dtype, self.dtype).eval()
         if vocoder_params is not None:
             from ..compat.jax_params import vocoder_state_from_jax
             self.vocoder.load_state_dict(

@@ -19,12 +19,14 @@ VARIANTS = ((conv1d, torch.bfloat16), (conv1d, torch.int8),
             (conv_transpose1d, torch.bfloat16), (act_conv1d, torch.bfloat16),
             (act_conv1d, torch.int8), (amp_unit, torch.bfloat16),
             (amp_unit, torch.int8))
-# the instances on bfloat16 feature maps (``vocoder_storage_dtype``), by
-# (wrapper, dot_dtype); each counts its launches in
-# ``wrapper.storage_launches[dot_dtype]``
+# the instances on bfloat16 feature maps (``vocoder_storage_dtype``; kernel
+# C's with the vocoder's compute dtype bf16), by (wrapper, dot_dtype); each
+# counts its launches in ``wrapper.storage_launches[dot_dtype]``
 STORAGE_VARIANTS = ((snake_activation1d, torch.float32),
                     *((fn, dt) for fn in (conv1d, act_conv1d, amp_unit)
-                      for dt in (torch.float32, torch.bfloat16, torch.int8)))
+                      for dt in (torch.float32, torch.bfloat16, torch.int8)),
+                    (conv_transpose1d, torch.float32),
+                    (conv_transpose1d, torch.bfloat16))
 
 
 # the probe kernels (``ops/probes.py``), on no model path: G, H (its four

@@ -6,7 +6,7 @@ beside the package (the hash is of the source, of the ``.cu`` files it
 includes and of the shared headers ``csrc/*.cuh``, so an edited kernel is
 rebuilt). All sources compile at once, one ``nvcc`` process each, at the
 first launch of any kernel; the libraries are loaded with ``ctypes``.
-Kernels B, D and E build their instances on bf16 feature maps from a
+Kernels B, C, D and E build their instances on bf16 feature maps from a
 second source each (``<name>_bf16io.cu``, which includes ``<name>.cu``),
 so that the two halves compile in parallel.
 Importing this module needs neither ``nvcc`` nor a card.
@@ -27,9 +27,9 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "flowhigh_tpu_torch"
 SOURCES = ("snake_aa", "conv1d_same", "conv1d_same_bf16io",
-           "conv_transpose1d", "act_conv1d", "act_conv1d_bf16io", "amp_unit",
-           "amp_unit_bf16io", "flash_attn", "probe_snake", "probe_fir",
-           "sosfilt")
+           "conv_transpose1d", "conv_transpose1d_bf16io", "act_conv1d",
+           "act_conv1d_bf16io", "amp_unit", "amp_unit_bf16io", "flash_attn",
+           "probe_snake", "probe_fir", "sosfilt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,18 +48,20 @@ SIGNATURES = {
     "snake_aa": {**{name: [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
                     for name in ("snake_aa_f32", "snake_aa_f32_bf16io")},
                  "snake_aa_firs_f32": [_P, _P, _P, _I, _I, _P]},
-    # kernels A, B, D and E: each instance also on bf16 feature maps
-    # (``<entry>_bf16io``, the same arguments; B, D, E in their own library)
+    # kernels A, B, C, D and E: each instance also on bf16 feature maps
+    # (``<entry>_bf16io``, the same arguments; B, C, D, E in their own
+    # library)
     **{f"conv1d_same{io}": {
         "conv1d_same_f32" + io: _CONV, "conv1d_same_bf16" + io: _CONV,
         "conv1d_same_int8" + io: [_P, _P] + _CONV,
         "conv1d_same_supported": [_I, _I, _I, _I],
         "conv1d_same_weight_align": [_I],
         "conv1d_same_smem_bytes": [_I] * 4} for io in ("", "_bf16io")},
-    "conv_transpose1d": {
-        "conv_transpose1d_f32": _CONVT, "conv_transpose1d_bf16": _CONVT,
+    **{f"conv_transpose1d{io}": {
+        "conv_transpose1d_f32" + io: _CONVT,
+        "conv_transpose1d_bf16" + io: _CONVT,
         "conv_transpose1d_supported": [_I, _I],
-        "conv_transpose1d_weight_align": [_I]},
+        "conv_transpose1d_weight_align": [_I]} for io in ("", "_bf16io")},
     **{f"act_conv1d{io}": {
         "act_conv1d_f32" + io: _PAIR_MMA, "act_conv1d_bf16" + io: _PAIR_MMA,
         "act_conv1d_int8" + io: [_P, _P] + _PAIR_MMA,

@@ -35,11 +35,14 @@ a gradient the wrappers launch the kernels directly, as before.
 
 ``dot_dtype`` (``ops/quant.py``) picks the kernel's instance: float32 (the
 default), bfloat16 (B and C) or int8 (B, over the windows of
-``quant.conv1d_int8``, which are its tiles; Cout >= 16). Kernel B also
-takes bfloat16 feature maps (the storage dtype, ``ops/quant.py``): x and
-the residuals in bf16, y returned in bf16, each dot dtype on the widened
-values (its ``*_bf16io`` instances). Kernel C's maps stay float32: the
-vocoder feeds its upsamplers f32 as the JAX package does.
+``quant.conv1d_int8``, which are its tiles; Cout >= 16). Kernels B and C
+also take bfloat16 feature maps (their ``*_bf16io`` instances): x (and B's
+residuals) in bf16, y returned in bf16, each dot dtype on the widened
+values. B's are the storage dtype's (``ops/quant.py``); C's come with the
+vocoder's compute dtype bf16 (``BigVGAN(dtype=torch.bfloat16)``), under
+which the JAX package feeds its upsamplers bf16 and stores their output in
+bf16; under the storage dtype alone the vocoder feeds C float32, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -76,16 +79,6 @@ SMEM_PER_BLOCK = 232448  # bytes a block may use on the H100 (227 KB opt-in)
 # the feature maps' storage dtypes: the suffix of each instance's C entry
 # point (csrc: Store::F32, Store::BF16)
 STORE_NAME = {torch.float32: "", torch.bfloat16: "_bf16io"}
-
-
-def _check(what: str, x: torch.Tensor, *tensors) -> None:
-    for v in (x,) + tensors:
-        if v is None:
-            continue
-        if v.device != x.device or v.dtype != torch.float32 \
-                or not v.is_contiguous():
-            raise ValueError(f"{what}: inputs must be contiguous float32 "
-                             f"tensors on {x.device}")
 
 
 def _check_maps(what: str, x: torch.Tensor, maps: Sequence[torch.Tensor],
@@ -444,12 +437,15 @@ def convt_weights(w: torch.Tensor, dot_dtype: torch.dtype) -> torch.Tensor:
                    lambda v: convt_weight_layout(v, dot_dtype))
 
 
+@in_f32
 def conv_transpose1d_plain(x: torch.Tensor, w: torch.Tensor,
                            b: Optional[torch.Tensor], *, stride: int,
                            dot_dtype: torch.dtype = torch.float32
                            ) -> torch.Tensor:
     """x [B, Cin, T], w [Cin, Cout, K] -> [B, Cout, (T-1)*stride - 2*pad + K]
-    with pad = (K - stride) // 2 (stride*T when K - stride is even)."""
+    with pad = (K - stride) // 2 (stride*T when K - stride is even).
+    bfloat16 x: the same on its float32 values, bias added in float32,
+    rounded to bfloat16 once at the end (``in_f32``)."""
     _check_convt_dtype(dot_dtype)
     if dot_dtype == torch.bfloat16:
         x, w = round_bf16(x), bf16_weights(w)
@@ -459,10 +455,10 @@ def conv_transpose1d_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 @functools.cache
-def _convt_library():
-    """Kernel C's library, once its weight layout is checked against
-    ``convt_weight_layout``'s."""
-    lib = _build.library("conv_transpose1d")
+def _convt_library(store: torch.dtype = torch.float32):
+    """Kernel C's library of the instances on ``store`` maps, once its
+    weight layout is checked against ``convt_weight_layout``'s."""
+    lib = _build.library("conv_transpose1d" + STORE_NAME[store])
     if (lib.conv_transpose1d_weight_align(0),
             lib.conv_transpose1d_weight_align(1)) != (CONVT_CIN_ALIGN,
                                                       CONVT_COUT_ALIGN):
@@ -476,7 +472,8 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
                      dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """ConvTranspose1d, padding (K - stride) // 2, + bias (kernel C, which
     has instances for BigVGAN's (stride, K) pairs and (8, 16), all with
-    K - stride even and so exactly stride*T outputs)."""
+    K - stride even and so exactly stride*T outputs). x float32 or
+    bfloat16 (the feature maps); y comes in x's dtype."""
     _check_convt_dtype(dot_dtype)
     if x.device.type == "cpu":
         return conv_transpose1d_plain(x, w, b, stride=stride,
@@ -488,29 +485,30 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     if cin_w != cin or (b is not None and b.shape != (cout,)):
         raise ValueError(f"conv_transpose1d: bad shapes x {tuple(x.shape)} "
                          f"w {tuple(w.shape)}")
-    _check("conv_transpose1d", x, w, b)
+    store = _check_maps("conv_transpose1d", x, (), (w, b))
     if wants_grad(x, w, b):
-        _check_grad_instance("conv_transpose1d", dot_dtype, torch.float32)
+        _check_grad_instance("conv_transpose1d", dot_dtype, store)
         return _ConvT1dGrad.apply(x, w, b, stride)
-    return _launch_conv_transpose1d(x, w, b, stride, dot_dtype)
+    return _launch_conv_transpose1d(x, w, b, stride, dot_dtype, store)
 
 
-def _launch_conv_transpose1d(x, w, b, stride, dot_dtype) -> torch.Tensor:
+def _launch_conv_transpose1d(x, w, b, stride, dot_dtype,
+                             store=torch.float32) -> torch.Tensor:
     """One launch of kernel C on checked arguments."""
     bsz, cin, t = x.shape
     _, cout, k = w.shape
-    lib = _convt_library()
+    lib = _convt_library(store)
     if not lib.conv_transpose1d_supported(stride, k):
         raise ValueError(f"conv_transpose1d: no kernel instance for "
                          f"stride={stride}, K={k}")
-    y = torch.empty((bsz, cout, stride * t), device=x.device,
-                    dtype=torch.float32)
-    err = getattr(lib, f"conv_transpose1d_{DOT_NAME[dot_dtype]}")(
+    y = torch.empty((bsz, cout, stride * t), device=x.device, dtype=store)
+    entry = f"conv_transpose1d_{DOT_NAME[dot_dtype]}{STORE_NAME[store]}"
+    err = getattr(lib, entry)(
         x.data_ptr(), convt_weights(w, dot_dtype).data_ptr(),
         b.data_ptr() if b is not None else None,
         y.data_ptr(), bsz, cin, cout, t, stride, k, _stream(x))
     _build.check(err, "conv_transpose1d")
-    count_launch(conv_transpose1d, dot_dtype)
+    count_launch(conv_transpose1d, dot_dtype, store)
     return y
 
 
@@ -533,3 +531,4 @@ class _ConvT1dGrad(torch.autograd.Function):
 
 conv_transpose1d.launches = 0
 conv_transpose1d.variant_launches = {torch.bfloat16: 0}
+conv_transpose1d.storage_launches = {torch.float32: 0, torch.bfloat16: 0}

@@ -34,6 +34,14 @@ the f32 conv. Feature maps stay f32 in device memory.
   the card), the factor formed before the product; then bias, residuals
   and ``out_scale`` as in f32.
 
+The vocoder's compute dtype (``BigVGAN(dtype=)``, ``MelVoco(dtype=)``,
+``resolve_compute_dtype``) is a third switch: the JAX package's
+``BigVGAN.dtype``. With ``torch.bfloat16`` every conv's weights are
+rounded to bf16 values before the kernel (``compute_weights``; the JAX
+package's ``w.astype(dtype)``), and the maps the JAX package's fused
+vocoder then keeps in bf16 are bf16 tensors (``models/bigvgan.py``); the
+dot dtype applies on top, to those rounded weights and the maps' values.
+
 Rounding is half to even everywhere (``torch.round``; ``rintf`` /
 ``__float2int_rn`` in the kernels). Every quotient is an IEEE division of
 two tensors: PyTorch takes ``number / tensor`` as a product with the
@@ -118,6 +126,13 @@ def resolve_storage_dtype(value, name: str = "vocoder_storage_dtype"
                          f"{value!r}") from None
 
 
+def resolve_compute_dtype(value) -> torch.dtype:
+    """The vocoder's compute dtype (``dtype``) -> torch.float32 or
+    torch.bfloat16; it takes what ``resolve_storage_dtype`` takes (None is
+    float32) and refuses anything else with ``ValueError``."""
+    return resolve_storage_dtype(value, "dtype") or torch.float32
+
+
 def check_lowering_switches(fused, packed, kernel_pipeline,
                             names=("fused_vocoder", "packed_vocoder",
                                    "vocoder_kernel_pipeline")) -> None:
@@ -179,6 +194,26 @@ def _cached(w: torch.Tensor, tag: str, make: Callable):
 def bf16_weights(w: torch.Tensor) -> torch.Tensor:
     """``round_bf16(w)``, once per weight tensor."""
     return _cached(w, "bf16", round_bf16)
+
+
+def compute_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weights a vocoder conv hands its kernel at the compute dtype
+    ``dtype``: ``w`` itself at float32; at bfloat16 its values rounded to
+    bf16 as a float32 tensor (the JAX package's ``w.astype(dtype)`` ahead of
+    each kernel), once per weight tensor under a tag of their own. The
+    kernels' layout caches (``conv_weights``, ``convt_weights``,
+    ``int8_weights``, D's and E's) then key on the rounded tensor, so a
+    weight tensor never returns the layout of its rounded values, nor the
+    other way round. The rounded tensor is made outside inference mode: it
+    keeps a version counter, so the caches on it hold across calls made
+    under ``torch.inference_mode`` (``MelVoco.decode``)."""
+    if dtype != torch.bfloat16:
+        return w
+
+    def make(v):
+        with torch.inference_mode(False):
+            return round_bf16(v)
+    return _cached(w, "compute_bf16", make)
 
 
 def int8_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

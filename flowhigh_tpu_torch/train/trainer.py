@@ -54,8 +54,12 @@ class TrainState:
 
 class Trainer:
     def __init__(self, config: FlowHighConfig = FlowHighConfig(),
-                 cfm_method: Optional[str] = None,
+                 mesh=None, cfm_method: Optional[str] = None,
                  results_folder: Optional[str] = None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Trainer runs on one device: a mesh (data-parallel "
+                "training over several cards) is ROADMAP.md queue 1 item 13")
         self.config = config
         self.cfm_method = cfm_method or config.cfm.cfm_method
         self.model_cfg = dataclasses.replace(

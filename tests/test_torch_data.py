@@ -175,6 +175,18 @@ def test_dsp_exports_every_name_of_the_jax_package():
     assert set(jax_train.__all__) <= set(ptrain.__all__)
 
 
+def test_package_and_models_export_every_name_of_the_jax_package():
+    # ops and compat are left out by design: the JAX package's ops hold its
+    # TPU packing, its compat the JAX parameter trees
+    import flowhigh_tpu
+    import flowhigh_tpu.models as jax_models
+    import flowhigh_tpu_torch
+    import flowhigh_tpu_torch.models as port_models
+    assert set(flowhigh_tpu.__all__) <= set(flowhigh_tpu_torch.__all__)
+    assert set(jax_models.__all__) <= set(port_models.__all__)
+    assert isinstance(flowhigh_tpu_torch.__version__, str)
+
+
 def test_framing_helpers_equal_the_jax_package():
     np.testing.assert_array_equal(dsp.hann_window(2048).numpy(),
                                   np.asarray(jax_dsp.hann_window(2048)))

@@ -937,6 +937,80 @@ def test_bf16_maps_vocoder_on_card_matches_cpu(cuda, gen, dot_dtype, fuse):
     assert chip_smoke.rel_l2(got, want) <= max(1e-2, 2 * floor)
 
 
+# kernel C on bf16 maps (the vocoder's compute dtype bf16), both dot dtypes:
+# the published upsamplers (Cin, Cout, u, K) at short T, odd and even, and
+# the edge shapes of CONVT_SHAPES at every instance
+CONVT_PUBLISHED = [(1536, 768, 5, 11), (768, 384, 4, 8), (384, 192, 4, 8),
+                   (192, 96, 3, 7), (96, 48, 2, 4)]
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,t,u,k", [
+    (1, cin, cout, t, u, k) for cin, cout, u, k in CONVT_PUBLISHED
+    for t in (37, 64)] + [
+    case + pair for case in CONVT_SHAPES for pair in CONVT_INSTANCES])
+def test_conv_transpose1d_on_bf16_maps_matches_plain(cuda, gen, dot_dtype, b,
+                                                     cin, cout, t, u, k):
+    x = _bf(gen, cuda, b, cin, t)
+    w = _randn(gen, cuda, cin, cout, k, scale=(cout * k) ** -0.5)
+    bias = _randn(gen, cuda, cout, scale=0.1)
+    kw = dict(stride=u, dot_dtype=dot_dtype)
+    n0 = _storage_launches(ops.conv_transpose1d, dot_dtype)
+    got = ops.conv_transpose1d(x, w, bias, **kw)
+    assert _storage_launches(ops.conv_transpose1d, dot_dtype) == n0 + 1
+    assert got.shape == (b, cout, u * t)
+    _close_bf16_maps("conv_transpose1d", (b, cin, cout, t, u, k), got,
+                     ops.conv_transpose1d_plain(x, w, bias, **kw), dot_dtype)
+
+
+def test_conv_transpose1d_on_bf16_maps_refuses_autograd(cuda, gen):
+    # C on bf16 maps stands for the Pallas kernel, which jax.grad refuses
+    x = _bf(gen, cuda, 1, 48, 40)
+    wt = _randn(gen, cuda, 48, 24, 8, scale=0.1).requires_grad_()
+    for dot_dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="Linearization failed"):
+            ops.conv_transpose1d(x, wt, None, stride=4, dot_dtype=dot_dtype)
+        with torch.no_grad():
+            assert ops.conv_transpose1d(x, wt, None, stride=4,
+                                        dot_dtype=dot_dtype).dtype == BF
+
+
+@pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_bf16_compute_vocoder_on_card_matches_cpu(cuda, gen, dot_dtype):
+    # BigVGAN(dtype=bf16): the launches chip_smoke.py predicts (kernel C on
+    # bf16 maps at every upsampler), each launch against its plain version
+    # on its own inputs, C's outputs (the resblocks' inputs) bf16 tensors,
+    # and the output within the
+    # CPU's own change under a nudge of the mel by +-2^-16
+    chip_smoke = _chip_smoke()
+    cfg = VocoderConfig(upsample_initial_channel=1024)
+    dt = None if dot_dtype == torch.float32 else dot_dtype
+    voc = seeded_init_(BigVGAN(cfg, conv_dtype=dt, dtype=BF).eval(), 0)
+    mel = _randn(gen, "cpu", 1, 8, cfg.num_mels)
+    records, seen = [], set()
+    for m in voc.resblocks:  # their input: the upsampler's output
+        m.register_forward_pre_hook(lambda mod, i: seen.add(i[0].dtype))
+    with torch.inference_mode():
+        want = voc(mel)
+        floor = max(chip_smoke.rel_l2(voc(mel * (1 + s)), want)
+                    for s in (2.0 ** -16, -2.0 ** -16))
+        voc.to(cuda)
+        ops.reset_launch_counts()
+        got = voc(mel.to(cuda)).cpu()
+        counts = chip_smoke.launch_counts()
+        with chip_smoke.replayed(records):
+            voc(mel.to(cuda))
+    calls = chip_smoke.main_path_calls(cfg, 8, True, dt, None, BF)
+    assert counts == {k: sum(calls.get(k, {}).values()) for k in counts}
+    convt = "conv_transpose1d" + chip_smoke.suffix(
+        dt if dt == BF else None) + "@bf16"
+    assert counts[convt] == 5 and seen == {BF}
+    assert len(records) == sum(counts.values())
+    assert torch.isfinite(got).all()
+    assert chip_smoke.rel_l2(got, want) <= max(1e-2, 2 * floor)
+
+
 # --- the probe kernels G, H and kernel A's firs-only instance ------------------
 
 @pytest.mark.parametrize("b,s,lanes", [(1, 600, 384), (2, 37, 64), (1, 9, 10)])

@@ -229,7 +229,7 @@ def test_cpu_wrappers_on_bf16_maps_count_no_launches(rng):
     assert ops.snake_activation1d(xb, a, None).dtype == BF
     assert all(fn.storage_launches[dt] == 0
                for fn, dt in ops.STORAGE_VARIANTS)
-    assert len(ops.STORAGE_VARIANTS) == 10
+    assert len(ops.STORAGE_VARIANTS) == 12  # kernel C's two among them
 
 
 # --- (b) the plain versions against the Pallas kernels on bf16 input ----------

@@ -204,7 +204,7 @@ def test_melvoco_reference_keywords(tmp_path, rng):
                       (dict(fused_act="yes"), "fused_act"),
                       (dict(kernel_pipeline=0), "kernel_pipeline"),
                       (dict(vocoder="hifigan"), "vocoder"),
-                      (dict(dtype=torch.bfloat16), "dtype")):
+                      (dict(dtype=torch.float16), "dtype")):
         with pytest.raises((ValueError, NotImplementedError), match=match):
             MelVoco(device="cpu", **kw)
 

@@ -33,7 +33,7 @@ from flowhigh_tpu.train.trainer import TrainState as JaxTrainState
 from flowhigh_tpu_torch.compat import (reference_param_order,
                                        vector_field_state_from_jax)
 from flowhigh_tpu_torch.config import (CFMConfig, FlowHighConfig, ModelConfig,
-                                       TrainConfig)
+                                       TrainConfig, VocoderConfig)
 from flowhigh_tpu_torch.train import Trainer
 from test_torch_train_loss import jax_draws
 from test_torch_vector_options import _field_params
@@ -208,6 +208,17 @@ def test_jax_export_loads_into_the_port(three_updates, tmp_path):
         np.testing.assert_array_equal(v.numpy(), want[k].numpy())
     state = ptr.init_state(1, params=sd)  # and trains on from there
     assert torch.equal(state.net.to_pred.weight, sd["to_pred.weight"])
+
+
+@pytest.mark.parametrize("trainer", ["Trainer", "VocoderTrainer"])
+def test_trainers_refuse_a_mesh_naming_the_roadmap_item(trainer):
+    # the JAX trainers take mesh=...; the port's run on one device
+    from flowhigh_tpu_torch import train as ptrain
+    cls = getattr(ptrain, trainer)
+    cfg = _configs()[1] if trainer == "Trainer" else VocoderConfig()
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        cls(cfg, mesh=object(), device="cpu")
+    assert cls(cfg, mesh=None, device="cpu")
 
 
 def test_load_params_refuses_an_orbax_directory(tmp_path):
