@@ -13,8 +13,9 @@ Phases (any failure raises and the script exits non-zero):
    (``fuse_act_conv=False``: A, B, C), and at every shape of the long-form
    path's vocoder windows (1,064 frames), atol 1e-4, rtol 1e-4; time the
    kernel, the plain version and the one PyTorch library call that computes
-   the same function where there is one (CUDA events, median of 15 after 3
-   warm-up launches). No single PyTorch call computes kernel D or E; their
+   the same function where there is one (CUDA events, the kernel's median
+   of 15 after 3 warm-up launches, the plain version's and the library
+   call's of 5 after 1). No single PyTorch call computes kernel D or E; their
    yardstick is the port's own unfused chain of kernels A and B for the same
    work (``unfused_chain_ms``). Kernel F (flash attention) is held against
    its plain version (evaluated in float64) over every row, masked rows
@@ -196,8 +197,8 @@ D. the training data and the CLI's ``train`` (after phase T). D1: the
    beside its plain version on the card, which launches ~9 S operations
    a sample (the ``kernels`` line's row). D4: ``cli.main(["train",
    ...])`` on a reference JSON at the published width (batch 128,
-   ``save_model_every`` 3, synthetic corpus, batches uploaded by the
-   prefetch threads): 3 updates, then auto-resume to update 4; the wall
+   ``save_model_every`` 2, synthetic corpus, batches uploaded by the
+   prefetch threads): 2 updates, then auto-resume to update 3; the wall
    time of each update and the share spent waiting in ``next(data_iter)``;
    then ``Trainer.fit`` on the same iterator with ``device_prefetch=False``
    and one batch's synchronous upload;
@@ -220,6 +221,26 @@ W. the vocoder's GAN training (``train.VocoderTrainer``: the generator on
    to the unfused path's (A 91, B 91, C 5, D and E none), and one step's
    device time by kernel (torch.profiler), grouped as the port's forward
    kernels, backward-named kernels and the rest;
+N. the distributed paths (``flowhigh_tpu_torch.parallel``) at world size
+   1: torchrun's environment set for one rank on loopback,
+   ``parallel.initialize()`` joins a real NCCL group of one (the NCCL
+   version printed; the environment put back and the group destroyed
+   after), ``make_mesh()``. N1: ``Trainer(mesh=)`` (DDP over ``data``)
+   against ``Trainer()`` on the published field in bf16 compute, 3
+   updates of 16 crops from the same weights and draws: loss, update 1's
+   gradient and the parameters at phase T1's bounds (max abs printed);
+   an update of each timed in turns (median of 5 after 2). N2:
+   ``VocoderTrainer(mesh=)`` against ``VocoderTrainer()``, phase W3's
+   configuration, 2 GAN steps, and the one-card trainer once more on the
+   waves nudged by 2^-16: each step's launches held to the unfused path's
+   (A 91, B 91, C 5), step 1's losses at phase T1's bound, step 1's
+   gradient and the parameters after step 2 within max(phase T1's bound,
+   twice the one card's change under the nudge), phase W1's rule (the
+   backward's sums are run-dependent, and the GAN amplifies them). N3: ``make_sharded_generate`` on phase 2's clip and a
+   second 10 s row against ``dispatch_generate`` of the same batch
+   (<= 1e-5), with the same launch counts (every kernel A-E launched).
+   N4: ``StreamingSR.generate_sharded`` on a 60 s clip against
+   ``StreamingSR.generate`` (<= 1e-3), the RTF of both (median of 3);
 M. the probe kernels (scripts/port_bench_act_mxu.py, the card's counterpart
    of scripts/bench_act_mxu.py): the probe script's run over its four
    cases with every launch count zeroed just before and read just after
@@ -251,8 +272,11 @@ I. the CLI on the card: ``cli.main(["infer", ...])`` on phase 2's 10 s
    flash clip; kernel F's launches in phase T3's ``evaluate`` in
    ``evaluate_launches`` and ``evaluate_path``; the sosfilt kernel's
    from phase D3; A, B and C's phase W2 figures in ``gan_train_path``;
-   kernel C's instances on bf16 maps on phase X's path of their dots),
-   with phase S's, phase V's, phase T's, phase D's and phase W's paths
+   kernel C's instances on bf16 maps on phase X's path of their dots;
+   A-E's launches on phase N3's sharded path in
+   ``sharded_generate_launches``, A-C's per phase N2 GAN step in
+   ``vocoder_mesh_launches``), with phase S's, phase V's, phase T's,
+   phase D's, phase W's and phase N's paths
    (``paths``: name, launches, ms), phase T's summary line
    (``train``), the card line and, last, the ``ok`` line.
 
@@ -279,6 +303,10 @@ REPS, WARMUP = 15, 3
 # (repetitions, warm-up launches) of the kernel and its float32-map
 # instance, and of the plain version, library call and A + B chain
 REPS_BF16_MAPS, REPS_BF16_MAPS_OTHER = (5, 2), (3, 1)
+# the yardsticks beside the other instances (plain version, library call,
+# A + B chain): fewer repetitions than the kernel's own (the script's time)
+REPS_OTHER = (5, 1)
+YARDSTICK_S = [0.0]  # seconds spent timing them (phase 1 prints it)
 # long-form: clip, vocoder windows (the JAX package's defaults)
 LONG_SECONDS, CHUNK, OVERLAP = 300.0, 1000, 32
 STREAM_REPS = 3  # timed StreamingSR runs of each wire (median)
@@ -823,7 +851,8 @@ def check_kernels(shapes: dict, device, peaks) -> dict:
         variant = "." in kernel or BF16_MAPS in kernel
         # the instances on bf16 maps: fewer repetitions (phase 1's time)
         reps, reps_other = ((REPS_BF16_MAPS, REPS_BF16_MAPS_OTHER)
-                            if BF16_MAPS in kernel else ((REPS, WARMUP),) * 2)
+                            if BF16_MAPS in kernel
+                            else ((REPS, WARMUP), REPS_OTHER))
         for key in sorted(keys):
             run, plain, lib, chain, f32 = _cases(kernel, key, randn)
             max_abs, max_rel = _compare(kernel, key, run(), plain())
@@ -833,12 +862,16 @@ def check_kernels(shapes: dict, device, peaks) -> dict:
                    "bytes_ms": byt / bw * 1e3,
                    "ops_ms": (dot_seconds(peaks, kernel, dots, key)
                               + other / flops) * 1e3,
-                   "ms": time_ms(run, *reps),
-                   "plain_ms": time_ms(plain, *reps_other),
-                   "library_ms": (time_ms(lib, *reps_other) if lib is not None
-                                  else None),
-                   "unfused_chain_ms": (time_ms(chain, *reps_other)
-                                        if chain is not None else None)}
+                   "ms": time_ms(run, *reps)}
+            t0 = time.perf_counter()
+            row.update({
+                "plain_ms": time_ms(plain, *reps_other),
+                "library_ms": (time_ms(lib, *reps_other) if lib is not None
+                               else None),
+                "unfused_chain_ms": (time_ms(chain, *reps_other)
+                                     if chain is not None else None)})
+            if reps_other == REPS_OTHER:
+                YARDSTICK_S[0] += time.perf_counter() - t0
             if variant:
                 row["f32_ms"] = time_ms(f32, *reps)
             rows[kernel][key] = row
@@ -2549,7 +2582,7 @@ SOSFILT = "sosfilt"
 # loop-carried chain of a section: a sum, a product, a difference, at an
 # FP32 latency of 4 cycles
 SOS_OPS, SOS_CHAIN, FP32_LATENCY = 9, 3, 4
-D4_UPDATES = 3
+D4_UPDATES = 2
 
 
 class _TimedIter:
@@ -3136,6 +3169,323 @@ def gan_phase(config) -> dict:
     return res
 
 
+# --- phase N: the distributed paths at world size 1 over NCCL -------------------
+
+N_BATCH, N_UPDATES, N_GAN_STEPS = 16, 3, 2  # N1's crops and updates; N2's
+N_WARMUP, N_TIMED = 2, 5  # N1's update timing (median), each path in turns
+N_STREAM_SECONDS, N_STREAM_REPS = 60.0, 3  # N4: phase L's 60 s clip
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _n1(config, mesh) -> dict:
+    """N1: ``Trainer(mesh=)`` against ``Trainer()`` on the published field
+    (bf16 compute), both from the same weights and draws, ``N_UPDATES``
+    updates of ``N_BATCH`` crops; then an update of each timed in turns."""
+    import torch
+
+    from flowhigh_tpu_torch.cfm import draw_training
+    from flowhigh_tpu_torch.compat import seeded_init_
+    from flowhigh_tpu_torch.models import VectorFieldNet, mel_encode
+    from flowhigh_tpu_torch.train import Trainer
+    weights = seeded_init_(VectorFieldNet(config.model), 0).state_dict()
+    batch = train_batch(N_BATCH, 7, "cuda")
+    frames = mel_encode(batch["wave"][:1], config.mel).shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    draws = [draw_training(gen, (N_BATCH, frames, config.mel.n_mels), "cuda")
+             for _ in range(N_UPDATES)]
+    runs = {}
+    for name, kw in (("one_card", {}), ("mesh", {"mesh": mesh})):
+        tr = Trainer(config, device="cuda", **kw)
+        state = tr.init_state(0, params=weights)
+        losses = []
+        for i, d in enumerate(draws):
+            state, m = tr.train_step(state, batch, draws=d)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                grads = torch.cat([p.grad.flatten().float()
+                                   for p in state.net.parameters()])
+        params = torch.cat([p.detach().flatten()
+                            for p in state.net.parameters()])
+        runs[name] = {"trainer": tr, "state": state, "losses": losses,
+                      "grads": grads, "params": params}
+    one, mesh_run = runs["one_card"], runs["mesh"]
+    if mesh_run["state"].ddp is None:
+        raise AssertionError("phase N1: the mesh trainer has no DDP wrapper")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(mesh_run["losses"], one["losses"]))
+    grad_rel = rel_l2(mesh_run["grads"].cpu(), one["grads"].cpu())
+    param_rel = rel_l2(mesh_run["params"].cpu(), one["params"].cpu())
+    diffs = {k: float((mesh_run[k] - one[k]).abs().max())
+             for k in ("grads", "params")}
+    diffs["loss"] = max(abs(a - b) for a, b in
+                        zip(mesh_run["losses"], one["losses"]))
+    times = {"one_card": [], "mesh": []}
+    for i in range(N_WARMUP + N_TIMED):
+        for name, r in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["state"], _ = r["trainer"].train_step(r["state"], batch)
+            torch.cuda.synchronize()
+            if i >= N_WARMUP:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    res = {"loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+           "param_rel_l2": param_rel, "max_abs": diffs,
+           "ms_per_update": {k: float(np.median(v)) for k, v in times.items()},
+           "ms_all": times}
+    print(f"phase N1: Trainer(mesh=make_mesh()) against Trainer(), published "
+          f"field, bf16 compute, {N_UPDATES} updates of {N_BATCH} crops: loss "
+          f"rel {loss_rel:.2e}, update 1's gradient rel L2 {grad_rel:.2e}, "
+          f"parameters rel L2 {param_rel:.2e} (max abs: loss "
+          f"{diffs['loss']:.3e}, gradient {diffs['grads']:.3e}, parameters "
+          f"{diffs['params']:.3e}); ms per update (median of {N_TIMED} "
+          f"after {N_WARMUP}, in turns): mesh "
+          f"{res['ms_per_update']['mesh']:.2f}, one card "
+          f"{res['ms_per_update']['one_card']:.2f}", flush=True)
+    if not (loss_rel <= T1_GRAD_TOL and grad_rel <= T1_GRAD_TOL
+            and param_rel <= T1_PARAM_TOL):
+        raise AssertionError(f"phase N1: the mesh trainer departs: {res}")
+    return res
+
+
+def _n2(cfg, mesh) -> dict:
+    """N2: ``VocoderTrainer(mesh=)`` against ``VocoderTrainer()``, phase
+    W3's configuration, ``N_GAN_STEPS`` GAN steps from the same weights on
+    the same batch, and the one-card trainer once more on the waves
+    nudged by 2^-16: each step's launches held to the unfused path's;
+    step 1's losses at phase T1's bound; step 1's gradient and the
+    parameters after the last step each within max(phase T1's bound, twice
+    the one-card trainer's own change under the nudge), phase W1's rule.
+    Its backward sums in run-dependent orders (atomic adds, cuDNN's
+    default algorithms), and the GAN's ill-conditioned float32 gradients
+    amplify that: two one-card runs part by 1.5e-5 to 5e-5 in the step-1
+    gradient and 2.6e-3 to 3.3e-3 in the parameters after two steps
+    (PERF.md §6, ROADMAP.md queue 3)."""
+    import torch
+
+    from flowhigh_tpu_torch import MelConfig, ops
+    from flowhigh_tpu_torch.train import (SyntheticAudioDataset,
+                                          VocoderSegmentDataset,
+                                          VocoderTrainer)
+    want = {k: sum(v.values()) for k, v in main_path_calls(
+        cfg, W_FRAMES, fuse_act_conv=False).items()}
+    data = VocoderSegmentDataset(SyntheticAudioDataset(
+        n_items=W_BATCH, seconds=1.0),
+        segment_samples=W_FRAMES * MelConfig().hop_length)
+    wave = np.stack([data[i]["wave"] for i in range(W_BATCH)])
+    runs = {}
+    for name, kw, scale in (("one_card", {}, 1.0),
+                            ("mesh", {"mesh": mesh}, 1.0),
+                            ("nudged", {}, 1.0 + NUDGE)):
+        tr = VocoderTrainer(cfg, segment_frames=W_FRAMES, device="cuda", **kw)
+        state = tr.init_state(0)
+        batch = {"wave": torch.from_numpy(wave * np.float32(scale)).cuda()}
+        modules = (state.generator, state.mpd, state.mrd)
+        losses, launches, times = [], [], []
+        for i in range(N_GAN_STEPS):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = tr.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = {k: v for k, v in launch_counts().items()
+                      if k in KERNEL_NAMES}
+            launches.append(counts)
+            if counts != want:
+                raise AssertionError(f"phase N2 {name}: launched {counts}, "
+                                     f"want {want}")
+            losses.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                grads = torch.cat([p.grad.flatten() for mod in modules
+                                   for p in mod.parameters()]).cpu()
+        params = torch.cat([p.detach().flatten() for mod in modules
+                            for p in mod.parameters()])
+        runs[name] = {"losses": losses, "params": params.cpu(),
+                      "grads": grads, "launches": launches,
+                      "ddp": state.ddp is not None, "ms": times}
+        del tr, state, batch, modules
+        torch.cuda.empty_cache()
+    one, mesh_run, nudged = runs["one_card"], runs["mesh"], runs["nudged"]
+    if not mesh_run["ddp"]:
+        raise AssertionError("phase N2: the mesh trainer has no DDP wrappers")
+    loss_rel = max(abs(mesh_run["losses"][0][k] - one["losses"][0][k])
+                   / abs(one["losses"][0][k]) for k in one["losses"][0])
+    grad_rel = rel_l2(mesh_run["grads"], one["grads"])
+    param_rel = rel_l2(mesh_run["params"], one["params"])
+    nudge_rel = rel_l2(nudged["params"], one["params"])
+    nudge_grad = rel_l2(nudged["grads"], one["grads"])
+    bound = max(T1_PARAM_TOL, 2 * nudge_rel)
+    grad_bound = max(T1_GRAD_TOL, 2 * nudge_grad)
+    res = {"loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+           "param_rel_l2": param_rel, "nudge_param_rel_l2": nudge_rel,
+           "nudge_grad_rel_l2": nudge_grad,
+           "params_max_abs": float((mesh_run["params"]
+                                    - one["params"]).abs().max()),
+           "losses": {k: v["losses"] for k, v in runs.items()},
+           "ms_per_step": {k: v["ms"] for k, v in runs.items()},
+           "launches": mesh_run["launches"][-1]}
+    print(f"phase N2: VocoderTrainer(mesh=make_mesh()) against "
+          f"VocoderTrainer(), published generator, batch {W_BATCH} x "
+          f"{W_FRAMES} frames, {N_GAN_STEPS} GAN steps: step 1's losses rel "
+          f"{loss_rel:.2e}, step 1's gradient rel L2 {grad_rel:.2e} (the "
+          f"one card's own change under a 2^-16 nudge of the waves "
+          f"{nudge_grad:.2e}, bound {grad_bound:.2e}), parameters after step "
+          f"{N_GAN_STEPS} rel L2 {param_rel:.2e} (max abs "
+          f"{res['params_max_abs']:.3e}; under the nudge {nudge_rel:.2e}, "
+          f"bound {bound:.2e}); launches a step {res['launches']}; ms a "
+          f"step (the first includes set-up): mesh "
+          f"{[round(t, 1) for t in runs['mesh']['ms']]}, one card "
+          f"{[round(t, 1) for t in runs['one_card']['ms']]}", flush=True)
+    if not (loss_rel <= T1_GRAD_TOL and grad_rel <= grad_bound
+            and param_rel <= bound):
+        raise AssertionError(f"phase N2: the mesh trainer departs: {res}")
+    return res
+
+
+def _n3(config, mesh, audio: np.ndarray) -> dict:
+    """N3: ``make_sharded_generate`` on a batch of two 10 s clips (phase
+    2's and it reversed at half the level) against ``dispatch_generate`` of
+    the same batch, each run's launches zeroed just before and read just
+    after."""
+    import torch
+
+    from flowhigh_tpu_torch import ops
+    from flowhigh_tpu_torch.sr import padded_length
+    sr = make_sr(config, "cuda")
+    n = len(audio)
+    batch = np.zeros((2, padded_length(n, IN_SR)), np.float32)
+    batch[0, :n], batch[1, :n] = audio, 0.5 * audio[::-1]
+    lens = np.full(2, n)
+    fn = sr.make_sharded_generate(mesh, in_sr=IN_SR)
+    ops.reset_launch_counts()
+    out, n48 = fn(batch, lens, seed=0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ops.reset_launch_counts()
+    want, want_n48, _ = sr.dispatch_generate(batch, lens, IN_SR)
+    torch.cuda.synchronize()
+    counts_one = launch_counts()
+    diff = float((out - want).abs().max())
+    ms = {}
+    for name, call in (("sharded", lambda: fn(batch, lens, seed=0)),
+                       ("one_card", lambda: sr.dispatch_generate(
+                           batch, lens, IN_SR))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    res = {"launches": {k: v for k, v in counts.items() if v},
+           "max_abs": diff, "shape": list(out.shape), "ms": ms}
+    print(f"phase N3: make_sharded_generate on 2 x 10 s: out "
+          f"{tuple(out.shape)}, against dispatch_generate max abs {diff:.3e}; "
+          f"one call {ms['sharded']:.1f} ms (dispatch_generate "
+          f"{ms['one_card']:.1f}); "
+          f"launches {res['launches']} (dispatch_generate's "
+          f"{ {k: v for k, v in counts_one.items() if v} })", flush=True)
+    if counts != counts_one or min(counts[k] for k in KERNEL_NAMES) == 0:
+        raise AssertionError(f"phase N3: launches {counts}, one card "
+                             f"{counts_one}")
+    if not (diff <= 1e-5 and torch.equal(n48, want_n48)
+            and torch.isfinite(out).all()):
+        raise AssertionError(f"phase N3: sharded generate departs: {res}")
+    return res
+
+
+def _n4(config, mesh) -> dict:
+    """N4: ``StreamingSR.generate_sharded`` on phase L's 60 s clip against
+    ``StreamingSR.generate`` (the per-chunk outputs stitched), within the
+    card-vs-CPU bound; both timed (median of ``N_STREAM_REPS`` after one,
+    in turns) as RTF."""
+    import torch
+
+    from flowhigh_tpu_torch import StreamingSR
+    from flowhigh_tpu_torch.profiling import clip_signal
+    sr = make_sr(config, "cuda")
+    audio = clip_signal(N_STREAM_SECONDS, IN_SR)
+    stream = StreamingSR(sr)
+    runs = {"sharded": lambda: stream.generate_sharded(audio, IN_SR, mesh),
+            "generate": lambda: stream.generate(audio, IN_SR)}
+    outs, times = {}, {k: [] for k in runs}
+    for i in range(1 + N_STREAM_REPS):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = run()
+            torch.cuda.synchronize()
+            if i:
+                times[name].append(time.perf_counter() - t0)
+    diff = float(np.abs(outs["sharded"] - outs["generate"]).max())
+    rtf = {k: N_STREAM_SECONDS / float(np.median(v)) for k, v in times.items()}
+    res = {"max_abs": diff, "rtf": rtf, "s_all": times,
+           "shape": list(outs["sharded"].shape),
+           "cache_entries": len(stream._sharded_fns)}
+    print(f"phase N4: generate_sharded on {N_STREAM_SECONDS:g} s: out "
+          f"{outs['sharded'].shape}, against StreamingSR.generate max abs "
+          f"{diff:.3e}; RTF {rtf['sharded']:.1f} (StreamingSR.generate "
+          f"{rtf['generate']:.1f}), median of {N_STREAM_REPS}", flush=True)
+    if not (diff <= 1e-3 and outs["sharded"].shape == outs["generate"].shape
+            and np.isfinite(outs["sharded"]).all()
+            and res["cache_entries"] == 1):
+        raise AssertionError(f"phase N4: generate_sharded departs: {res}")
+    return res
+
+
+def dist_phase(config, audio: np.ndarray) -> dict:
+    """Phase N (see the module docstring): ``parallel.initialize()`` from
+    torchrun's environment, set here for a world of one on loopback (and
+    put back after), a real NCCL group of one rank; then N1-N4 on
+    ``make_mesh()``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from flowhigh_tpu_torch import parallel
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        joined = parallel.initialize()
+        backend = dist.get_backend() if dist.is_initialized() else None
+        version = ".".join(map(str, torch.cuda.nccl.version()))
+        mesh = parallel.make_mesh()
+        print(f"phase N: initialize() -> {joined} over {backend} (NCCL "
+              f"{version}), mesh {dict(mesh.shape)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if joined != (0, 1) or backend != "nccl" or \
+                mesh.group("data") is None:
+            raise AssertionError(f"phase N: joined {joined} over {backend}")
+        res = {"nccl": version, "init_s": time.perf_counter() - t0}
+        for key, fn, args in (("n1", _n1, (config, mesh)),
+                              ("n2", _n2, (config.vocoder, mesh)),
+                              ("n3", _n3, (config, mesh, audio)),
+                              ("n4", _n4, (config, mesh))):
+            t0 = time.perf_counter()
+            res[key] = fn(*args)
+            res[key]["s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"phase N: N1 {res['n1']['s']:.1f} s, N2 {res['n2']['s']:.1f} s, "
+          f"N3 {res['n3']['s']:.1f} s, N4 {res['n4']['s']:.1f} s", flush=True)
+    return res
+
+
 # --- phase M: the probe kernels --------------------------------------------------
 
 # probe instance -> the probe script's row that launches it
@@ -3553,7 +3903,10 @@ def main() -> int:
                   f"chain {r['unfused_chain_ms']}), max abs err "
                   f"{r['max_abs_err']:.2e}", flush=True)
     print(f"phase 1: {sum(len(v) for v in shapes.values())} vocoder shapes "
-          f"checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"checked and timed in {time.perf_counter() - t0:.1f} s, of which "
+          f"{YARDSTICK_S[0]:.1f} s timing the float32-map instances' "
+          f"yardsticks at {REPS_OTHER[0]} + {REPS_OTHER[1]} launches each",
+          flush=True)
     for k, r in main_tot.items():
         print(f"  {k}: {r['launches']} launches, {r['ms']:.2f} ms per clip "
               f"(plain {r['plain_ms']:.2f}, bound {r['bound_ms']:.2f} "
@@ -3716,6 +4069,12 @@ def main() -> int:
     gan["phase_s"] = time.perf_counter() - t0
     print(f"phase W: done in {gan['phase_s']:.1f} s", flush=True)
 
+    # phase N: the distributed paths at world size 1 over NCCL
+    t0 = time.perf_counter()
+    dist = dist_phase(config, audio)
+    dist["phase_s"] = time.perf_counter() - t0
+    print(f"phase N: done in {dist['phase_s']:.1f} s", flush=True)
+
     # phase 4: the records
     kernels = []
     for k in ALL_KERNELS:
@@ -3731,6 +4090,10 @@ def main() -> int:
             entry["resblock2_path"] = {f: rb2_tot[k][f] for f in RECORD}
         if k in gan["w2"]:  # phase W2: under autograd, per GAN step
             entry["gan_train_path"] = gan["w2"][k]
+        if k in dist["n3"]["launches"]:  # phase N3, per batch of 2 x 10 s
+            entry["sharded_generate_launches"] = dist["n3"]["launches"][k]
+        if k in dist["n2"]["launches"]:  # phase N2, per GAN step
+            entry["vocoder_mesh_launches"] = dist["n2"]["launches"][k]
         if k == FLASH:  # phase T3: Trainer.evaluate with attn_flash=True
             r3 = training["t3"]["flash"]
             entry["evaluate_launches"] = r3["launches"]
@@ -3827,7 +4190,7 @@ def main() -> int:
         "flash_rows": {str(k): v for k, v in flash_rows.items()},
         "probes": probes, "probe_launches": probe_launches, "cli": cli_res,
         "surface": surface, "resblock2_path": rb2_tot, "options": options,
-        "train": training, "data": data, "gan": gan,
+        "train": training, "data": data, "gan": gan, "dist": dist,
         "script_s": time.perf_counter() - t_start}, indent=1, default=str))
     train_paths = [{"name": f"Trainer.train_step, batch "
                             f"{config.train.batch_size}, "
@@ -3859,9 +4222,26 @@ def main() -> int:
                           f"batch {W_BATCH} x {W_FRAMES} frames",
                   "launches": w3["launches"], "ms": w3["ms_per_step"],
                   "peak_gib": w3["peak_gib"]}]
+    n1, n2, n4 = dist["n1"], dist["n2"], dist["n4"]
+    dist_paths = [
+        {"name": f"Trainer(mesh=make_mesh()).train_step, NCCL world of one, "
+                 f"batch {N_BATCH}, bf16", "launches": {},
+         "ms": n1["ms_per_update"]["mesh"],
+         "one_card_ms": n1["ms_per_update"]["one_card"]},
+        {"name": f"VocoderTrainer(mesh=make_mesh()).train_step, batch "
+                 f"{W_BATCH} x {W_FRAMES} frames (step {N_GAN_STEPS})",
+         "launches": n2["launches"], "ms": n2["ms_per_step"]["mesh"][-1],
+         "one_card_ms": n2["ms_per_step"]["one_card"][-1]},
+        {"name": f"FlowHighSR.make_sharded_generate, 2 x {SECONDS:g} s",
+         "launches": dist["n3"]["launches"],
+         "ms": dist["n3"]["ms"]["sharded"],
+         "one_card_ms": dist["n3"]["ms"]["one_card"]},
+        {"name": f"StreamingSR.generate_sharded, {N_STREAM_SECONDS:g} s",
+         "launches": {}, "ms": N_STREAM_SECONDS * 1e3 / n4["rtf"]["sharded"],
+         "generate_ms": N_STREAM_SECONDS * 1e3 / n4["rtf"]["generate"]}]
     print(json.dumps({"kernels": kernels,
                       "paths": surface["paths"] + options["paths"]
-                      + train_paths + data_paths + gan_paths}))
+                      + train_paths + data_paths + gan_paths + dist_paths}))
     t1 = training["t1"]
     print(json.dumps({"train": {
         "t1_card_vs_cpu": {k: t1[k] for k in ("loss_rel", "grad_rel_l2",

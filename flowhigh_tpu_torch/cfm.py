@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .config import CFMConfig
+from .utils import RowShard
 
 CFM_METHODS = CFMConfig.CFM_METHODS
 
@@ -293,15 +294,18 @@ def cfm_loss(pred: torch.Tensor, target: torch.Tensor,
 
 
 def freq_mask_cond(cond: torch.Tensor, height: torch.Tensor,
-                   start: torch.Tensor) -> torch.Tensor:
+                   start: torch.Tensor,
+                   minimum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each item's bins [start, start + height) of ``cond`` [B, T, M] set
-    to min(cond) + 1e-3 (the minimum over the whole batch); ``height``,
-    ``start`` [B] int (``draw_training``: heights in [10, 20], starts in
-    [20, M - 21])."""
+    to min(cond) + 1e-3 (the minimum over the whole batch: ``minimum``
+    where ``cond`` holds one rank's rows of it); ``height``, ``start`` [B]
+    int (``draw_training``: heights in [10, 20], starts in [20, M - 21])."""
     bins = torch.arange(cond.shape[-1], device=cond.device)
     in_band = ((bins[None, :] >= start[:, None])
                & (bins[None, :] < (start + height)[:, None]))
-    return torch.where(in_band[:, None, :], torch.min(cond) + 1e-3, cond)
+    if minimum is None:
+        minimum = torch.min(cond)
+    return torch.where(in_band[:, None, :], minimum + 1e-3, cond)
 
 
 def crop_segments(arrays, lengths: torch.Tensor, out_size: int,
@@ -375,11 +379,23 @@ def cfm_training_loss(net, x1_mel: torch.Tensor, cond_mel: torch.Tensor,
     on) with ``train``, in eval mode without; its mode comes back after.
     ``draws`` are the loss's random numbers (``draw_training`` from
     ``generator`` when None); the dropout masks come from ``generator``
-    after them."""
-    if draws is None:
+    after them. Under data parallelism the inputs are one rank's rows,
+    ``draws`` the global batch's (or None), and ``generator`` a
+    ``utils.RowShard``: the draws and masks are the global batch's rows of
+    this rank, the frequency mask's fill the global minimum, so the loss is
+    this rank's share of the global batch's."""
+    rows = generator if isinstance(generator, RowShard) else None
+    if rows is not None:
+        if draws is None:
+            shape = (x1_mel.shape[0] * rows.count,) + tuple(x1_mel.shape[1:])
+            draws = draw_training(rows.generator, shape, x1_mel.device)
+        draws = TrainingDraws(*(rows.rows(t) for t in draws))
+    elif draws is None:
         draws = draw_training(generator, x1_mel.shape, x1_mel.device)
     if cond_freq_masking:
-        cond_mel = freq_mask_cond(cond_mel, draws.fm_height, draws.fm_start)
+        cond_mel = freq_mask_cond(
+            cond_mel, draws.fm_height, draws.fm_start,
+            None if rows is None else rows.amin(cond_mel))
     t = draws.t
     ps = sample_path(method, x1_mel, cond_mel, t, sigma, draws.eps)
     if out_size and out_size > 0:

@@ -22,7 +22,6 @@ resumes from the newest ``trainstate_*.pt`` of the results folder.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 from pathlib import Path
 
@@ -138,20 +137,18 @@ def cmd_train(args) -> int:
 
     from .config import FlowHighConfig
     from .models import VectorFieldNet
+    from .parallel import initialize, make_global_mesh, shard_global_batch
     from .train import (AudioDataset, SyntheticAudioDataset, Trainer,
                         batch_iterator, random_split)
     from .utils import model_summary, resolve_device
 
-    # the JAX CLI's mesh and multi-host launch (its parallel.initialize)
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: tensor parallelism is not ported to flowhigh_tpu_torch "
-            "(ROADMAP.md queue 1 item 13)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "a multi-process launch (WORLD_SIZE > 1) is not ported to "
-            "flowhigh_tpu_torch (ROADMAP.md queue 1 item 13)")
-    device = resolve_device(args.device)
+    # a launch (torchrun --nproc_per_node=N, or its environment set by
+    # hand) joins the ranks: NCCL on the card, gloo with --device cpu; one
+    # process without that environment joins nothing
+    proc_idx, proc_cnt = initialize(device=args.device)
+    if proc_cnt > 1:
+        print(f"[train] multi-process: rank {proc_idx}/{proc_cnt}")
+    device = resolve_device(None if args.device == "cuda" else args.device)
 
     cfg = (FlowHighConfig.from_reference_json(args.config)
            if args.config else FlowHighConfig())
@@ -176,19 +173,27 @@ def cmd_train(args) -> int:
         print(f"[train] {len(train_ds)} train / {len(valid_ds)} valid "
               f"(random_split seed {cfg.train.random_split_seed})")
 
-    trainer = Trainer(cfg, cfm_method=cfg.cfm.cfm_method,
+    mesh = make_global_mesh(n_model=args.tp)  # one process: 1 x 1
+    trainer = Trainer(cfg, mesh=mesh, cfm_method=cfg.cfm.cfm_method,
                       results_folder=args.save_dir or cfg.train.save_dir,
                       device=device)
-    # model summary at startup (reference: train.py:75 torchinfo.summary)
-    print(model_summary(VectorFieldNet(trainer.model_cfg),
-                        "FLowHigh vector field"))
+    if proc_idx == 0:
+        # model summary at startup (reference: train.py:75 torchinfo.summary)
+        print(model_summary(VectorFieldNet(trainer.model_cfg),
+                            "FLowHigh vector field"))
     pad_to = cfg.data.sampling_rate * 3
     # on the card the prefetch threads upload each batch (pinned buffers, a
-    # side stream), so that the copy overlaps the running step
+    # side stream), so that the copy overlaps the running step; the ranks
+    # of one data index read that index's disjoint rows of each global batch
     on_card = device.type == "cuda"
     data = batch_iterator(train_ds, cfg.train.batch_size, pad_to=pad_to,
                           device_prefetch=on_card,
-                          device=device if on_card else None)
+                          device=device if on_card else None,
+                          process_index=mesh.index("data"),
+                          process_count=mesh.shape["data"])
+    steps = data
+    if proc_cnt > 1:  # local rows -> this rank's share of each global batch
+        steps = (shard_global_batch(mesh, b) for b in data)
     try:
         valid_iter = batch_iterator(valid_ds, min(cfg.train.batch_size,
                                                   max(1, len(valid_ds))),
@@ -200,7 +205,7 @@ def cmd_train(args) -> int:
         state = None
         if args.resume:
             state = trainer.init_state(params=trainer.load_params(args.resume))
-        trainer.fit(data, state=state, auto_resume=not args.resume,
+        trainer.fit(steps, state=state, auto_resume=not args.resume,
                     valid_batches=valid_batches)
     finally:
         data.close()  # stop the training iterator's prefetch threads

@@ -16,6 +16,8 @@ export (``flowhigh_tpu/compat/torch_ckpt.py``: ``params_to_torch_state`` and
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -121,6 +123,34 @@ def vector_field_state_from_jax(params: dict, cfg: ModelConfig) -> dict:
         sd[L + "5.3.bias"] = _np(ff["proj_out"]["bias"])
     sd["transformer.final_norm.gamma"] = _np(tr["final_norm"]["gamma"])
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+# the transformer layer's slots (``models/transformer.py``) and the JAX
+# modules they hold; the feed-forward's slots 0 and 3 are its Dense layers
+_LAYER_SLOTS = {"0": "skip_combiner", "1": "gateloop", "2": "attn_norm",
+                "3": "attn", "4": "ff_norm", "5": "ff"}
+_FF_SLOTS = {"0": "proj_in", "3": "proj_out"}
+_LAYER = re.compile(r"^transformer\.layers\.(\d+)\.(\d)\.(.+)$")
+
+
+def jax_param_name(name: str) -> str:
+    """The ``/``-joined JAX param path (below ``params``) of the vector
+    field's state-dict entry ``name``, by the mapping above: e.g.
+    ``transformer.layers.0.5.0.weight`` -> ``transformer/layers_0_ff/
+    proj_in/kernel``. Dense weights are kernels; other leaves keep their
+    names."""
+    m = _LAYER.match(name)
+    if m:
+        i, slot, rest = m.groups()
+        head = f"transformer/layers_{i}_{_LAYER_SLOTS[slot]}"
+        parts = rest.split(".")
+        if slot == "5" and parts[0] in _FF_SLOTS:
+            parts[0] = _FF_SLOTS[parts[0]]
+        path = head + ("/" + "/".join(parts) if slot != "0" else
+                       "/" + parts[-1])
+    else:
+        path = name.replace(".", "/")
+    return re.sub(r"/weight$", "/kernel", path)
 
 
 def vocoder_state_from_jax(params: dict, cfg: VocoderConfig) -> dict:
@@ -236,6 +266,6 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     return module
 
 
-__all__ = ["fold_weight_norm", "fold_state_dict", "vector_field_state_from_jax",
+__all__ = ["jax_param_name", "fold_weight_norm", "fold_state_dict", "vector_field_state_from_jax",
            "vocoder_state_from_jax", "mpd_state_from_jax",
            "mrd_state_from_jax", "seeded_init_"]

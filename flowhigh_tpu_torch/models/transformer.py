@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import flash_attention
-from ..utils import cudnn_f32
+from ..utils import RowShard, cudnn_f32
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -52,7 +52,11 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """``layer`` at ``dtype``, as flax's ``Dense(dtype=...)``: input, weight
     and bias cast to ``dtype``; below float32 the product is rounded to
     ``dtype`` before the bias is added (in ``dtype``), as XLA computes it.
-    At float32 it is the layer's own call, with no cast."""
+    At float32 it is the layer's own call, with no cast. A
+    ``parallel.tensor.ParallelLinear`` (a Linear sharded over a mesh's
+    ``model`` axis) computes the same at ``dtype`` with its collectives."""
+    if hasattr(layer, "dense"):
+        return layer.dense(x, dtype)
     if dtype == torch.float32:
         return layer(x)
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
@@ -78,11 +82,17 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's ``Dropout``: each element kept where a uniform draw from
     ``generator`` (torch's default generator when None) falls below
-    1 - ``rate``, and scaled by 1 / (1 - rate); all zero at rate 1."""
+    1 - ``rate``, and scaled by 1 / (1 - rate); all zero at rate 1. A
+    ``utils.RowShard`` draws the mask of the global batch and keeps its
+    rows."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if isinstance(generator, RowShard):
+        keep = generator.draw(torch.rand, x.shape, device=x.device)
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = keep < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
 

@@ -414,6 +414,52 @@ class FlowHighSR:
                 out = _wire_int16(out)
         return out, n48, stats
 
+    def make_sharded_generate(self, mesh, in_sr: int,
+                              target_sampling_rate: int = 48000,
+                              timestep: int = 1):
+        """Multi-card data-parallel serving over ``mesh`` (a ``parallel``
+        mesh of ranks): returns ``fn(batch [B, T], lens [B], seed=0) ->
+        (out [B, T48], n48 [B])``, device tensors of the whole batch on
+        every rank. Every rank calls ``fn`` with the same global batch; the
+        rank of ``data`` index d runs the one-card pipeline
+        (``dispatch_generate``, kernels A-E) on rows d * B / n_data up to
+        (d + 1) * B / n_data, and the rows are all-gathered over ``data``.
+        The ranks of one ``model`` group compute the same rows (the
+        weights are replicated, as in the JAX package). B must be a
+        multiple of the ``data`` size. Shard d draws its prior from a
+        generator seeded ``serving.request_seed(seed, d)`` (the JAX package
+        folds d into its key); with the default ``sigma=0`` the prior is
+        the condition itself and nothing is drawn.
+
+        Fixed-grid solvers only (euler / midpoint), as the JAX package."""
+        from .serving import request_seed
+
+        if self.ode_method == "adaptive":
+            raise NotImplementedError(
+                "sharded serving supports fixed-grid solvers (euler/midpoint)")
+        group = mesh.group("data")
+
+        def fn(batch, lens, seed: int = 0):
+            n_data = mesh.shape["data"]
+            assert batch.shape[0] % n_data == 0, (
+                f"batch {batch.shape[0]} must divide over data axis {n_data}")
+            d = mesh.index("data")
+            per = batch.shape[0] // n_data
+            rows = slice(d * per, (d + 1) * per)
+            out, n48, _ = self.dispatch_generate(
+                batch[rows], np.asarray(lens)[rows], in_sr,
+                target_sampling_rate, timestep,
+                generator=self.generator(request_seed(seed, d)))
+            if group is None:
+                return out, n48
+            parts = ([torch.empty_like(out) for _ in range(n_data)],
+                     [torch.empty_like(n48) for _ in range(n_data)])
+            torch.distributed.all_gather(parts[0], out, group=group)
+            torch.distributed.all_gather(parts[1], n48, group=group)
+            return torch.cat(parts[0]), torch.cat(parts[1])
+
+        return fn
+
     def generate_batch(self, audios: list, srs,
                        target_sampling_rate: int = 48000, timestep: int = 1,
                        seed: int = 0) -> list:

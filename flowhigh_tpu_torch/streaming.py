@@ -9,6 +9,9 @@ equal-power crossfade over each overlap. Three threads
 and a third's download; at most ``pipeline_depth`` batches are queued on
 the card but not yet fetched.
 
+``generate_sharded`` runs one clip's chunks across the ranks of a mesh
+(``FlowHighSR.make_sharded_generate``) and stitches them the same way.
+
 The other long-form mode is ``FlowHighSR.generate_longform``: one pass of
 the vector field over the whole clip (kernel F's O(N) attention), no seams.
 """
@@ -55,6 +58,7 @@ class StreamingSR:
         self.batch_size = batch_size
         self.pipeline_depth = pipeline_depth
         self.wire = wire
+        self._sharded_fns: dict = {}  # generate_sharded's, by mesh layout
 
     def generate(self, audio: np.ndarray, sr: int,
                  target_sampling_rate: int = 48000, timestep: int = 1,
@@ -75,28 +79,13 @@ class StreamingSR:
         if not int16_in and np.abs(audio).max() > 1:
             audio = audio / 32768.0
 
-        n = len(audio)
         chunk_in = int(self.chunk_seconds * sr)
-        overlap_in = int(self.overlap_seconds * sr)
-        hop_in = chunk_in - overlap_in
-        if n <= chunk_in:
+        if len(audio) <= chunk_in:
             return self.model.generate(audio, sr, target_sampling_rate,
                                        timestep, seed)
-
-        g = math.gcd(target_sampling_rate, sr)
-        ratio, den = target_sampling_rate // g, sr // g
-
-        def to_out(x: int) -> int:
-            return x * ratio // den
-
-        n_chunks = 1 + math.ceil((n - chunk_in) / hop_in)
         seg_dtype = np.int16 if int16_in else np.float32
-        segs = []
-        for c in range(n_chunks):
-            seg = audio[c * hop_in: c * hop_in + chunk_in]
-            if len(seg) < chunk_in:
-                seg = np.pad(seg, (0, chunk_in - len(seg)))
-            segs.append(seg.astype(seg_dtype))
+        segs, stitch = self._chunks(audio, sr, target_sampling_rate, seg_dtype)
+        n_chunks = len(segs)
 
         model, bs = self.model, self.batch_size
         cuda = model.device.type == "cuda"
@@ -147,8 +136,31 @@ class StreamingSR:
         pipe.close()
         if pipe.stage_errors:
             raise pipe.stage_errors[0]
-        return self._stitch(ys, n_chunks, hop_in, chunk_in, overlap_in,
-                            to_out, to_out(n))
+        return stitch(ys)
+
+    def _chunks(self, audio: np.ndarray, sr: int, target_sr: int, dtype):
+        """(the clip's chunks of ``chunk_seconds`` every ``chunk_seconds -
+        overlap_seconds``, the last zero-padded, as ``dtype``; the function
+        that stitches their outputs into the whole clip's)."""
+        n = len(audio)
+        chunk_in = int(self.chunk_seconds * sr)
+        overlap_in = int(self.overlap_seconds * sr)
+        hop_in = chunk_in - overlap_in
+        g = math.gcd(target_sr, sr)
+        ratio, den = target_sr // g, sr // g
+
+        def to_out(x: int) -> int:
+            return x * ratio // den
+
+        n_chunks = 1 + math.ceil((n - chunk_in) / hop_in)
+        segs = []
+        for c in range(n_chunks):
+            seg = audio[c * hop_in: c * hop_in + chunk_in]
+            if len(seg) < chunk_in:
+                seg = np.pad(seg, (0, chunk_in - len(seg)))
+            segs.append(seg.astype(dtype))
+        return segs, lambda ys: self._stitch(ys, n_chunks, hop_in, chunk_in,
+                                             overlap_in, to_out, to_out(n))
 
     @staticmethod
     def _stitch(ys, n_chunks: int, hop_in: int, chunk_in: int,
@@ -173,11 +185,47 @@ class StreamingSR:
             weight[o0:o1] += w[: o1 - o0]
         return (out / np.maximum(weight, 1e-8))[None, :]
 
-    def generate_sharded(self, audio, sr, mesh, target_sampling_rate=48000,
-                         timestep=1, seed=0):
-        """Chunk-parallel long-form over a device mesh: not ported. It needs
-        the port's multi-card serving (ROADMAP queue 1, distributed)."""
-        raise NotImplementedError(
-            "StreamingSR.generate_sharded needs a device mesh and is not "
-            "ported (ROADMAP.md queue 1 item 13); use generate (one card) or "
-            "FlowHighSR.generate_longform")
+    def generate_sharded(self, audio: np.ndarray, sr: int, mesh,
+                         target_sampling_rate: int = 48000,
+                         timestep: int = 1, seed: int = 0) -> np.ndarray:
+        """Chunk-parallel long-form over a mesh of ranks: one clip's chunks
+        sharded across the ``data`` axis through
+        ``FlowHighSR.make_sharded_generate`` (every rank calls it with the
+        same clip and gets the whole result), stitched on the host with
+        ``generate``'s equal-power crossfade. The chunk geometry is
+        ``generate``'s; the chunk count is padded up to a multiple of the
+        ``data`` size with zero rows (dropped after). Calls with the same
+        mesh layout, rates and steps reuse one sharded function. int16
+        input is converted on the host (PCM scale); a clip no longer than
+        one chunk is ``model.generate``."""
+        audio = np.asarray(audio)
+        if audio.ndim == 2:
+            audio = audio[0]
+        if audio.dtype == np.int16:
+            audio = audio.astype(np.float32) / 32768.0
+        elif np.abs(audio).max() > 1:
+            audio = audio / 32768.0
+
+        chunk_in = int(self.chunk_seconds * sr)
+        if len(audio) <= chunk_in:
+            return self.model.generate(audio, sr, target_sampling_rate,
+                                       timestep, seed)
+        segs, stitch = self._chunks(audio, sr, target_sampling_rate,
+                                    np.float32)
+        n_chunks = len(segs)
+        n_data = mesh.shape["data"]
+        n_rows = math.ceil(n_chunks / n_data) * n_data
+        segs += [np.zeros(chunk_in, np.float32)] * (n_rows - n_chunks)
+
+        # keyed by the mesh's structure, not id(mesh): a collected mesh's
+        # address can be reused by another
+        cache_key = (mesh.key, sr, target_sampling_rate, timestep)
+        fn = self._sharded_fns.get(cache_key)
+        if fn is None:
+            fn = self.model.make_sharded_generate(
+                mesh, in_sr=sr, target_sampling_rate=target_sampling_rate,
+                timestep=timestep)
+            self._sharded_fns[cache_key] = fn
+        out, _ = fn(np.stack(segs), np.full(n_rows, chunk_in, np.int64),
+                    seed=seed)
+        return stitch(list(out.cpu().numpy()[:n_chunks]))

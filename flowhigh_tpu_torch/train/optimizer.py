@@ -60,11 +60,17 @@ class Optimizer:
     optax sees a leaf that the loss does not reach) as one micro-step. On
     the k-th it clips the micro-steps' mean and applies Adam at
     ``schedule(updates)``, and returns True; before it, only the running
-    mean moves and parameters stay as they are."""
+    mean moves and parameters stay as they are.
+
+    ``norm`` maps the gradients (aligned with ``params``) to their global
+    norm: ``global_norm`` by default; under tensor parallelism
+    ``parallel.tensor.sharded_norm``, which sums the sharded weights'
+    squares over the ``model`` group."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 cfg: TrainConfig):
+                 cfg: TrainConfig, norm: Optional[Callable] = None):
         self.params = list(params)
+        self.norm = norm or global_norm
         self.schedule = lr_schedule(cfg)
         self.k = max(cfg.grad_accum_every, 1)
         self.max_norm = float(cfg.max_grad_norm)
@@ -93,7 +99,7 @@ class Optimizer:
             self.acc = grads if self.mini_step else None
             if self.mini_step:
                 return False
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         keep = norm < self.max_norm
         for p, g in zip(self.params, grads):
             p.grad = torch.where(keep, g, (g / norm) * self.max_norm)
@@ -115,7 +121,8 @@ class Optimizer:
                     [a.to(p.device) for a, p in zip(sd["acc"], self.params)])
 
 
-def make_optimizer(cfg: TrainConfig,
-                   params: Iterable[torch.nn.Parameter]) -> Optimizer:
-    """The training recipe's ``Optimizer`` over ``params``."""
-    return Optimizer(params, cfg)
+def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter],
+                   norm: Optional[Callable] = None) -> Optimizer:
+    """The training recipe's ``Optimizer`` over ``params`` (``norm``: see
+    ``Optimizer``)."""
+    return Optimizer(params, cfg, norm)

@@ -1,6 +1,6 @@
 """BigVGAN's GAN trainer — counterpart of
-``flowhigh_tpu/train/vocoder_trainer.py`` on one device (the JAX trainer's
-mesh is ROADMAP.md queue 1 item 13).
+``flowhigh_tpu/train/vocoder_trainer.py``, on one device or over a mesh of
+ranks.
 
 A step, as the JAX trainer's: the mel of each segment (no gradient), the
 generator's waveform computed once with its graph, a discriminator update
@@ -21,6 +21,17 @@ the three modules, both optimizers, the step), which ``restore_state``
 and ``fit(auto_resume=True)`` resume bit for bit, and the reference's
 generator package ``g_<step:08d>`` ``{"generator": ...}`` in the
 weight-normed layout (``compat.vocoder_state_to_reference``).
+
+Under a mesh (``parallel.make_mesh``), as the JAX trainer's data-parallel
+program: every parameter replicated, the generator and both
+discriminators in ``DistributedDataParallel`` over the ``data`` group,
+each rank on the rows of its ``data`` index (``train_step`` takes the
+global batch, or ``parallel.shard_global_batch``'s local rows). The
+losses are means over equal shards, so the averaged gradients are the
+global batch's. The generator's loss reads the discriminators unwrapped:
+a forward through their DDP wrappers would arm a gradient reduction that
+no backward completes (their parameters are frozen there). The logged
+losses are the global batch's on every rank; rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from pathlib import Path
 from typing import Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..compat.jax_params import (mpd_state_from_jax, mrd_state_from_jax,
                                  seeded_init_, vocoder_state_from_jax)
@@ -43,6 +55,7 @@ from ..models.discriminators import (MultiPeriodDiscriminator,
                                      discriminator_loss, feature_loss,
                                      generator_loss, init_discriminator_)
 from ..models.melvoco import encode
+from ..parallel.mesh import barrier, data_parallel, shard_batch
 from ..utils import cudnn_f32, resolve_device
 
 STATE_PREFIX = "vocoder_state_"
@@ -50,13 +63,16 @@ STATE_PREFIX = "vocoder_state_"
 
 @dataclasses.dataclass
 class VocoderTrainState:
-    """``step`` counts GAN steps (one a ``train_step``)."""
+    """``step`` counts GAN steps (one a ``train_step``); ``ddp`` holds the
+    generator, MPD and MRD in their ``DistributedDataParallel`` wrappers
+    under a mesh (None without)."""
     step: int
     generator: BigVGAN
     mpd: MultiPeriodDiscriminator
     mrd: MultiResolutionDiscriminator
     gen_optimizer: torch.optim.Adam
     disc_optimizer: torch.optim.Adam
+    ddp: Optional[tuple] = None
 
 
 @contextlib.contextmanager
@@ -81,10 +97,12 @@ class VocoderTrainer:
                  segment_frames: int = 32,
                  results_folder: str = "./vocoder_results",
                  periods=None, resolutions=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "VocoderTrainer runs on one device: a mesh (data-parallel "
-                "training over several cards) is ROADMAP.md queue 1 item 13")
+        """``mesh``: None (one device) or a ``parallel`` mesh of ranks,
+        every rank building the same trainer; ``device`` this rank's."""
+        self.mesh = mesh
+        # a mesh without a process group (one process) runs no collective
+        self._dp = mesh is not None and mesh.group("data") is not None
+        self._rank = dist.get_rank() if self._dp else 0
         self.voc_cfg, self.mel_cfg = voc_cfg, mel_cfg
         self.lr, self.betas = lr, (adam_b1, adam_b2)
         self.mel_loss_weight = mel_loss_weight
@@ -130,17 +148,21 @@ class VocoderTrainer:
                                                    mrd.resolutions))
         for m in (gen, mpd, mrd):
             m.to(self.device).train()
+        ddp = None
+        if self._dp:
+            ddp = tuple(data_parallel(m, self.mesh) for m in (gen, mpd, mrd))
         return VocoderTrainState(
             0, gen, mpd, mrd, self._adam(gen.parameters()),
-            self._adam(list(mpd.parameters()) + list(mrd.parameters())))
+            self._adam(list(mpd.parameters()) + list(mrd.parameters())), ddp)
 
     # -- the GAN step -------------------------------------------------------------
 
     def segments(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(wav [B, segment_samples] on the device, its log-mel [B, frames,
         n_mels], no gradient) of ``batch`` ({"wave": [B, >=
-        segment_samples]} at 48 kHz); the generator reads the first
-        ``segment_frames`` frames of the mel."""
+        segment_samples]} at 48 kHz; under a mesh this rank's rows of it);
+        the generator reads the first ``segment_frames`` frames of the
+        mel."""
         wav = torch.as_tensor(batch["wave"], dtype=torch.float32)[
             :, :self.segment_samples].to(self.device)
         with torch.no_grad():
@@ -168,13 +190,17 @@ class VocoderTrainer:
 
     def train_step(self, state: VocoderTrainState, batch: dict):
         """One GAN step on ``batch`` (see ``segments``). Returns (state,
-        {"disc_loss", "gen_loss", "mel_l1"}) with device scalars; each
-        parameter's ``grad`` keeps this step's gradient."""
+        {"disc_loss", "gen_loss", "mel_l1"}) with device scalars (under a
+        mesh the global batch's); each parameter's ``grad`` keeps this
+        step's gradient."""
+        if self._dp:
+            batch = shard_batch(self.mesh, batch)
         wav, mel_real = self.segments(batch)
         gen, mpd, mrd = state.generator, state.mpd, state.mrd
-        fake = gen(mel_real[:, :self.segment_frames].contiguous())[
+        gen_w, mpd_w, mrd_w = state.ddp or (gen, mpd, mrd)
+        fake = gen_w(mel_real[:, :self.segment_frames].contiguous())[
             :, :wav.shape[1]]
-        d_loss = self.disc_loss(mpd, mrd, wav, fake.detach())
+        d_loss = self.disc_loss(mpd_w, mrd_w, wav, fake.detach())
         state.disc_optimizer.zero_grad(set_to_none=True)
         with cudnn_f32():  # the library convs' backward in f32, not TF32
             d_loss.backward()
@@ -186,8 +212,13 @@ class VocoderTrainer:
                 g_loss.backward()
         state.gen_optimizer.step()
         state.step += 1
-        return state, {"disc_loss": d_loss.detach(),
-                       "gen_loss": g_loss.detach(), "mel_l1": l_mel.detach()}
+        metrics = torch.stack([d_loss.detach(), g_loss.detach(),
+                               l_mel.detach()])
+        if self._dp:  # each rank's share's means -> the global batch's
+            dist.all_reduce(metrics, group=self.mesh.group("data"))
+            metrics = metrics / self.mesh.shape["data"]
+        return state, dict(zip(("disc_loss", "gen_loss", "mel_l1"),
+                               metrics.unbind()))
 
     # -- checkpointing ----------------------------------------------------------
 
@@ -201,10 +232,19 @@ class VocoderTrainer:
              folder: Optional[Path] = None) -> Path:
         """The whole GAN state as ``vocoder_state_<step>.pt`` and the
         reference's generator package ``g_<step:08d>``; returns the
-        first's path."""
+        first's path. Under a mesh every rank calls it; rank 0 writes, and
+        every rank returns after the files exist."""
         folder = Path(folder or self.results_folder)
-        folder.mkdir(parents=True, exist_ok=True)
         path = folder / f"{STATE_PREFIX}{state.step}.pt"
+        if self._rank == 0:
+            self._write(state, folder, path)
+        if self._dp:
+            barrier(self.mesh)
+        return path
+
+    def _write(self, state: VocoderTrainState, folder: Path,
+               path: Path) -> None:
+        folder.mkdir(parents=True, exist_ok=True)
         torch.save({"step": state.step,
                     "generator": state.generator.state_dict(),
                     "mpd": state.mpd.state_dict(),
@@ -215,7 +255,6 @@ class VocoderTrainer:
         torch.save({"generator": vocoder_state_to_reference(
             state.generator.state_dict(), self.voc_cfg)},
             folder / f"g_{state.step:08d}")
-        return path
 
     def restore_state(self, path, template: VocoderTrainState
                       ) -> VocoderTrainState:

@@ -6,8 +6,9 @@ reference's utility surface, counterpart of ``flowhigh_tpu/utils.py``
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -16,17 +17,55 @@ import torch.nn.functional as F
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
     """``None`` means the card: raise when there is none, so that a caller
-    who forgot ``device="cpu"`` never runs the plain versions by accident."""
+    who forgot ``device="cpu"`` never runs the plain versions by accident.
+    Under a launch (torchrun's ``LOCAL_RANK``) it is this rank's card,
+    ``cuda:LOCAL_RANK``, not card 0."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "flowhigh_tpu_torch runs on a CUDA device by default and none "
                 "is available; pass device='cpu' to run the plain PyTorch path")
-        device = "cuda"
+        local = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local is None else f"cuda:{int(local)}"
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is unavailable")
     return device
+
+
+class RowShard(NamedTuple):
+    """This rank's share of a data-parallel batch: rows ``index * B`` to
+    ``(index + 1) * B`` of a global batch of ``count * B`` rows, with the
+    ``generator`` that every rank of its ``data`` ``group`` holds in the same
+    state. A draw (``draw``) is made for the whole global batch and sliced,
+    so the generators stay equal across ranks and the numbers equal those
+    of one process drawing for the global batch; a batch-wide minimum
+    (``amin``) is reduced over the group. Passed where a
+    ``torch.Generator`` goes (``cfm.cfm_training_loss``, the transformer's
+    dropout) by a trainer under a mesh."""
+    generator: Optional[torch.Generator]
+    index: int
+    count: int
+    group: Any = None
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        n = t.shape[0] // self.count
+        return t[self.index * n:(self.index + 1) * n]
+
+    def draw(self, fn, shape, **kw) -> torch.Tensor:
+        """``fn(global shape, generator=, **kw)`` (``torch.rand``,
+        ``torch.randn``), this rank's rows of it."""
+        shape = (shape[0] * self.count,) + tuple(shape[1:])
+        return self.rows(fn(shape, generator=self.generator, **kw))
+
+    def amin(self, t: torch.Tensor) -> torch.Tensor:
+        """min(t) over the rows of every rank."""
+        m = torch.min(t)
+        if self.group is not None:
+            import torch.distributed as dist
+            m = m.clone()
+            dist.all_reduce(m, op=dist.ReduceOp.MIN, group=self.group)
+        return m
 
 
 def cudnn_f32():

@@ -7,6 +7,8 @@ accuracy of the 3xTF32 and bf16 tensor-core sums at D's and E's depths, the
 Python mirrors of the shared-memory layout and the routing of every
 full-width pair and unit, and chip_smoke.py's bounds of D and E."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,13 @@ from flowhigh_tpu_torch.ops import conv as conv_mod
 from flowhigh_tpu_torch.ops import fused_conv
 from flowhigh_tpu_torch.ops.quant import round_bf16
 from test_torch_convt_plan import _chip_smoke, split
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 # (C, T) per stage of a 10 s clip

@@ -6,6 +6,7 @@ tests/test_cfm.py::TestAdaptiveSolver), and ``generate`` /
 ``use_torchode=True`` against the JAX package on the tiny pair, with the
 solver's statistics."""
 
+import os
 import warnings
 
 import numpy as np
@@ -23,6 +24,13 @@ from flowhigh_tpu_torch.cfm import odeint_adaptive, odeint_fixed
 from flowhigh_tpu_torch.sr import _warn_if_unconverged
 from test_torch_sample import jax_tiny
 from test_torch_sr import TINY_MODEL, TINY_VOCODER, _configs
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 TABLEAUS = ("dopri5", "tsit5")
 

@@ -32,6 +32,7 @@ package's ``jnp.bfloat16`` and refuse float16.
 error, as ``jax.grad`` does on the fused vocoder's Pallas kernels.
 """
 
+import os
 import sys
 from pathlib import Path
 
@@ -55,6 +56,13 @@ from flowhigh_tpu_torch.ops.quant import compute_weights, round_bf16
 from test_torch_storage import (FLIP_SHARE, TINY_RESBLOCK2, TINY_VOCODER, TOL,
                                 _bf16, _bf16_close, _f32, _from_jax, _jbf,
                                 _perturbed, _rel, _routes, _t)
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 BF = torch.bfloat16
 JDT = {torch.float32: None, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}

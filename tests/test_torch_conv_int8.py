@@ -7,6 +7,8 @@ against the plain version bit for bit, the pre-pass's plain twin, the
 Python mirror of its shared memory at every full-width shape, its routing
 on the unfused int8 path, and chip_smoke.py's gates and bound of it."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,13 @@ from flowhigh_tpu_torch.ops import conv as conv_mod
 from flowhigh_tpu_torch.ops import quant
 from test_torch_conv_plan import tile_co
 from test_torch_convt_plan import _chip_smoke
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 I8 = torch.int8
 BN = 256  # the GEMM route's frames a block: the int8 window

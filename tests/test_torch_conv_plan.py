@@ -5,6 +5,8 @@ accuracy of the 3xTF32 and bf16 tensor-core sums its GEMM route takes on
 the card, chip_smoke.py's bound of it; and the int8 activation in the
 kernels' order (``snake_activation1d_ordered``) against the JAX package's."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,13 @@ from flowhigh_tpu_torch.ops import conv as conv_mod
 from flowhigh_tpu_torch.ops.fused_act import snake_activation1d_ordered
 from flowhigh_tpu_torch.ops.quant import round_bf16
 from test_torch_convt_plan import _chip_smoke, split, tf32
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 BN = 256  # the GEMM route's frames a block (csrc/conv1d_same.cu)
 NB, NCC = 512, 8  # the narrow route's outputs a block, channels a stage

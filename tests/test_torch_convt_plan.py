@@ -2,6 +2,7 @@
 CPU: its weight layout and cache, its polyphase plan, and the accuracy of
 the 3xTF32 products its float32 instance takes on the card. No JAX."""
 
+import os
 import sys
 from pathlib import Path
 
@@ -12,6 +13,13 @@ import torch
 from flowhigh_tpu_torch import FlowHighConfig, ops
 from flowhigh_tpu_torch.ops import conv as conv_mod
 from flowhigh_tpu_torch.ops.quant import round_bf16
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # the kernel's (stride, K) instances: BigVGAN's upsamplers and (8, 16)
 INSTANCES = [(5, 11), (4, 8), (3, 7), (2, 4), (8, 16)]

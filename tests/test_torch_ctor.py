@@ -4,6 +4,7 @@ lowering switches (``fused_vocoder``, ``packed_vocoder``,
 whatever they say: bench.py's own constructor call builds the port."""
 
 import inspect
+import os
 
 import numpy as np
 import pytest
@@ -11,6 +12,13 @@ import torch
 
 from flowhigh_tpu import FlowHighSR as JaxFlowHighSR
 from flowhigh_tpu_torch import FlowHighConfig, FlowHighSR
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SWITCHES = ("fused_vocoder", "packed_vocoder", "vocoder_kernel_pipeline")
 

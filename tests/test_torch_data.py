@@ -12,6 +12,8 @@ JAX ``lax.scan`` under ``jax.jit`` and 2e-3 of scipy (tests/test_dsp.py's
 bound).
 """
 
+import os
+
 import numpy as np
 import pytest
 import scipy.io.wavfile as wavfile
@@ -34,6 +36,13 @@ from flowhigh_tpu_torch.dsp import filters
 from flowhigh_tpu_torch.native import build as native_build
 from flowhigh_tpu_torch.ops.iir import cascade, sosfilt_plain
 from flowhigh_tpu_torch.train import data as pdata
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 needs_native = pytest.mark.skipif(
     not (native.available() and jax_native.available()),

@@ -10,6 +10,8 @@ three losses at the default periods (2, 3, 5, 7, 11; 9,600 samples, so 7
 and 11 reflect-pad) and the three default resolutions.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,13 @@ from flowhigh_tpu.models import discriminators as jd
 from flowhigh_tpu_torch.compat import mpd_state_from_jax, mrd_state_from_jax
 from flowhigh_tpu_torch.dsp import stft, stft_magnitude
 from flowhigh_tpu_torch.models import discriminators as pd
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 N = 9600
 

@@ -14,6 +14,8 @@ covers the whole sequence on both sides (packed p in {8, 4, 2} within the
 JAX plans' row caps); at longer sequences each is held to the JAX tests'
 own bound of the f32 result (tests/test_packed.py::TestInt8Dots)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,13 @@ from flowhigh_tpu_torch import ops
 from flowhigh_tpu_torch.compat import seeded_init_
 from flowhigh_tpu_torch.models import BigVGAN
 from flowhigh_tpu_torch.ops import quant
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 JDT = {torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}
 UPSAMPLERS = [(5, 11), (4, 8), (3, 7), (2, 4)]  # BigVGAN's (u, K) pairs

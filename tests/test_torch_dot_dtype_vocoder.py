@@ -18,6 +18,8 @@ another quantisation on each side (``ops/quant.py``), so there both are
 held to the JAX package's quantisation-grade bound
 (tests/test_packed.py::TestInt8Dots::test_int8_full_generator_close)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,13 @@ from flowhigh_tpu_torch import FlowHighSR
 from flowhigh_tpu_torch import config as pcfg
 from flowhigh_tpu_torch.compat.jax_params import vocoder_state_from_jax
 from flowhigh_tpu_torch.models import BigVGAN
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 JDT = {torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}
 # bf16: the port's distance from the JAX output, as a share of the

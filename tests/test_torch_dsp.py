@@ -1,6 +1,8 @@
 """flowhigh_tpu_torch DSP against the JAX package: polyphase resampling,
 STFT / iSTFT and the log-mel encode, on numpy-seeded inputs (CPU)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,13 @@ from flowhigh_tpu.dsp import stft as jax_stft
 from flowhigh_tpu.models.melvoco import encode as jax_encode
 from flowhigh_tpu_torch.dsp import istft, mel_filterbank, resample_poly, stft
 from flowhigh_tpu_torch.models import mel_encode
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 @pytest.mark.parametrize("sr", [16000, 8000, 44100])

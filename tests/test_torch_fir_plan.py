@@ -31,6 +31,7 @@ and the shared-memory layouts it stages.
   chip_smoke.py's bounds and spill gate for H.
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -44,6 +45,13 @@ from test_torch_convt_plan import _chip_smoke, tf32
 from test_torch_probes import MXU_FIR, _bf16, _interpret
 
 import jax.numpy as jnp
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SRC = (Path(__file__).resolve().parents[1] / "flowhigh_tpu_torch" / "csrc"
        / "probe_fir.cu").read_text()

@@ -6,6 +6,7 @@ and restored). Every row is compared, masked rows included: the JAX
 function pads N with segment-0 keys that masked queries also attend to."""
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -23,6 +24,13 @@ from flowhigh_tpu_torch.config import ModelConfig
 from flowhigh_tpu_torch.models import VectorFieldNet
 from flowhigh_tpu_torch.models.transformer import Attention, rotary_freqs
 from flowhigh_tpu_torch.ops.flash_attn import flash_block, flash_pad
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SCALE = 10.0  # the model's qk-norm scale: sharp logits
 

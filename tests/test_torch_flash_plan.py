@@ -30,6 +30,7 @@ the fragment layout it stages in shared memory.
   paddings, and the shared memory of each instance within a block's.
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -45,6 +46,13 @@ from flowhigh_tpu_torch.ops.flash_attn import flash_attention_plain, flash_pad
 from test_torch_convt_plan import _chip_smoke, tf32
 from test_torch_flash import interpret
 from test_torch_kernels import FLASH
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SRC = (Path(__file__).resolve().parents[1] / "flowhigh_tpu_torch" / "csrc"
        / "flash_attn.cu").read_text()

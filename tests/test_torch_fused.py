@@ -11,6 +11,8 @@ Layouts: the JAX kernels take space-to-depth packed [B, T/p, p*C] rows and
 K]. Tests pack and transpose at the comparison, never inside the code under
 test."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,13 @@ from flowhigh_tpu_torch import ops
 from flowhigh_tpu_torch.compat import seeded_init_
 from flowhigh_tpu_torch.models import BigVGAN
 from flowhigh_tpu_torch.ops import fused_conv
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def _btc(x):  # port [B, C, T] -> JAX [B, T, C]

@@ -6,6 +6,8 @@ the Python mirrors of their shared memory at every full-width shape, their
 tiles against ops/quant.py's windows, and the plain version of the window
 scales' pre-pass against the amax the plain versions take."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,13 @@ import torch.nn.functional as F
 from flowhigh_tpu_torch.ops import conv as conv_mod
 from flowhigh_tpu_torch.ops import fused_conv, quant
 from flowhigh_tpu_torch.ops.fused_act import snake_activation1d_ordered
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 I8 = torch.int8
 # (C, T) per stage of a 10 s clip; D runs at C = 768, 384, E at 192, 96, 48

@@ -6,6 +6,7 @@ runs where JAX is not installed, without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 """
 
+import os
 import sys
 from pathlib import Path
 
@@ -18,6 +19,13 @@ from flowhigh_tpu_torch.compat import seeded_init_
 from flowhigh_tpu_torch.config import VocoderConfig
 from flowhigh_tpu_torch.models import BigVGAN
 from flowhigh_tpu_torch.ops import _build, fused_conv, probes
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -1366,3 +1374,48 @@ def test_vocoder_trainer_steps_on_the_card(cuda):
     counts = [fn.launches for fn in ops.KERNELS]
     assert all(counts[:3]) and counts[3:] == [0, 0, 0]
     assert all(torch.isfinite(v) for v in m.values())
+
+
+def test_trainer_on_a_nccl_mesh_of_one_matches_one_card(cuda, monkeypatch):
+    """``Trainer(mesh=make_mesh())`` at world size 1 over NCCL (torchrun's
+    environment set here on loopback) takes the same update as
+    ``Trainer()`` from the same weights and draws: DDP's all-reduce over one
+    rank and the loss's mean over ``data`` change nothing."""
+    import socket
+
+    import torch.distributed as dist
+
+    from flowhigh_tpu_torch import parallel
+    from flowhigh_tpu_torch.cfm import draw_training
+    from flowhigh_tpu_torch.config import (FlowHighConfig, ModelConfig,
+                                           TrainConfig)
+    from flowhigh_tpu_torch.train import Trainer
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                 ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    cfg = FlowHighConfig().replace(
+        model=ModelConfig(dim_in=256, dim=64, depth=2, heads=2, dim_head=16),
+        train=TrainConfig(batch_size=2, num_warmup_steps=0,
+                          cond_freq_masking=True, amp_dtype="float32"))
+    gen = np.random.default_rng(0)
+    wave = (0.3 * gen.standard_normal((2, 48000))).astype(np.float32)
+    batch = {"wave": wave, "cond": 0.5 * wave, "lengths": np.full(2, 48000)}
+    draws = draw_training(torch.Generator(cuda).manual_seed(1),
+                          (2, 100, 256), cuda)
+    one = Trainer(cfg, device=cuda)
+    s1, m1 = one.train_step(one.init_state(0), batch, draws=draws)
+    assert parallel.initialize() == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        tr = Trainer(cfg, mesh=parallel.make_mesh())
+        s2 = tr.init_state(0)
+        assert s2.ddp is not None and s2.net.to_pred.weight.is_cuda
+        s2, m2 = tr.train_step(s2, batch, draws=draws)
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(m2["loss"], m1["loss"], rtol=1e-6, atol=0)
+    for (name, p), q in zip(s2.net.named_parameters(), s1.net.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-7, msg=name)

@@ -7,6 +7,7 @@ TPU-interpret mode (``transformer.FLASH_INTERPRET``, set inside the test
 and restored)."""
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -25,6 +26,13 @@ from flowhigh_tpu.streaming import StreamingSR as JaxStreamingSR
 from flowhigh_tpu_torch import (FlowHighSR, StreamingSR, boundary_lsd,
                                 log_spectral_distance)
 from flowhigh_tpu_torch import config as pcfg
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # tests/test_sr.py's TINY config
 TINY_MODEL = dict(dim_in=256, dim=64, depth=2, heads=2, dim_head=16)
@@ -207,9 +215,12 @@ class TestStreaming:
             StreamingSR(psr, pipeline_depth=0)
         with pytest.raises(ValueError, match="overlap_seconds"):
             StreamingSR(psr, chunk_seconds=2.0, overlap_seconds=1.0)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            StreamingSR(psr).generate_sharded(np.zeros(16000, np.float32),
-                                              16000, mesh=None)
+        # generate_sharded is ported: a clip of one chunk is generate
+        from flowhigh_tpu_torch.parallel import make_mesh as port_make_mesh
+        clip = np.full(16000, 0.1, np.float32)
+        np.testing.assert_array_equal(
+            StreamingSR(psr).generate_sharded(clip, 16000, port_make_mesh()),
+            psr.generate(clip, 16000))
 
     def test_matches_jax(self, dense_pair, rng):
         jsr, psr = dense_pair

@@ -8,6 +8,8 @@ Layouts: the JAX kernels take [B, T, C] and HIO / [K, Cout, Cin] weights;
 the port takes [B, C, T] and PyTorch's weight layouts. Tests transpose at
 the comparison, never inside the code under test."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,13 @@ from flowhigh_tpu.ops.packed import (pack_time, packed_snake_activation1d,
                                      pallas_packed_conv_transpose1d,
                                      unpack_time)
 from flowhigh_tpu_torch import ops
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 UPSAMPLERS = [(5, 11), (4, 8), (3, 7), (2, 4)]  # BigVGAN's (u, K) pairs
 

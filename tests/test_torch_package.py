@@ -4,6 +4,7 @@ chip_smoke.py refuses to run without a card."""
 
 import ast
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +16,13 @@ import flowhigh_tpu.config as jax_config
 import flowhigh_tpu_torch
 import flowhigh_tpu_torch.config as port_config
 from flowhigh_tpu_torch import FlowHighSR, ops
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "flowhigh_tpu_torch").rglob("*.py")) + [

@@ -9,6 +9,7 @@ wrappers' refusals. The kernels themselves are held against these plain
 versions on the card (tests/test_torch_kernels.py, chip_smoke.py)."""
 
 import ast
+import os
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +22,13 @@ from jax.experimental.pallas import tpu as pltpu
 
 import flowhigh_tpu.ops.packed as PK
 from flowhigh_tpu_torch import ops
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [(512, 16, 4), (1024, 8, 8)]  # (S, C, p): L = p * C = 64

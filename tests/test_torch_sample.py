@@ -5,6 +5,8 @@ pair (mirroring tests/test_sr.py's sample and prior-semantics tests), and
 ``cfm_method="independent_cfm_constant"``. JAX's normal draws cannot be
 made in torch, so the port gets the JAX draw through ``eps``."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,13 @@ from flowhigh_tpu.sr import _fast_init
 from flowhigh_tpu_torch import FlowHighSR
 from flowhigh_tpu_torch.cfm import sample_prior
 from test_torch_sr import TINY_MODEL, TINY_VOCODER, _configs
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 METHODS = ("basic_cfm", "independent_cfm_adaptive", "independent_cfm_constant",
            "independent_cfm_mix")

@@ -5,6 +5,7 @@ per-clip generate, the int16 output wire, and from_local on checkpoint
 files that the tests write from tests/torch_ref.py modules."""
 
 import json
+import os
 import threading
 import time
 
@@ -25,6 +26,13 @@ from flowhigh_tpu_torch import config as pcfg
 from flowhigh_tpu_torch.pipeline import StagePipeline
 from flowhigh_tpu_torch.serving import ServingPipeline, request_seed
 from flowhigh_tpu_torch.sr import _wire_int16
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # tests/test_sr.py's TINY config
 TINY_MODEL = dict(dim_in=256, dim=64, depth=2, heads=2, dim_head=16)

@@ -20,6 +20,7 @@ JAX package.
   (it pads x and fixes the padded length's edge there).
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -34,6 +35,13 @@ from flowhigh_tpu.models import bigvgan as jax_bigvgan
 from flowhigh_tpu.ops.fused_act import _pick_tile, fused_snake_activation1d
 from flowhigh_tpu_torch import ops
 from flowhigh_tpu_torch.models.bigvgan import kaiser_sinc_filter1d
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 CSRC = Path(__file__).resolve().parents[1] / "flowhigh_tpu_torch" / "csrc"
 SRC = (CSRC / "snake_aa.cu").read_text()

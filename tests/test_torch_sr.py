@@ -3,6 +3,7 @@ splice, and FlowHighSR.generate (euler, 1 step, independent_cfm_adaptive),
 on the CPU with the JAX params carried across."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -21,6 +22,13 @@ from flowhigh_tpu_torch import config as pcfg
 from flowhigh_tpu_torch.compat import fold_state_dict, vocoder_state_from_jax
 from flowhigh_tpu_torch.models import BigVGAN
 from flowhigh_tpu_torch.postprocessing import post_process
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # tests/test_sr.py's TINY config
 TINY_MODEL = dict(dim_in=256, dim=64, depth=2, heads=2, dim_head=16)

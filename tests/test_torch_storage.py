@@ -32,6 +32,8 @@ published config (ROADMAP.md queue 3), so (c) uses configs whose units both
 route alike (checked), and ``test_rounding_points_follow_the_routes`` pins
 the difference on one unit where they do not."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +55,13 @@ from flowhigh_tpu_torch import config as pcfg
 from flowhigh_tpu_torch import ops
 from flowhigh_tpu_torch.compat.jax_params import vocoder_state_from_jax
 from flowhigh_tpu_torch.models import BigVGAN, bigvgan
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 BF = torch.bfloat16
 DOTS = (torch.float32, torch.bfloat16, torch.int8)

@@ -6,6 +6,7 @@ from JAX params and from a reference-layout checkpoint loaded by
 ``from_local``."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -38,6 +39,13 @@ from flowhigh_tpu_torch.postprocessing import post_process_with_phase
 from test_torch_sample import jax_tiny, port_of
 from test_torch_sr import (TINY_MODEL, TINY_VOCODER, _configs,
                            _perturbed_1d)
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 RATES = {16000: (3, 1), 8000: (6, 1), 44100: (160, 147)}
 

@@ -5,13 +5,15 @@ loader against the JAX package's, on the CPU.
 JAX loader does. The CLI's ``train`` (the JAX ``cmd_train``) runs on a tiny
 reference JSON (a 64-wide, 2-layer field, batch 2, the synthetic corpus):
 it writes finite losses, resumes from the newest full state by itself, and
-from a checkpoint's weights with ``--resume``; what it has not ported (the
-tensor-parallel mesh, a multi-process launch) raises naming ROADMAP.md
-queue 1 item 13.
+from a checkpoint's weights with ``--resume``; a launch's environment joins
+the ranks (a world of one here; two processes in
+tests/test_torch_parallel.py), and ``--tp`` needs as many ranks.
 """
 
 import dataclasses
 import json
+import os
+import socket
 
 import numpy as np
 import pytest
@@ -22,6 +24,13 @@ from flowhigh_tpu.config import FlowHighConfig as JaxFlowHighConfig
 from flowhigh_tpu_torch import cli
 from flowhigh_tpu_torch import train as ptrain
 from flowhigh_tpu_torch.config import FlowHighConfig
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 TINY = {"data": {"data_path": ""},
         "model": {"dim": 64, "n_layers": 2, "n_heads": 2, "dim_head": 16,
@@ -120,14 +129,30 @@ def test_cli_trains_on_the_cpu_and_resumes(tmp_path, capsys):
 
 
 def test_cli_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """The mesh and the multi-process launch are ported: ``--tp 2`` on one
+    process fails the JAX package's mesh assertion; a launch's environment
+    (a gloo world of one here) joins the ranks and trains under the mesh,
+    rank 0 writing the checkpoint."""
     config = tmp_path / "config.json"
     config.write_text(json.dumps(TINY))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(AssertionError, match="needs more than 1 devices"):
         _train(config, tmp_path, "--tp", "2")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        _train(config, tmp_path)
-    monkeypatch.delenv("WORLD_SIZE")
+    with socket.socket() as s:  # a free loopback port
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                 ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    out = tmp_path / "launched"
+    try:
+        assert _train(config, out, "--steps", "1") == 0
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        torch.distributed.destroy_process_group()
+    assert [ln["step"] for ln in _metrics(out) if "loss" in ln] == [1]
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        monkeypatch.delenv(k)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):  # --device defaults to cuda
         cli.main(["train", "--config", str(config)])

@@ -12,6 +12,7 @@ through ``compat.vector_field_state_from_jax``.
 """
 
 import functools
+import os
 import warnings
 
 import numpy as np
@@ -37,6 +38,13 @@ from flowhigh_tpu_torch.models import MelVoco, VectorFieldNet
 from flowhigh_tpu_torch.models import transformer as ptransformer
 from flowhigh_tpu_torch.ops import flash_attn
 from test_torch_vector_options import _field_params
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 FIELD = dict(dim_in=256, dim=32, depth=2, heads=2, dim_head=8)
 OUT = 200  # the trainers' crop: 2 s at 100 frames a second

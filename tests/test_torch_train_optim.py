@@ -6,6 +6,7 @@ random gradients, plain Adam, AdamW with its >= 2-D decay mask, and
 
 import dataclasses
 import io
+import os
 
 import numpy as np
 import pytest
@@ -20,6 +21,13 @@ from flowhigh_tpu.train import lr_schedule as jax_lr_schedule
 from flowhigh_tpu.train import make_optimizer as jax_make_optimizer
 from flowhigh_tpu_torch.config import TrainConfig
 from flowhigh_tpu_torch.train import lr_schedule, make_optimizer
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SCHEDULES = {
     "warmup": dict(lr=3e-4, initial_lr=1e-5, num_train_steps=1000,

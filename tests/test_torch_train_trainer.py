@@ -12,6 +12,7 @@ cropped and two are zero past their length.
 
 import dataclasses
 import json
+import os
 import sys
 
 import numpy as np
@@ -37,6 +38,13 @@ from flowhigh_tpu_torch.config import (CFMConfig, FlowHighConfig, ModelConfig,
 from flowhigh_tpu_torch.train import Trainer
 from test_torch_train_loss import jax_draws
 from test_torch_vector_options import _field_params
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 FIELD = dict(dim_in=256, dim=32, depth=2, heads=2, dim_head=8)
 TRAIN = dict(batch_size=3, lr=1e-3, num_train_steps=100, num_warmup_steps=2,
@@ -212,13 +220,16 @@ def test_jax_export_loads_into_the_port(three_updates, tmp_path):
 
 @pytest.mark.parametrize("trainer", ["Trainer", "VocoderTrainer"])
 def test_trainers_refuse_a_mesh_naming_the_roadmap_item(trainer):
-    # the JAX trainers take mesh=...; the port's run on one device
+    # the JAX trainers take mesh=...; so do the port's (one process: a
+    # 1 x 1 mesh that runs no collective; several: tests/test_torch_parallel)
+    from flowhigh_tpu_torch import parallel
     from flowhigh_tpu_torch import train as ptrain
     cls = getattr(ptrain, trainer)
     cfg = _configs()[1] if trainer == "Trainer" else VocoderConfig()
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        cls(cfg, mesh=object(), device="cpu")
-    assert cls(cfg, mesh=None, device="cpu")
+    tr = cls(cfg, mesh=parallel.make_mesh(), device="cpu")
+    assert dict(tr.mesh.shape) == {"data": 1, "model": 1}
+    assert not tr._dp
+    assert cls(cfg, mesh=None, device="cpu").mesh is None
 
 
 def test_load_params_refuses_an_orbax_directory(tmp_path):

@@ -2,6 +2,8 @@
 carried across by flowhigh_tpu_torch.compat.jax_params, at a tiny config
 (dim 64, depth 2, 2 x 16 heads) with a padding mask."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,13 @@ from flowhigh_tpu.models import forward_with_cond_scale as jax_cfg_forward
 from flowhigh_tpu_torch.compat import seeded_init_, vector_field_state_from_jax
 from flowhigh_tpu_torch.config import ModelConfig
 from flowhigh_tpu_torch.models import VectorFieldNet, forward_with_cond_scale
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 TINY = dict(dim_in=32, dim=64, depth=2, heads=2, dim_head=16)
 

@@ -7,6 +7,7 @@ GateLoop's doubling scan; reference-layout checkpoints through
 ``from_local``; ``generate`` with the options."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -30,6 +31,13 @@ from flowhigh_tpu_torch.models import (GateLoop, VectorFieldNet,
 from flowhigh_tpu_torch.models.transformer import linear_scan
 from test_torch_serving import FILE_VOCODER
 from test_torch_sr import TINY_VOCODER, _configs, _perturbed_1d
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 TINY = dict(dim_in=8, dim=16, depth=2, heads=2, dim_head=4)
 OPTIONS = {

@@ -5,6 +5,8 @@ configuration, weights and batch). The JAX side is the JAX trainer's own
 jitted step, one compile.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,13 @@ from flowhigh_tpu.train.vocoder_trainer import (
     VocoderTrainState as JaxVocoderTrainState)
 from test_torch_vocoder_train import (KW, TINY, make_batch, make_params,
                                       port_leaves, port_trainer, rel_l2)
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 @pytest.fixture(autouse=True, scope="module")

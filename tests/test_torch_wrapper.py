@@ -6,6 +6,7 @@ tests/test_torch_train_loss.py."""
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -36,6 +37,13 @@ from test_torch_sample import _jax_draw
 from test_torch_sr import _perturbed_1d
 from test_torch_train_loss import jax_draws
 from test_torch_vector_options import _field_params
+
+# one share of the machine's cores per pytest-xdist worker for torch's
+# intra-op threads: workers that each spin a pool of every core
+# oversubscribe the machine
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(
+        os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # tests/test_api_compat.py's wrapper
 VOCODER = dict(num_mels=256, upsample_initial_channel=16,
